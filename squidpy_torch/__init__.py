@@ -1,0 +1,15 @@
+"""squidpy_torch: the PyTorch/CUDA port of squidpy_tpu, one slice at a time.
+
+This slice: the kNN spatial graph, ``gr.nhood_enrichment`` and
+``gr.co_occurrence``. It imports torch, numpy and scipy, never jax or
+squidpy_tpu. The device is explicit: ``cuda`` by default, ``set_device("cpu")``
+(or ``with set_device("cpu"):``) for the CPU.
+"""
+
+from __future__ import annotations
+
+from squidpy_torch import gr
+from squidpy_torch._constants import Key
+from squidpy_torch._device import get_device, set_device
+
+__all__ = ["Key", "get_device", "gr", "set_device"]

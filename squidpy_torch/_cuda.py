@@ -1,0 +1,123 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+All kernels compile with ``nvcc`` for ``sm_90a`` into one shared library with
+a plain C interface, loaded with ``ctypes``. The build runs at first use, into
+``squidpy_torch/_build/``, keyed by a hash of the sources and flags, so a
+fresh checkout builds everything on its first kernel call. Nothing here is
+imported or compiled on a machine without a card: the wrappers in the ops
+modules reach :func:`library` only for CUDA tensors.
+
+``launches`` counts, per kernel, the launches its wrapper made; a run resets
+it with :func:`reset_launches` and reads it afterwards to show which kernels
+the path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["KERNELS", "build_log", "check", "launches", "library", "require", "reset_launches", "stream_ptr"]
+
+_PKG = Path(__file__).resolve().parent
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# kernel name -> (source in the repo, TPU/XLA code it replaces)
+KERNELS = {
+    "binned_pairs": ("squidpy_torch/csrc/binned_pairs.cu", "squidpy_tpu/ops/pallas_binned.py:196"),
+    "pair_counts": ("squidpy_torch/csrc/pair_counts.cu", "squidpy_tpu/ops/nhood.py:123"),
+    "index_cipher": ("squidpy_torch/csrc/index_cipher.cu", "squidpy_tpu/_core/index_cipher.py:75"),
+}
+
+launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_lib: ctypes.CDLL | None = None
+build_log = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _I, _P, _I, _P],
+    "sqt_pair_counts": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "sqt_binned_pairs": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("`nvcc` was not found on PATH or under $CUDA_HOME/bin; cannot build the CUDA kernels.")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if the sources changed."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    sources = sorted(_SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for f in sorted(_SRC_DIR.glob("*.cu*")):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    so = _BUILD_DIR / f"libsquidpy_torch_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+        build_log = proc.stderr
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sqt_error_string.argtypes = [ctypes.c_int]
+    lib.sqt_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = library().sqt_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel `{kernel}` failed to launch: error {code} ({msg}).")
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple[int, ...] | None = None) -> None:
+    """Validate a tensor handed to a kernel: CUDA, dtype, shape, contiguity."""
+    if t.device.type != "cuda":
+        raise ValueError(f"`{name}` must be a CUDA tensor, found device `{t.device}`.")
+    if t.dtype != dtype:
+        raise TypeError(f"`{name}` must have dtype {dtype}, found {t.dtype}.")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"`{name}` must have shape {tuple(shape)}, found {tuple(t.shape)}.")
+    if not t.is_contiguous():
+        raise ValueError(f"`{name}` must be contiguous.")

@@ -1,0 +1,72 @@
+"""Graph-module utilities (counterpart of ``squidpy_tpu/gr/_utils.py``), without pandas.
+
+Containers are duck-typed as in the JAX package: ``.obs``, ``.obsm``,
+``.obsp`` and ``.uns`` mappings, where a categorical ``obs[key]`` exposes
+``.cat.codes`` and ``.cat.categories``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+__all__ = [
+    "_assert_categorical_obs",
+    "_assert_connectivity_key",
+    "_assert_spatial_basis",
+    "_categorical_codes",
+    "_save_data",
+    "extract_adata_if_sdata",
+]
+
+
+def extract_adata_if_sdata(adata: Any, table_key: str | None = None) -> Any:
+    """Accept AnnData or SpatialData (duck-typed on ``.tables``); return the table."""
+    if hasattr(adata, "tables"):
+        tables = adata.tables
+        if table_key is not None:
+            if table_key not in tables:
+                raise KeyError(f"Table `{table_key}` not found in `sdata.tables`.")
+            return tables[table_key]
+        if len(tables) != 1:
+            raise ValueError(
+                f"Expected exactly one table in `sdata.tables`, found `{len(tables)}`. Please specify `table_key`."
+            )
+        return next(iter(tables.values()))
+    return adata
+
+
+def _assert_categorical_obs(adata: Any, key: str) -> None:
+    if key not in adata.obs:
+        raise KeyError(f"Key `{key}` not found in `adata.obs`.")
+    col = adata.obs[key]
+    cat = getattr(col, "cat", None)
+    if cat is None or not hasattr(cat, "codes") or not hasattr(cat, "categories"):
+        raise TypeError(
+            f"Expected `adata.obs[{key!r}]` to be `categorical`, found `{getattr(col, 'dtype', type(col))}`."
+        )
+
+
+def _categorical_codes(adata: Any, key: str) -> tuple[np.ndarray, int]:
+    """``(codes as int32, number of categories)`` of a categorical obs column."""
+    col = adata.obs[key]
+    return np.asarray(col.cat.codes, dtype=np.int32), len(col.cat.categories)
+
+
+def _assert_connectivity_key(adata: Any, key: str) -> None:
+    if key not in adata.obsp:
+        raise KeyError(
+            f"Spatial connectivity key `{key}` not found in `adata.obsp`. "
+            f"Please run `squidpy_torch.gr.spatial_neighbors_knn` first."
+        )
+
+
+def _assert_spatial_basis(adata: Any, key: str) -> None:
+    if key not in adata.obsm:
+        raise KeyError(f"Spatial basis `{key}` not found in `adata.obsm`.")
+
+
+def _save_data(adata: Any, *, attr: str, key: str, data: Any) -> None:
+    """Write a result under a conventional key."""
+    getattr(adata, attr)[key] = data

@@ -1,0 +1,91 @@
+"""Exact k-nearest-neighbour search (counterpart of ``squidpy_tpu/ops/knn.py``).
+
+Same dispatch as the JAX package: an exact brute-force search on the device
+up to ``_BRUTE_FORCE_MAX_N`` points, the multi-threaded host ``cKDTree``
+beyond. The brute force is plain torch (the JAX version is XLA code, not a
+Pallas kernel): expanded-form squared distances by ``torch.matmul`` with TF32
+off, ``torch.topk``, then exact difference-form distances for the winners.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from squidpy_torch._device import get_device
+
+__all__ = ["auto_knn", "brute_force_knn", "pairwise_sq_dists"]
+
+# above this size the O(n^2) device sweep loses to the host tree; both are
+# exact, so the dispatch is purely a performance decision
+_BRUTE_FORCE_MAX_N = 50_000
+
+# the TF32 switch is process-wide; graphs built in threads (library_key with
+# n_jobs > 1) must not restore it under each other's products
+_TF32_LOCK = threading.Lock()
+
+
+def auto_knn(coords: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Exact kNN: device brute force for n <= 50k, host KDTree beyond."""
+    coords = np.ascontiguousarray(coords)
+    n = coords.shape[0]
+    if n <= _BRUTE_FORCE_MAX_N:
+        return brute_force_knn(coords, k)
+    if k >= n:
+        raise ValueError(f"Expected `n_neighs` < number of observations ({n}), found `{k}`.")
+    from scipy.spatial import cKDTree
+
+    d, i = cKDTree(coords).query(coords, k=k + 1, workers=-1)
+    self_pos = i == np.arange(n)[:, None]
+    # duplicates can push the self index out of the top k+1 — then drop the
+    # farthest entry instead (any k of the tied nearest are correct)
+    drop = np.where(self_pos.any(axis=1), self_pos.argmax(axis=1), k)
+    keep = np.ones((n, k + 1), dtype=bool)
+    keep[np.arange(n), drop] = False
+    return d[keep].reshape(n, k), i[keep].reshape(n, k).astype(np.int32)
+
+
+def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Expanded-form squared distances ``(m, n)``, clamped at 0; the product
+    runs in full float32 (TF32 off for the call)."""
+    a2 = (a * a).sum(dim=1, keepdim=True)
+    b2 = (b * b).sum(dim=1, keepdim=True)
+    with _TF32_LOCK:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cross = a @ b.T
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return torch.clamp_min(a2 + b2.T - 2.0 * cross, 0.0)
+
+
+def brute_force_knn(
+    coords: np.ndarray, k: int, *, exclude_self: bool = True, row_tile: int = 1024
+) -> tuple[np.ndarray, np.ndarray]:
+    """Exact euclidean kNN ``(distances, indices)`` of shape ``(n, k)``, sorted
+    by ascending distance (sklearn's ``kneighbors`` contract)."""
+    coords = np.ascontiguousarray(coords, dtype=np.float32)
+    n = coords.shape[0]
+    if k >= n:
+        raise ValueError(f"Expected `n_neighs` < number of observations ({n}), found `{k}`.")
+    x = torch.from_numpy(coords).to(get_device())
+    dists, idxs = [], []
+    for r0 in range(0, n, row_tile):
+        rows = x[r0 : r0 + row_tile]
+        d2 = pairwise_sq_dists(rows, x)
+        if exclude_self:
+            ar = torch.arange(rows.shape[0], device=x.device)
+            d2[ar, r0 + ar] = float("inf")
+        idx = torch.topk(d2, k, dim=1, largest=False, sorted=True).indices
+        # exact distances via the difference form: the expansion loses
+        # precision for near-coincident points
+        diff = x[idx] - rows[:, None, :]
+        dists.append(torch.sqrt((diff * diff).sum(dim=-1)).cpu().numpy())
+        idxs.append(idx.to(torch.int32).cpu().numpy())
+    d = np.concatenate(dists)
+    i = np.concatenate(idxs)
+    order = np.argsort(d, axis=1, kind="stable")
+    return np.take_along_axis(d, order, axis=1), np.take_along_axis(i, order, axis=1)

@@ -1,7 +1,8 @@
 """squidpy_torch: the PyTorch/CUDA port of squidpy_tpu, one slice at a time.
 
-This slice: the kNN spatial graph, ``gr.nhood_enrichment`` and
-``gr.co_occurrence``. It imports torch, numpy and scipy, never jax or
+Ported so far: the kNN spatial graph, ``gr.nhood_enrichment``,
+``gr.co_occurrence`` (also with ``use_pallas=True``) and
+``gr.spatial_autocorr`` (Moran's I, Geary's C). It imports torch, numpy and scipy, never jax or
 squidpy_tpu. The device is explicit: ``cuda`` by default, ``set_device("cpu")``
 (or ``with set_device("cpu"):``) for the CPU.
 """

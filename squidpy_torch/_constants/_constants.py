@@ -17,3 +17,9 @@ class Transform(ModeEnum):
 class CoordType(ModeEnum):
     GRID = "grid"
     GENERIC = "generic"
+
+
+@unique
+class SpatialAutocorr(ModeEnum):
+    MORAN = "moran"
+    GEARY = "geary"

@@ -110,6 +110,47 @@ class SpatialGraph:
             distances=distances,
         )
 
+    def degree_buckets(
+        self, *, pad_multiple: int = 8, max_buckets: int = 4, min_saving: float = 1.3
+    ) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] | None:
+        """Row partition by degree for skewed graphs (copied from the JAX package).
+
+        Returns per-bucket ``(rows int32, indices[rows, :k_b], weights[rows,
+        :k_b])`` with bucket widths from host degree quantiles, or None when the
+        padded layout is already tight (slot saving below ``min_saving``),
+        which includes every kNN graph, or when the ELL rows are not
+        left-packed.
+        """
+        n, k_max = self.indices.shape
+        if n == 0 or k_max <= pad_multiple:
+            return None
+        deg_dev = self.mask.sum(dim=1, dtype=torch.int32)
+        slots = torch.arange(k_max, dtype=torch.int32, device=self.mask.device)
+        if not bool(torch.equal(self.mask, slots[None, :] < deg_dev[:, None])):
+            return None  # bucketing a non-packed layout would drop entries
+        deg = deg_dev.cpu().numpy()
+        nz = deg[deg > 0]
+        if not len(nz):
+            return None
+        qs = np.quantile(nz, [0.5, 0.75, 0.9][: max_buckets - 1])
+        edges = sorted({min(int(round_up(max(int(q), 1), pad_multiple)), k_max) for q in qs} | {k_max})
+        padded = sum(
+            int((deg <= hi).sum() - (deg <= lo).sum()) * hi for lo, hi in zip([-1] + edges[:-1], edges)
+        )
+        if (n * k_max) / max(padded, 1) < min_saving:
+            return None
+        out = []
+        lo = -1
+        for hi in edges:
+            rows = np.nonzero((deg > lo) & (deg <= hi))[0]
+            lo = hi
+            if not len(rows):
+                continue
+            rows_dev = torch.from_numpy(rows.astype(np.int32)).to(self.indices.device)
+            sel = rows_dev.long()
+            out.append((rows_dev, self.indices[sel, :hi].contiguous(), self.weights[sel, :hi].contiguous()))
+        return out if len(out) > 1 else None
+
 
 def _cache_key(connectivity_key: str) -> str:
     return f"__squidpy_torch_ell__{connectivity_key}"

@@ -164,6 +164,6 @@ def cipher_label_columns(
 
 def cipher_index_batch(keys: np.ndarray, n: int, *, rounds: int = DEFAULT_ROUNDS) -> torch.Tensor:
     """Batched index permutations ``(n_keys, n)`` int32: row ``p`` is the keyed
-    bijection of ``arange(n)``."""
-    pos = cipher_columns(_round_keys(keys, rounds), n, None, torch.int32)
-    return pos.T.contiguous()
+    bijection of ``arange(n)``. The result is the transposed view of the
+    ``(n, n_keys)`` table K4 writes, not a copy (4 GB at 1M x 1000)."""
+    return cipher_columns(_round_keys(keys, rounds), n, None, torch.int32).T

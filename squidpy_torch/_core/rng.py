@@ -18,7 +18,15 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["permutation_columns", "random_bits", "shuffle_group_columns", "spawn_keys", "threefry2x32"]
+__all__ = [
+    "permutation_batch",
+    "permutation_columns",
+    "random_bits",
+    "shuffle_group_columns",
+    "spawn_keys",
+    "split_keys",
+    "threefry2x32",
+]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = np.uint32(0x1BD11BDA)
@@ -84,6 +92,40 @@ def random_bits(keys: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     expand = (...,) + (None,) * len(shape)
     b1, b2 = threefry2x32(keys[..., 0][expand], keys[..., 1][expand], hi, lo)
     return (b1 ^ b2).reshape(keys.shape[:-1] + shape)
+
+
+def split_keys(keys: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` of each key: ``(..., 2)`` -> ``(..., num, 2)``."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    hi, lo = _iota_2x32((num,))
+    b1, b2 = threefry2x32(keys[..., 0][..., None], keys[..., 1][..., None], hi, lo)
+    return np.stack([b1, b2], axis=-1)
+
+
+def permutation_batch(keys: np.ndarray, n: int, device: torch.device) -> torch.Tensor:
+    """``(n_keys, n)`` int32 index permutations, row ``p`` bitwise equal to
+    ``jax.random.permutation(keys[p], n)``.
+
+    JAX shuffles by ``ceil(3 ln n / ln(2^32 - 1))`` rounds (2 at n = 3000):
+    each round splits the key, draws 32-bit words from the subkey and stably
+    sorts the running permutation by them. The words are made on the host,
+    the stable sorts run on ``device``; keys are taken in chunks so the host
+    words stay within ~32 MB.
+    """
+    keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+    uint32max = np.iinfo(np.uint32).max
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(uint32max)))
+    step = max(1, (1 << 22) // max(n, 1))
+    parts = []
+    for c0 in range(0, keys.shape[0], step):
+        key = keys[c0 : c0 + step]
+        x = torch.arange(n, dtype=torch.int64, device=device).expand(key.shape[0], n)
+        for _ in range(rounds):
+            key, sub = np.moveaxis(split_keys(key), -2, 0)
+            words = torch.from_numpy(random_bits(sub, (n,)).astype(np.int64)).to(device)
+            x = torch.gather(x, 1, torch.sort(words, dim=1, stable=True).indices)
+        parts.append(x.to(torch.int32))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def permutation_columns(keys: np.ndarray, values: torch.Tensor, payload_dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -40,6 +40,9 @@ KERNELS = {
     "binned_pairs": ("squidpy_torch/csrc/binned_pairs.cu", "squidpy_tpu/ops/pallas_binned.py:196"),
     "pair_counts": ("squidpy_torch/csrc/pair_counts.cu", "squidpy_tpu/ops/nhood.py:123"),
     "index_cipher": ("squidpy_torch/csrc/index_cipher.cu", "squidpy_tpu/_core/index_cipher.py:75"),
+    "dense_pairs": ("squidpy_torch/csrc/dense_pairs.cu", "squidpy_tpu/ops/pallas_pairs.py:75"),
+    "ell_autocorr": ("squidpy_torch/csrc/ell_autocorr.cu", "squidpy_tpu/ops/autocorr.py:59"),
+    "perm_autocorr": ("squidpy_torch/csrc/perm_autocorr.cu", "squidpy_tpu/ops/autocorr.py:272"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -53,6 +56,9 @@ _SIGNATURES = {
     "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _I, _P, _I, _P],
     "sqt_pair_counts": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "sqt_binned_pairs": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "sqt_dense_pairs": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sqt_ell_autocorr": [_I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "sqt_perm_autocorr": [_I, _P, _P, _P, _I, _I, _P, _I, ctypes.c_int64, ctypes.c_int64, _I, _P, _P, _P],
 }
 
 

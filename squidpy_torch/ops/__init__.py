@@ -2,5 +2,8 @@
 
 - :mod:`squidpy_torch.ops.binned_kernel` — K1, binned pair counts (``csrc/binned_pairs.cu``);
 - :mod:`squidpy_torch.ops.nhood` — K3, cluster-pair counts (``csrc/pair_counts.cu``);
-- :mod:`squidpy_torch._core.index_cipher` — K4, cipher shuffles (``csrc/index_cipher.cu``).
+- :mod:`squidpy_torch._core.index_cipher` — K4, cipher shuffles (``csrc/index_cipher.cu``);
+- :mod:`squidpy_torch.ops.dense_pairs` — K2, dense pair counts (``csrc/dense_pairs.cu``);
+- :mod:`squidpy_torch.ops.autocorr` — K5a, ELL autocorrelation sums (``csrc/ell_autocorr.cu``), and
+  K5b, permuted Moran/Geary numerators (``csrc/perm_autocorr.cu``).
 """

@@ -127,8 +127,8 @@ def test_co_occurrence_counts_binned_below_dispatch():
 
 def test_co_occurrence_rejects_bad_input():
     adata = _adata(100, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="K2"):
-        sqt.gr.co_occurrence(adata, "cl", use_pallas=True)
+    with pytest.raises(ValueError, match="at most 128 clusters"):
+        sqt.gr.co_occurrence(_adata(100, 129, seed=0), "cl", use_pallas=True)
     with pytest.raises(ValueError, match="length"):
         sqt.gr.co_occurrence(adata, "cl", interval=np.array([3.0]))
     with pytest.raises(ValueError, match="method"):

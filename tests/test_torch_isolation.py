@@ -33,19 +33,27 @@ _SLICE = textwrap.dedent(
             self.cat = SimpleNamespace(codes=codes, categories=[str(i) for i in range(k)])
 
     class StandIn:
-        def __init__(self, coords, codes, k):
+        def __init__(self, coords, codes, k, x):
             self.obs, self.obsm, self.obsp, self.uns = {"cl": Cat(codes, k)}, {"spatial": coords}, {}, {}
+            self.X, self.var_names = x, [f"g{i}" for i in range(x.shape[1])]
 
     sqt.set_device("cpu")
     rng = np.random.default_rng(0)
     n = 3000
-    adata = StandIn(rng.uniform(0, 500, (n, 2)), rng.integers(0, 5, n).astype(np.int32), 5)
+    x = rng.poisson(2.0, (n, 6)).astype(np.float32)
+    adata = StandIn(rng.uniform(0, 500, (n, 2)), rng.integers(0, 5, n).astype(np.int32), 5, x)
     sqt.gr.spatial_neighbors_knn(adata, n_neighs=6)
     sqt.gr.nhood_enrichment(adata, "cl", n_perms=20, seed=0)
     sqt.gr.co_occurrence(adata, "cl", interval=10)
     assert adata.obsp["spatial_connectivities"].nnz == n * 6
     assert adata.uns["cl_nhood_enrichment"]["zscore"].shape == (5, 5)
     assert np.isfinite(adata.uns["cl_co_occurrence"]["occ"]).all()
+    sqt.gr.co_occurrence(adata, "cl", interval=6, use_pallas=True)
+    assert np.isfinite(adata.uns["cl_co_occurrence"]["occ"]).all()
+    sqt.gr.spatial_autocorr(adata, mode="moran", n_perms=10, seed=0)
+    sqt.gr.spatial_autocorr(adata, mode="geary")
+    assert np.isfinite(adata.uns["moranI"].columns["pval_sim"]).all()
+    assert sorted(adata.uns["gearyC"].index) == adata.var_names
     leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu") if sys.modules.get(m) is not None]
     assert not leaked, leaked
     print("SLICE OK")

@@ -21,9 +21,16 @@ Phases (any failure exits non-zero; no error is caught and passed over):
 4. each kernel against its plain torch version on the card, with both
    times, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, its time: first on the main
-   path's own inputs, then at fixed shapes and in the branches the main path
-   does not take (K3 and K1 with global atomics, K1 in 3D, K5a on a skewed
-   graph's degree buckets, K2 with 128 classes and in 3D). Integer kernels
+   path's own inputs (K5b on the bf16 operands ``spatial_autocorr`` gives it
+   at 1M cells, then its Moran time with the positions shrunk to the
+   identity, a quarter and an eighth of the rows; K1's line with its
+   distinct tile pairs and the pairs its culling keeps, then on the same
+   points and thresholds with 40 classes, where its shared histogram holds
+   only the top rows of a window), then at fixed shapes and in the branches
+   the main path does not take (K3 with global atomics, K1 with 96 classes
+   (a few shared rows) and 200 (global atomics only), K1 in 3D, K5a on a
+   skewed graph's degree buckets and K5b's float32 operands on that
+   200k-cell graph, K2 with 128 classes and in 3D). Integer kernels
    (K1-K4) and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
@@ -57,6 +64,7 @@ AUTOCORR_PERMS = 100
 PALLAS_CELLS = 200_000
 K2_SUBSET_CELLS = 30_000  # a smaller K2 shape drawn from the main path's cells, beside its own launch
 SKEWED_CELLS = 200_000
+K1_MANY_CLS = 40  # a fine Xenium/MERFISH annotation: K1's shared histogram holds only part of a window
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; 32-bit integer ops are counted at it too
@@ -238,41 +246,70 @@ def random_pair_counts(n: int, k: int, k_max: int, n_cols: int, n_cls: int) -> d
     return check_pair_counts(f"random k={k}", idx, mask, cols, cols, n_cls)
 
 
+def _k1_work(coords_p, n: int, seg, thr, tile: int) -> dict:
+    """What K1 does on a plan: its segments (distinct tile pairs), their
+    candidate pairs i < j of real points, the 32 x 32 chunk pairs its
+    culling keeps (the plain predicate; chunk a <= b on a diagonal tile) and
+    the candidate pairs inside them."""
+    import torch
+
+    from squidpy_torch.ops.binned_kernel import chunk_pairs_kept
+
+    m = -(-tile // 32)
+    ti, tj = seg[0].long(), seg[1].long()
+    diag = ti == tj
+    rows = (n - ti * tile).clamp(0, tile)
+    cols = (n - tj * tile).clamp(0, tile)
+    pairs = torch.where(diag, rows * (rows - 1) // 2, rows * cols)
+    kept = chunk_pairs_kept(coords_p, n, seg, thr, tile)
+    start = torch.arange(m, device=seg.device) * 32
+    size_i = (rows[:, None] - start).clamp(0, 32)  # real points of each chunk
+    size_j = (cols[:, None] - start).clamp(0, 32)
+    chunk_pairs = size_i[:, :, None] * size_j[:, None, :]
+    same = torch.eye(m, dtype=torch.bool, device=seg.device)
+    chunk_pairs = torch.where(diag[:, None, None] & same, size_i[:, :, None] * (size_i[:, :, None] - 1) // 2,
+                              chunk_pairs)
+    upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=seg.device))
+    kept = kept & (~diag[:, None, None] | upper)
+    return {"segments": int(seg.shape[1]), "pairs": int(pairs.sum()), "chunk_pairs_kept": int(kept.sum()),
+            "chunk_pairs": int((~diag).sum()) * m * m + int(diag.sum()) * m * (m + 1) // 2,
+            "pairs_kept": int(chunk_pairs[kept].sum())}
+
+
 def check_binned_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int,
                        plain_warm: bool = True) -> dict:
     """K1 boundary counts of the plan ``co_occurrence`` makes for these points
     and squared thresholds, against the plain version."""
     import torch
 
-    from squidpy_torch.ops.binned_kernel import _binned_plain, _k1_smem, binned_inputs, binned_pairs
+    from squidpy_torch.ops.binned_kernel import _binned_plain, _k1_layout, binned_inputs, binned_pairs, segments
     from squidpy_torch.ops.pairbins import sorted_plan
 
     coords_s, labels_s, plan = sorted_plan(pts, labs, thr, n_cls)
     coords_p, labels_p, items, thr_t, n_thr = binned_inputs(coords_s, labels_s, plan, torch.device("cuda"))
     args = (coords_p, labels_p, plan.n, items, thr_t, n_thr, plan.tile, plan.gsize, n_cls)
     dim = pts.shape[1]
-    shared = _k1_smem(plan.tile, dim, plan.gsize, n_cls)[1]
-    # every candidate pair of every item with an open window: (3d - 1) flops
-    # of the difference-form d2, one compare with the window and a bin search
-    # over the group; the inputs are a few MB
-    m = plan.n_items
-    ti, tj = plan.ti[:m].astype(np.int64), plan.tj[:m].astype(np.int64)
-    off = plan.gid[:m].astype(np.int64) * plan.gsize
-    live = (ti >= 0) & (np.minimum(np.minimum(plan.rfull[:m] - off, plan.gsize), n_thr - off)
-                        > np.maximum(plan.rempty[:m] - off, 0))
-    rows = np.clip(plan.n - ti * plan.tile, 0, plan.tile)
-    cols = np.clip(plan.n - tj * plan.tile, 0, plan.tile)
-    pairs = float(np.where(ti == tj, rows * (rows - 1) // 2, rows * cols)[live].sum())
-    ops = pairs * (3 * dim - 1 + 1 + np.ceil(np.log2(plan.gsize + 1)))
-    nbytes = plan.n * (dim + 1) * 4 + 5 * m * 4 + plan.thr_groups.size * 4 + n_thr * n_cls * n_cls * 8
-    return _compare(
+    hist_rows = _k1_layout(plan.tile, dim, n_thr, n_cls)[1]
+    seg = segments(items, n_thr, plan.gsize)
+    work = _k1_work(coords_p, plan.n, seg, thr_t, plan.tile)
+    # what this run's data needs: every candidate pair inside the chunk pairs
+    # the exact culling keeps, once (the (3d - 1) flops of the difference-form
+    # d2 and one compare with the window's last threshold), and one box test
+    # per chunk pair (per dimension two differences, two maxima, a multiply
+    # and an add; then the margin's multiply and subtract and the compare);
+    # the inputs, the segments and the (L, C, C) int64 output once
+    ops = work["pairs_kept"] * (3 * dim - 1 + 1) + work["chunk_pairs"] * (6 * dim + 3)
+    nbytes = plan.n * (dim + 1) * 4 + seg.numel() * 4 + n_thr * 4 + n_thr * n_cls * n_cls * 8
+    res = _compare(
         f"binned_pairs {name} n={plan.n} d={dim} C={n_cls} L={n_thr} tile={plan.tile} items={plan.n_items} "
-        f"shared_hist={shared}",
+        f"tile_pairs={work['segments']} candidate_pairs={work['pairs']} chunk_pairs_kept={work['chunk_pairs_kept']}"
+        f"/{work['chunk_pairs']} pairs_kept={work['pairs_kept']} hist_rows={hist_rows}",
         lambda: binned_pairs(*args),
         lambda: _binned_plain(*args),
         repeats=3, bound=_bound(nbytes, ops),
         plain_warm=plain_warm,
     )
+    return {**res, "tile_pairs": work["segments"], "pairs_kept": work["pairs_kept"]}
 
 
 def random_binned_pairs(n: int, dim: int, n_cls: int) -> dict:
@@ -470,23 +507,46 @@ def check_ell_autocorr(name: str, idx, w, x, z, rows=None, library=None) -> list
 
 def check_perm_autocorr(name: str, z, u, r, perms) -> list[dict]:
     """K5b for Moran and Geary against the plain version, to
-    ``SUM_TOL * sum |terms|`` (for Geary the bound |z| (|z| r + 2 |u|))."""
+    ``SUM_TOL * sum |terms|`` (for Geary the bound |z| (|z| r + 2 |u|)), in
+    the operands' dtype (bf16 at n >= 2^19, float32 below)."""
     from squidpy_torch.ops.autocorr import _perm_plain, perm_autocorr
 
     n, g = z.shape
     n_perms = perms.shape[0]
+    elem = z.element_size()
     out = []
     for mode, rr, flops in (("moran", None, 2), ("geary", r, 5)):
         u_abs = -u.abs() if mode == "geary" else u.abs()
         terms = _perm_plain(mode, z.abs(), u_abs, rr, perms)
-        nbytes = 2 * n * g * 4 + n_perms * n * 4 + (n * 4 if rr is not None else 0) + n_perms * g * 4
+        # z, u (and r) in their own dtype and the positions once, the
+        # float32 (P, g) numerators once
+        nbytes = 2 * n * g * elem + n_perms * n * 4 + (n * elem if rr is not None else 0) + n_perms * g * 4
         out.append(_compare(
-            f"perm_autocorr {name} mode={mode} n={n} g={g} P={n_perms}",
+            f"perm_autocorr {name} mode={mode} n={n} g={g} P={n_perms} {str(z.dtype).replace('torch.', '')}",
             lambda mode=mode, rr=rr: perm_autocorr(mode, z, u, perms, rr),
             lambda mode=mode, rr=rr: _perm_plain(mode, z, u, rr, perms),
             repeats=3, bound=_bound(nbytes, flops * n_perms * n * g), terms=terms,
         ))
     return out
+
+
+def perm_working_set(z, u, perms) -> None:
+    """K5b Moran's time with the positions replaced by the identity and
+    folded into a quarter and an eighth of the rows: the gathered working set
+    of a gene tile shrinks while the rest of the work stays (a diagnostic;
+    the results are not checked)."""
+    import torch
+
+    from squidpy_torch.ops.autocorr import perm_autocorr
+
+    n = z.shape[0]
+    identity = torch.arange(n, dtype=torch.int32, device=z.device).expand(perms.shape[0], n)
+    times = []
+    for name, pos in (("all", perms), ("identity", identity), ("quarter", perms % (n // 4)),
+                      ("eighth", perms % (n // 8))):
+        times.append(f"{name}={_time_ms(lambda pos=pos: perm_autocorr('moran', z, u, pos), 3)[1]:.3f}ms")
+    print(f"[diag] perm_autocorr moran n={n} g={z.shape[1]} P={perms.shape[0]} {str(z.dtype)[6:]} "
+          f"by positions: {' '.join(times)}", flush=True)
 
 
 def check_dense_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int,
@@ -531,6 +591,7 @@ def autocorr_kernel_checks(adata: StandIn, results: dict) -> dict[str, list[dict
     and default thresholds (K2), then a ``K2_SUBSET_CELLS``-cell subset of them."""
     import torch
 
+    from squidpy_torch._constants._constants import BF16_GATHER_MIN_N
     from squidpy_torch._core.index_cipher import cipher_index_batch
     from squidpy_torch._core.rng import spawn_keys
     from squidpy_torch.ops.autocorr import ell_autocorr
@@ -549,8 +610,13 @@ def autocorr_kernel_checks(adata: StandIn, results: dict) -> dict[str, list[dict
     ub = ell_autocorr("spmv", graph.indices, graph.weights, zb)
     perms = cipher_index_batch(spawn_keys(0, AUTOCORR_PERMS), n)
     r = torch.from_numpy(np.asarray(g_csr.sum(axis=1), np.float32).ravel()).cuda()
-    k5b = check_perm_autocorr("main path, first block", zb, ub, r, perms)
-    del zb, ub, perms
+    # the null's operands as spatial_autocorr hands them to K5b at this size
+    dt = torch.bfloat16 if n >= BF16_GATHER_MIN_N else torch.float32
+    zg, ug = zb.to(dt), ub.to(dt)
+    del zb, ub
+    k5b = check_perm_autocorr("main path, first block", zg, ug, r.to(dt), perms)
+    perm_working_set(zg, ug, perms)
+    del zg, ug, perms
 
     small = results["pallas_dataset"]
     pts = np.asarray(small.obsm["spatial"], np.float32)
@@ -607,6 +673,14 @@ def branch_checks() -> dict[str, list[dict]]:
         u_plain[rows.long()] = _ell_plain("spmv", idx, w, z, rows)
     if not torch.equal(spmv_genes_bucketed(buckets, z), u_plain):
         raise AssertionError("bucketed u = W z differs from the plain version")
+    # K5b's float32 operands (below 2^19 cells), over this graph's u = W z
+    from squidpy_torch._core.index_cipher import cipher_index_batch
+    from squidpy_torch._core.rng import spawn_keys
+
+    u = spmv_genes_bucketed(buckets, z)
+    r = torch.from_numpy(np.asarray(_normalized_graph(adata)[0].sum(axis=1), np.float32).ravel()).cuda()
+    k5b = check_perm_autocorr("skewed graph, float32", z, u, r, cipher_index_batch(spawn_keys(1, AUTOCORR_PERMS), n))
+    del u
     for mode, n_perms in (("moran", 20), ("geary", None)):
         res = sqt.gr.spatial_autocorr(adata, mode=mode, n_perms=n_perms, seed=0, copy=True)
         stat = "I" if mode == "moran" else "C"
@@ -621,7 +695,7 @@ def branch_checks() -> dict[str, list[dict]]:
         pts = rng.uniform(0.0, 10.0 * np.sqrt(n_pts), (n_pts, dim)).astype(np.float32)
         k2.append(check_dense_pairs("random, default interval", pts, rng.integers(0, n_cls, n_pts), _default_thresholds(pts),
                                     n_cls))
-    return {"ell_autocorr": k5a, "dense_pairs": k2}
+    return {"ell_autocorr": k5a, "perm_autocorr": k5b, "dense_pairs": k2}
 
 
 def _squared_thresholds(interval: np.ndarray) -> np.ndarray:
@@ -650,9 +724,13 @@ def main_path_kernel_checks(adata: StandIn, interval: np.ndarray) -> dict[str, l
     k3 = check_pair_counts("main path, first chunk", graph.indices, graph.mask, cols, cols, N_CLS)
     obs = torch.from_numpy(codes).cuda().reshape(-1, 1)
     k3_obs = check_pair_counts("main path, observed", graph.indices, graph.mask, obs, obs, N_CLS)
-    k1 = check_binned_pairs("main path, short range", np.asarray(adata.obsm["spatial"], np.float32), codes,
-                            _squared_thresholds(interval), N_CLS, plain_warm=False)
-    return {"index_cipher": [k4], "pair_counts": [k3, k3_obs], "binned_pairs": [k1]}
+    pts = np.asarray(adata.obsm["spatial"], np.float32)
+    k1 = check_binned_pairs("main path, short range", pts, codes, _squared_thresholds(interval), N_CLS,
+                            plain_warm=False)
+    many = np.random.default_rng(10).integers(0, K1_MANY_CLS, n).astype(np.int32)
+    k1_many = check_binned_pairs(f"main path points and thresholds, {K1_MANY_CLS} classes", pts, many,
+                                 _squared_thresholds(interval), K1_MANY_CLS, plain_warm=False)
+    return {"index_cipher": [k4], "pair_counts": [k3, k3_obs], "binned_pairs": [k1, k1_many]}
 
 
 def _row_sorted(m) -> tuple[np.ndarray, np.ndarray]:
@@ -814,7 +892,7 @@ def main() -> int:
     checks["pair_counts"] += [random_pair_counts(N_CELLS, N_NEIGHS, 8, 64, N_CLS),
                               random_pair_counts(N_CELLS, N_NEIGHS, 8, 16, 200)]
     checks["binned_pairs"] += [random_binned_pairs(200_000, 2, N_CLS), random_binned_pairs(100_000, 3, N_CLS),
-                               random_binned_pairs(20_000, 2, 96)]
+                               random_binned_pairs(20_000, 2, 96), random_binned_pairs(20_000, 2, 200)]
     for name, extra in branch_checks().items():
         checks[name] += extra
     phases["kernels_other_shapes"] = time.perf_counter() - t_phase

@@ -1,4 +1,5 @@
-"""User-facing enums of the ported slice (copy of ``squidpy_tpu/_constants/_constants.py``)."""
+"""User-facing enums of the ported slice (copy of ``squidpy_tpu/_constants/_constants.py``),
+and the port's numeric switches."""
 
 from __future__ import annotations
 
@@ -23,3 +24,10 @@ class CoordType(ModeEnum):
 class SpatialAutocorr(ModeEnum):
     MORAN = "moran"
     GEARY = "geary"
+
+
+# From this many cells on, the permutation null of ``spatial_autocorr`` takes
+# its operands (z, u = W z and the row sums of W) in bf16, as the JAX package
+# does with x64 off (``squidpy_tpu/gr/_ppatterns.py:253``, ``gather_bf16``).
+# The port has no x64 mode, so the size alone decides.
+BF16_GATHER_MIN_N = 1 << 19

@@ -18,7 +18,7 @@ import torch
 from scipy import sparse as sp
 from scipy import stats
 
-from squidpy_torch._constants._constants import SpatialAutocorr
+from squidpy_torch._constants._constants import BF16_GATHER_MIN_N, SpatialAutocorr
 from squidpy_torch._constants._pkg_constants import Key
 from squidpy_torch._core.device_x import device_expression
 from squidpy_torch._core.graph import SpatialGraph
@@ -143,7 +143,9 @@ def spatial_autocorr(
     Scores are one ELL pass per gene block (kernel K5a); with ``n_perms``
     the pass computes ``u = W z`` once and every permutation is a gather-dot
     over it (kernel K5b). Shuffles are the JAX package's: its sort shuffles
-    below 65,536 cells, its index cipher (kernel K4) above. Analytic
+    below 65,536 cells, its index cipher (kernel K4) above. From
+    ``BF16_GATHER_MIN_N`` cells on, the null's operands are bf16, as the JAX
+    package gathers them there. Analytic
     p-values follow Cliff & Ord. ``n_jobs``, ``backend`` and
     ``show_progress_bar`` are accepted for API compatibility and ignored;
     ``cache`` is not ported.
@@ -260,6 +262,9 @@ def spatial_autocorr(
 
     row_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=1), dtype=np.float32).ravel()).to(device)
     col_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=0), dtype=np.float32).ravel()).to(device)
+    # the null's operands: bf16 at scale, as the JAX package gathers them
+    # (its sims denominator then comes from the bf16 z; scores and cg never)
+    gather_dtype = torch.bfloat16 if n_cells >= BF16_GATHER_MIN_N else torch.float32
     score_parts: list[np.ndarray] = []
     sims_parts: list[np.ndarray] = []
     for start_col in range(0, n_feats, gene_block_size):
@@ -277,11 +282,12 @@ def spatial_autocorr(
         ub = _spmv(zb)
         if mode == SpatialAutocorr.MORAN:
             score_parts.append(to_host(moran_scores_from_u(zb, ub, s0)))
-            sims_parts.append(to_host(moran_perm_scores(zb, ub, perms, s0)))
+            sims_parts.append(to_host(moran_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype), perms, s0)))
         else:
             score_parts.append(to_host(geary_scores_from_u(zb, ub, row_sums_dev, col_sums_dev, s0)))
             cg = torch.sum(col_sums_dev[:, None] * (zb * zb), dim=0)  # permutation-invariant third term
-            sims_parts.append(to_host(geary_perm_scores(zb, ub, row_sums_dev, cg, perms, s0)))
+            sims_parts.append(to_host(geary_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype),
+                                                        row_sums_dev.to(gather_dtype), cg, perms, s0)))
     score = np.concatenate(score_parts).astype(np.float64) if score_parts else np.empty(0)
     sims = np.concatenate(sims_parts, axis=1).astype(np.float64) if sims_parts else None
 

@@ -13,13 +13,18 @@
   (``csrc/perm_autocorr.cu``) computes the sums for all permutations.
 
 A CPU tensor runs each kernel's plain torch version below, which follows the
-JAX package's order of operations; a CUDA tensor launches the kernel. The
-port computes in float32 everywhere (the JAX package's bf16 gathers at
-n >= 2^19 are a TPU choice the port does not copy).
+JAX package's order of operations; a CUDA tensor launches the kernel. Scores
+are float32. The permutation null takes its operands as the caller gives
+them: float32, or, at ``n >= BF16_GATHER_MIN_N`` cells, ``z``, ``u`` and
+``r`` in bf16 as the JAX package gathers them there. Products of bf16 values
+are exact in float32 and are summed in float32 or wider; the numerator is
+then rounded to bf16 once, and scaled in the JAX package's dtypes (see
+:func:`moran_perm_scores` and :func:`geary_perm_scores`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from squidpy_torch import _cuda
@@ -44,10 +49,15 @@ MODES = {"spmv": 0, "moran": 1, "geary": 2}
 # K5a launch: 32 genes x 8 rows per block; row groups sized for ~4096
 # blocks, each walking its rows in order
 _K5A_TARGET_BLOCKS = 4096
-# K5b launch: 32 genes x 32 permutations per block, over a fixed number of
-# row groups whose (R, P, g) partials are summed in a second pass
-_K5B_TARGET_BLOCKS = 2048
-_K5B_MAX_GROUPS = 64
+# K5b launch: one launch per 16-gene tile of u, which stays in L2 while the
+# tile's records are gathered (32-byte bf16 records from 2^19 rows, 64-byte
+# float32 records below, so at most 32 MB a tile); blocks of 32 / (record /
+# 16) permutations x a row group, ~1024 blocks a launch; the (groups, P, g)
+# partials are summed in a second pass
+_K5B_GENES = 16
+_K5B_TARGET_BLOCKS = 1024
+_K5B_MIN_GROUP_ROWS = 16 * 8  # one run of 16 rows for each of a block's 8 warps
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _ell_plain(mode: str, indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
@@ -197,79 +207,119 @@ def geary_scores_from_u(z: torch.Tensor, u: torch.Tensor, row_sums: torch.Tensor
 
 def _perm_plain(mode: str, z: torch.Tensor, u: torch.Tensor, r: torch.Tensor | None,
                 perms: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K5b: ``(P, g)`` permuted numerators, a few
-    permutations at a time."""
+    """Plain torch version of K5b: ``(P, g)`` float32 permuted numerators, a
+    few permutations at a time. bf16 operands are widened to float32 before
+    any product, so each product is exact as in the kernel."""
     n, g = z.shape
-    out = torch.empty((perms.shape[0], g), dtype=z.dtype, device=z.device)
+    zf = z.float()
+    out = torch.empty((perms.shape[0], g), dtype=torch.float32, device=z.device)
     step = max(1, (1 << 26) // max(n * g, 1))
     for p0 in range(0, perms.shape[0], step):
         pc = perms[p0 : p0 + step].long()
-        ug = u[pc]  # (c, n, g)
+        ug = u[pc].float()  # (c, n, g)
         if mode == "moran":
-            out[p0 : p0 + step] = torch.sum(z * ug, dim=1)
+            out[p0 : p0 + step] = torch.sum(zf * ug, dim=1)
         else:
-            out[p0 : p0 + step] = torch.sum(z * (z * r[pc][:, :, None] - 2.0 * ug), dim=1)
+            out[p0 : p0 + step] = torch.sum(zf * (zf * r[pc].float()[:, :, None] - 2.0 * ug), dim=1)
     return out
 
 
-def _k5b_groups(n: int, n_genes: int, n_perms: int) -> int:
-    tiles = -(-n_genes // 32) * -(-n_perms // 32)
-    return max(1, min(n, _K5B_MAX_GROUPS, -(-_K5B_TARGET_BLOCKS // tiles)))
+def _k5b_groups(n: int, n_perms: int, record: int) -> int:
+    perm_blocks = -(-n_perms // (32 * 16 // record))
+    return max(1, min(-(-n // _K5B_MIN_GROUP_ROWS), -(-_K5B_TARGET_BLOCKS // perm_blocks)))
+
+
+def _gene_tiles(x: torch.Tensor, w: int) -> torch.Tensor:
+    """``(n, g)`` -> ``(ceil(g / w), n, w)`` gene-tile-major copy, zero-padded."""
+    n, g = x.shape
+    pad = -g % w
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.view(n, (g + pad) // w, w).transpose(0, 1).contiguous()
 
 
 def perm_autocorr(mode: str, z: torch.Tensor, u: torch.Tensor, perms: torch.Tensor,
                   r: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel K5b: ``(P, g)`` float32 permuted numerators.
+    """Kernel K5b: ``(P, g)`` float32 permuted numerators, unrounded.
 
     ``moran``: ``sum_i z[i, g] u[p(i), g]``; ``geary``: ``sum_i z[i, g] (z[i, g]
-    r[p(i)] - 2 u[p(i), g])``. ``perms`` is ``(P, n)`` int32, read through its
-    strides, so the transposed view of K4's ``(n, P)`` positions needs no
-    copy. A CPU tensor runs the plain torch version; a CUDA tensor launches
-    the kernel.
+    r[p(i)] - 2 u[p(i), g])``. ``z``, ``u`` (and ``r``) are all float32 or all
+    bf16. ``perms`` is ``(P, n)`` int32, read through its strides, so the
+    transposed view of K4's ``(n, P)`` positions needs no copy. A CPU tensor
+    runs the plain torch version; a CUDA tensor launches the kernel.
     """
     if mode not in ("moran", "geary"):
         raise ValueError(f"Unknown permutation mode `{mode}`; expected 'moran' or 'geary'.")
     if (mode == "geary") != (r is not None):
         raise ValueError("row sums `r` are given for Geary's C and only for it.")
+    if z.dtype not in _DTYPES:
+        raise TypeError(f"`z` must be float32 or bfloat16, found {z.dtype}.")
     if z.device.type == "cpu":
         return _perm_plain(mode, z, u, r, perms)
     n, g = z.shape
     n_perms = perms.shape[0]
-    _cuda.require(z, "z", torch.float32)
-    _cuda.require(u, "u", torch.float32, (n, g))
+    _cuda.require(z, "z", z.dtype)
+    _cuda.require(u, "u", z.dtype, (n, g))
     if r is not None:
-        _cuda.require(r, "r", torch.float32, (n,))
+        _cuda.require(r, "r", z.dtype, (n,))
     if perms.device != z.device or perms.dtype != torch.int32 or perms.ndim != 2 or perms.shape[1] != n:
         raise ValueError(f"`perms` must be a (P, {n}) int32 tensor on {z.device}.")
     if n >= 2**31 or n * g >= 2**40:
         raise ValueError("the permutation kernel takes fewer than 2^31 rows.")
     if n_perms and n and (int(perms.min()) < 0 or int(perms.max()) >= n):
         raise ValueError("permutation indices must lie in [0, n).")
-    out = torch.empty((n_perms, g), dtype=torch.float32, device=z.device)
     if n_perms == 0 or g == 0 or n == 0:
-        return out.zero_()
-    groups = _k5b_groups(n, g, n_perms)
-    partial = torch.empty((groups, n_perms, g), dtype=torch.float64, device=z.device)
+        return torch.zeros((n_perms, g), dtype=torch.float32, device=z.device)
+    w = _K5B_GENES
+    zt, ut = _gene_tiles(z, w), _gene_tiles(u, w)
+    tiles = zt.shape[0]
+    groups = _k5b_groups(n, n_perms, w * z.element_size())
+    # Geary: r[p(i)] in float32, gathered by the first tile, laid out as the positions
+    rg = torch.empty_like(perms, dtype=torch.float32) if r is not None else None
+    partial = torch.empty((groups, n_perms, tiles * w), dtype=torch.float64, device=z.device)
+    out = torch.empty((n_perms, tiles * w), dtype=torch.float32, device=z.device)
     code = _cuda.library().sqt_perm_autocorr(
-        MODES[mode], z.data_ptr(), u.data_ptr(), r.data_ptr() if r is not None else None, n, g,
+        MODES[mode], _DTYPES[z.dtype], zt.data_ptr(), ut.data_ptr(),
+        r.data_ptr() if r is not None else None, rg.data_ptr() if rg is not None else None,
+        rg.stride(0) if rg is not None else 0, rg.stride(1) if rg is not None else 0, n, tiles,
         perms.data_ptr(), n_perms, perms.stride(0), perms.stride(1), groups, partial.data_ptr(), out.data_ptr(),
         _cuda.stream_ptr(),
     )
     _cuda.check(code, "perm_autocorr")
     _cuda.launches["perm_autocorr"] += 1
-    return out
+    return out[:, :g]
+
+
+def _perm_den(z: torch.Tensor) -> torch.Tensor:
+    """``sum_i z_i^2`` per gene in float32, from ``z`` as given (the JAX
+    package's sims denominator, re-accumulated from its gather operand)."""
+    zf = z.float()
+    return torch.sum(zf * zf, dim=0)
 
 
 def moran_perm_scores(z: torch.Tensor, u: torch.Tensor, perms: torch.Tensor, s0: float) -> torch.Tensor:
-    """Moran's I under row permutations of W: ``(P, g)``, ``perms`` ``(P, n)``."""
-    den = torch.sum(z * z, dim=0)
-    return (z.shape[0] / s0) * perm_autocorr("moran", z, u, perms) / den
+    """Moran's I under row permutations of W: ``(P, g)`` float32, ``perms`` ``(P, n)``.
+
+    With bf16 ``z``/``u`` the dtypes follow the JAX package's: the numerator
+    is rounded to bf16, times ``n / s0`` (a weakly typed scalar there, so
+    rounded to bf16 and the product rounded to bf16), then divided by the
+    float32 denominator."""
+    n = z.shape[0]
+    num = perm_autocorr("moran", z, u, perms)
+    if z.dtype == torch.bfloat16:
+        scale = torch.tensor(float(np.float32(n) / np.float32(s0)), dtype=torch.bfloat16, device=z.device)
+        return (num.to(torch.bfloat16) * scale).float() / _perm_den(z)
+    return (n / s0) * num / _perm_den(z)
 
 
 def geary_perm_scores(z: torch.Tensor, u: torch.Tensor, r: torch.Tensor, cg: torch.Tensor, perms: torch.Tensor,
                       s0: float) -> torch.Tensor:
-    """Geary's C under row permutations of W: ``(P, g)``. ``r`` are the row
-    sums of W and ``cg`` the permutation-invariant third term, both from the
-    caller."""
-    den = torch.sum(z * z, dim=0)
-    return ((z.shape[0] - 1) / (2.0 * s0)) * (perm_autocorr("geary", z, u, perms, r) + cg) / den
+    """Geary's C under row permutations of W: ``(P, g)`` float32. ``r`` are the
+    row sums of W (in ``z``'s dtype) and ``cg`` the permutation-invariant
+    third term in float32, both from the caller. With bf16 operands the
+    numerator is rounded to bf16 and widened back to float32 before ``+ cg``,
+    as in the JAX package."""
+    num = perm_autocorr("geary", z, u, perms, r)
+    if z.dtype == torch.bfloat16:
+        num = num.to(torch.bfloat16).float()
+    return ((z.shape[0] - 1) / (2.0 * s0)) * (num + cg) / _perm_den(z)

@@ -4,10 +4,11 @@ Counterpart of ``squidpy_tpu/ops/pallas_binned.py``. For each planned work
 item (tile pair ``ti <= tj``, threshold group ``gid``, window ``[rempty,
 rfull)``) it counts the class pairs ``(a, b)`` of points ``i < j`` with
 ``d2(i, j) <= thr[r]`` for every threshold ``r`` of the group inside the
-window. On a CUDA tensor it launches ``csrc/binned_pairs.cu``; on the CPU it
-runs the plain torch version below. Counts are int64, so none of the TPU
-kernel's item chunking, zero-initialising dummy items, base-4096 digits or
-8M-item exactness bound is needed.
+window. On a CUDA tensor it launches ``csrc/binned_pairs.cu``, one block per
+distinct tile pair (:func:`segments` folds a pair's items into one window);
+on the CPU it runs the plain torch version below. Counts are int64, so none
+of the TPU kernel's item chunking, zero-initialising dummy items, base-4096
+digits or 8M-item exactness bound is needed.
 """
 
 from __future__ import annotations
@@ -17,18 +18,73 @@ import torch
 
 from squidpy_torch import _cuda
 
-__all__ = ["binned_pair_counts", "binned_pairs"]
+__all__ = ["binned_pair_counts", "binned_pairs", "chunk_pairs_kept", "segments"]
 
-# shared-memory budget of one K1 block; a (gsize, C, C) histogram that does
-# not fit with the two staged tiles takes the global-atomics branch
+# shared-memory budget of one K1 block: the two staged tiles, then as many
+# (C, C) int32 histogram rows as fit
 _K1_SMEM_BYTES = 200 * 1024
+# the kernel culls candidate pairs by the bounding boxes of 32-point chunks
+_K1_CHUNK = 32
 
 
-def _k1_smem(tile: int, dim: int, gsize: int, n_cls: int) -> tuple[int, bool]:
-    """(bytes of the staged tiles and thresholds, whether the (gsize, C, C)
-    histogram also fits) for one K1 block."""
-    base = (2 * tile * dim + gsize) * 4 + 2 * tile * 4
-    return base, base + gsize * n_cls * n_cls * 4 <= _K1_SMEM_BYTES
+def _k1_layout(tile: int, dim: int, n_thr: int, n_cls: int) -> tuple[int, int]:
+    """(bytes of the staged tiles, chunk boxes and thresholds; shared
+    histogram rows) of one K1 block. The rows (at most ``n_thr``) cover the
+    top of each window, beside one overflow row; 0 when fewer than two rows
+    fit, and every pair then takes global atomics."""
+    nchunk = -(-tile // _K1_CHUNK)
+    base = (2 * tile * dim + 4 * nchunk * dim + n_thr) * 4 + 2 * tile * 4
+    fit = (_K1_SMEM_BYTES - base) // (n_cls * n_cls * 4)
+    return base, min(n_thr, fit - 1) if fit >= 2 else 0
+
+
+def segments(items: torch.Tensor, n_thr: int, gsize: int) -> torch.Tensor:
+    """``(4, S)`` int32 rows ``ti, tj, lo, hi``: one per distinct tile pair of
+    the ``(5, B)`` items, in their order, with the window ``[lo, hi)`` that
+    its items' threshold groups cover. A pair's items are consecutive and
+    list its groups in order (as the planner writes them), so the window
+    runs from the first item's group start (raised to ``rempty``) to the
+    last item's group end (cut at ``rfull`` and ``n_thr``). Computed on the
+    items' device."""
+    it = items[:, items[0] >= 0].to(torch.int64)
+    ti, tj, rf, re, gid = it
+    if ti.numel() == 0:
+        return torch.empty((4, 0), dtype=torch.int32, device=items.device)
+    first = torch.ones_like(ti, dtype=torch.bool)
+    first[1:] = (ti[1:] != ti[:-1]) | (tj[1:] != tj[:-1])
+    start = torch.nonzero(first).squeeze(1)
+    last = torch.cat([start[1:] - 1, start.new_tensor([ti.numel() - 1])])
+    lo = torch.maximum(re[start], gid[start] * gsize)
+    hi = torch.minimum(torch.minimum(rf[last], (gid[last] + 1) * gsize), torch.full_like(lo, n_thr))
+    seg = torch.stack([ti[start], tj[start], lo, hi])
+    return seg[:, hi > lo].to(torch.int32).contiguous()
+
+
+def chunk_pairs_kept(coords_p: torch.Tensor, n: int, seg: torch.Tensor, thr: torch.Tensor,
+                     tile: int) -> torch.Tensor:
+    """Plain torch version of K1's culling predicate: ``(S, m, m)`` bool over
+    the 32-point chunk pairs ``(a, b)`` of each segment's tiles (``m`` chunks
+    a tile), False where the chunks' bounding boxes (over real points) are
+    farther apart than the window's last threshold, with the planner's
+    margin ``dmin2 * (1 - 1e-5) - 1e-30`` in float64."""
+    dev = coords_p.device
+    dim = coords_p.shape[1]
+    m = -(-tile // _K1_CHUNK)
+    t = torch.arange(m * _K1_CHUNK, device=dev)
+    tiles = torch.unique(seg[:2].long())
+    gidx = tiles[:, None] * tile + t  # (T, m * 32)
+    real = (t < tile) & (gidx < n)
+    pts = coords_p[gidx.clamp(max=coords_p.shape[0] - 1)].double()
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    lo_box = torch.where(real[..., None], pts, inf).view(-1, m, _K1_CHUNK, dim).amin(2)  # (T, m, d)
+    hi_box = torch.where(real[..., None], pts, -inf).view(-1, m, _K1_CHUNK, dim).amax(2)
+    pos = torch.searchsorted(tiles, seg[:2].long())
+    alo, ahi = lo_box[pos[0]][:, :, None], hi_box[pos[0]][:, :, None]  # (S, m, 1, d)
+    blo, bhi = lo_box[pos[1]][:, None], hi_box[pos[1]][:, None]  # (S, 1, m, d)
+    gap = torch.clamp(torch.maximum(blo - ahi, alo - bhi), min=0.0)
+    dmin2 = torch.sum(gap * gap, dim=-1)
+    reach = thr[seg[3].long() - 1].double()[:, None, None]
+    return ~(reach < dmin2 * (1.0 - 1e-5) - 1e-30)
 
 
 def _binned_plain(
@@ -123,25 +179,25 @@ def binned_pairs(
         raise ValueError(f"`items` must have shape (5, B), found {tuple(items.shape)}.")
     if n_pad % tile or thr.numel() % gsize or not 0 <= n_thr <= thr.numel() or n > n_pad:
         raise ValueError("inconsistent tile padding, threshold groups or point count.")
-    base, shared = _k1_smem(tile, dim, gsize, n_cls)
+    base, hist_rows = _k1_layout(tile, dim, n_thr, n_cls)
     if base > _K1_SMEM_BYTES:
         raise ValueError(f"tile {tile} does not fit the kernel's shared memory.")
     n_tiles = n_pad // tile
     if items.shape[1] and (int(items[:2].min()) < -1 or int(items[:2].max()) >= n_tiles
                            or int(items[4].min()) < 0 or int(items[4].max()) * gsize >= thr.numel()):
         raise ValueError("work items point outside the padded tiles or threshold groups.")
-    out = torch.zeros((thr.numel(), n_cls, n_cls), dtype=torch.int64, device=coords_p.device)
-    n_items = items.shape[1]
-    if n_items == 0:
-        return out[:n_thr]
+    out = torch.empty((n_thr, n_cls, n_cls), dtype=torch.int64, device=coords_p.device)
+    if n_thr == 0:
+        return out
+    seg = segments(items, n_thr, gsize)
+    delta = torch.zeros((n_thr + 1, n_cls, n_cls), dtype=torch.int64, device=coords_p.device)
     code = _cuda.library().sqt_binned_pairs(
-        coords_p.data_ptr(), labels_p.data_ptr(), n, dim,
-        items[0].data_ptr(), items[1].data_ptr(), items[2].data_ptr(), items[3].data_ptr(), items[4].data_ptr(),
-        n_items, thr.data_ptr(), n_thr, tile, gsize, n_cls, int(shared), out.data_ptr(), _cuda.stream_ptr(),
+        coords_p.data_ptr(), labels_p.data_ptr(), n, dim, seg.data_ptr(), seg.shape[1], thr.data_ptr(), n_thr,
+        tile, n_cls, hist_rows, delta.data_ptr(), out.data_ptr(), _cuda.stream_ptr(),
     )
     _cuda.check(code, "binned_pairs")
     _cuda.launches["binned_pairs"] += 1
-    return out[:n_thr]
+    return out
 
 
 def binned_inputs(

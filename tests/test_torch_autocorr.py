@@ -228,6 +228,107 @@ def test_perm_scores_match_jax(mode, layout):
     assert np.all(np.abs(got - want) <= scale * _abs_bound(terms) + 1e-5 * np.abs(want))
 
 
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+
+
+def _to_jax(t: torch.Tensor):
+    """A bf16 tensor as a JAX bf16 array with the same bits."""
+    return jnp.asarray(t.view(torch.int16).numpy().view(jnp.bfloat16))
+
+
+def _bf16_band(x: np.ndarray) -> np.ndarray:
+    return _bf16(x).double().numpy()
+
+
+@pytest.mark.parametrize("normalized", [True, False], ids=["s0=n", "s0!=n"])
+@pytest.mark.parametrize("mode", ["moran", "geary"])
+def test_perm_scores_bf16_match_jax(mode, normalized):
+    """At n = 2^19 the null's operands are bf16, as the JAX package gathers
+    them with ``gather_bf16=True, z_bf16=True``. Tolerance: each side's
+    float32 numerator lies within ``1e-6 * sum |terms|`` of the exact sum over
+    the bf16 operands, so the two may differ only where that band straddles a
+    bf16 rounding boundary (by the band's bf16 width, carried through the
+    scaling), plus 1e-6 relative for the float32 denominator and scaling."""
+    n, g, n_perms = 1 << 19, 5, 3
+    rng = np.random.default_rng(12)
+    k = 4
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, n, rows.size)
+    csr = sp.csr_matrix((rng.uniform(0.5, 1.5, rows.size), (rows, cols)), shape=(n, n))
+    if normalized:
+        csr = sp.csr_matrix(sp.diags(1.0 / np.asarray(csr.sum(axis=1)).ravel()) @ csr)
+    s0 = float(csr.sum())
+    x = rng.poisson(rng.uniform(0.3, 3.0, g), size=(n, g)).astype(np.float32)
+    z32 = x - x.mean(axis=0, dtype=np.float32)
+    u32 = (csr @ z32.astype(np.float64)).astype(np.float32)
+    r32 = np.asarray(csr.sum(axis=1), np.float32).ravel()
+    zb, ub, rb = _bf16(z32), _bf16(u32), _bf16(r32)
+    perms_np = np.stack([rng.permutation(n) for _ in range(n_perms)]).astype(np.int32)
+    perms = torch.from_numpy(perms_np)
+    zq, uq, rq = zb.double().numpy(), ub.double().numpy(), rb.double().numpy()
+    den = np.sum(zq * zq, axis=0)
+    if mode == "moran":
+        want = np.asarray(jac.moran_perm_scores(_to_jax(zb), _to_jax(ub), jnp.asarray(perms_np), s0,
+                                                gather_bf16=True, z_bf16=True))
+        got = tac.moran_perm_scores(zb, ub, perms, s0).numpy()
+        exact = np.stack([np.sum(zq * uq[p], axis=0) for p in perms_np])
+        terms = np.stack([np.sum(np.abs(zq * uq[p]), axis=0) for p in perms_np])
+        scale_b = _bf16_band(np.float32(n) / np.float32(s0))
+        lo = _bf16_band(_bf16_band(exact - 1e-6 * terms) * scale_b)
+        hi = _bf16_band(_bf16_band(exact + 1e-6 * terms) * scale_b)
+        tol = (hi - lo) / den + 1e-6 * np.abs(want)
+    else:
+        cg = torch.sum(torch.from_numpy(np.asarray(csr.sum(axis=0), np.float32).ravel())[:, None]
+                       * torch.from_numpy(z32) ** 2, dim=0)
+        want = np.asarray(jac.geary_perm_scores(_to_jax(zb), _to_jax(ub), jnp.asarray(r32), jnp.asarray(cg.numpy()),
+                                                jnp.asarray(perms_np), s0, gather_bf16=True, z_bf16=True))
+        got = tac.geary_perm_scores(zb, ub, rb, cg, perms, s0).numpy()
+        exact = np.stack([np.sum(zq * (zq * rq[p, None] - 2 * uq[p]), axis=0) for p in perms_np])
+        terms = np.stack([np.sum(np.abs(zq) * (np.abs(zq) * rq[p, None] + 2 * np.abs(uq[p])), axis=0)
+                          for p in perms_np])
+        lo, hi = _bf16_band(exact - 1e-6 * terms), _bf16_band(exact + 1e-6 * terms)
+        scale = (n - 1) / (2 * s0) / den
+        tol = (hi - lo) * scale + 1e-6 * scale * (np.abs(exact) + np.abs(cg.numpy().astype(np.float64)))
+    assert got.dtype == np.float32 and got.shape == want.shape == (n_perms, g)
+    # the band is one bf16 value in most entries, where the two must agree to
+    # float32 scaling: an unrounded float32 numerator would fail there
+    assert np.mean(hi == lo) >= 0.5
+    assert np.all(np.abs(got.astype(np.float64) - want) <= tol), (got, want)
+
+
+@pytest.mark.parametrize("n,mode", [((1 << 19) - 1, "moran"), (1 << 19, "moran"), (1 << 19, "geary")])
+def test_spatial_autocorr_switches_to_bf16_at_min_n(n, mode, monkeypatch):
+    """The null's operands turn bf16 exactly at ``BF16_GATHER_MIN_N`` cells;
+    scores and Geary's third term stay float32."""
+    from squidpy_torch._constants._constants import BF16_GATHER_MIN_N
+    from squidpy_torch.gr import _ppatterns as tpp
+
+    assert BF16_GATHER_MIN_N == 1 << 19
+    seen = {}
+    name = f"{mode}_perm_scores"
+    real = getattr(tpp, name)
+
+    def spy(*args, **kw):
+        seen["dtypes"] = [a.dtype for a in args if isinstance(a, torch.Tensor)]
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tpp, name, spy)
+    rng = np.random.default_rng(13)
+    rows = np.repeat(np.arange(n), 3)
+    adj = sp.csr_matrix((np.ones(rows.size), (rows, rng.integers(0, n, rows.size))), shape=(n, n))
+    adata = sq.AnnData(X=rng.poisson(1.0, size=(n, 2)).astype(np.float32),
+                       var=pd.DataFrame(index=["gene_0", "gene_1"]))
+    adata.obsp["spatial_connectivities"] = adj
+    res = sqt.gr.spatial_autocorr(adata, mode=mode, n_perms=2, seed=0, copy=True)
+    want = torch.bfloat16 if n >= BF16_GATHER_MIN_N else torch.float32
+    tensors = seen["dtypes"][:-1] if mode == "moran" else seen["dtypes"][:3]  # z, u (, r); then perms (, cg)
+    assert tensors == [want] * len(tensors)
+    if mode == "geary":
+        assert seen["dtypes"][3] == torch.float32  # cg
+    assert np.all(np.isfinite(res.columns["var_sim"]))
+
+
 def test_ell_and_perm_modes_reject_unknown():
     x = torch.zeros((4, 2))
     with pytest.raises(ValueError, match="ELL mode"):
@@ -430,13 +531,16 @@ def test_kernels_match_plain_on_card(cuda_card):
             terms = (_terms_abs_moran(csr, x) if mode == "moran" else _terms_abs_geary(csr, x))
             assert np.all(np.abs(got - want) <= _abs_bound(terms) + 1e-6 * np.abs(want))
         perms = trng.permutation_batch(trng.spawn_keys(0, 40), x.shape[0], torch.device("cuda"))
-        r = xc[:, 0].abs().contiguous()
-        for mode in ("moran", "geary"):
-            rr = r if mode == "geary" else None
-            got = tac.perm_autocorr(mode, xc, xc, perms, rr)
-            want = tac._perm_plain(mode, xc, xc, rr, perms)
-            scale = tac._perm_plain(mode, xc.abs(), -xc.abs() if mode == "geary" else xc.abs(), rr, perms)
-            assert bool(((got - want).abs() <= 1e-5 * scale.abs()).all())
+        for dtype in (torch.float32, torch.bfloat16):  # K5b's two operand types (bf16 at n >= 2^19)
+            xd = xc.to(dtype)
+            r = xd[:, 0].abs().contiguous()
+            for mode in ("moran", "geary"):
+                rr = r if mode == "geary" else None
+                got = tac.perm_autocorr(mode, xd, xd, perms, rr)
+                want = tac._perm_plain(mode, xd, xd, rr, perms)
+                scale = tac._perm_plain(mode, xd.abs(), -xd.abs() if mode == "geary" else xd.abs(), rr, perms)
+                assert got.dtype == torch.float32
+                assert bool(((got - want).abs() <= 1e-5 * scale.abs()).all()), (dtype, mode)
 
 
 @pytest.fixture()

@@ -128,9 +128,86 @@ def test_binned_counts_match_jax_binned_counts(kw, thr, n_cls, tile, gsize):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("pair_enum", ["triu", "tree"])
+@pytest.mark.parametrize("kw,thr,n_cls,tile,gsize", CASES)
+def test_segments_are_the_plans_distinct_tile_pairs(kw, thr, n_cls, tile, gsize, pair_enum):
+    """K1 runs one block per distinct tile pair: the segments derived from the
+    items are the plan's distinct (ti, tj) with window [rempty, min(rfull, L))."""
+    pts, labs = _fixture(**kw)
+    thr = (thr**2).astype(np.float32)
+    _, _, plan = _sorted_plan(pts, labs, thr, n_cls, tile, gsize, pair_enum)
+    m = plan.n_items
+    pairs = np.stack([plan.ti[:m], plan.tj[:m], plan.rempty[:m], np.minimum(plan.rfull[:m], len(thr))]).astype(np.int64)
+    want = np.unique(pairs, axis=1)  # (ti, tj) are unique per pair, so this sorts by (ti, tj)
+    assert len(np.unique(want[:2], axis=1).T) == want.shape[1] < m
+    items = torch.from_numpy(np.stack([plan.ti, plan.tj, plan.rfull, plan.rempty, plan.gid]).astype(np.int32))
+    got = tbk.segments(items, len(thr), gsize)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _difference_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    diff = a[:, None, 0] - b[None, :, 0]
+    d2 = diff * diff
+    for d in range(1, a.shape[1]):
+        diff = a[:, None, d] - b[None, :, d]
+        d2 = d2 + diff * diff
+    return d2
+
+
+@pytest.mark.parametrize("case", ["tile64", "tile128", "tight-blobs", "3d"])
+def test_chunk_culling_never_drops_a_pair_in_reach(case):
+    """K1's culling predicate (plain torch version) keeps every 32 x 32 chunk
+    pair that holds a pair i < j of real points whose float32 difference-form
+    d2 lies within the window's last threshold; it must also cull some."""
+    if case == "3d":
+        pts, labs = _fixture(n=1200, dim=3)
+        thr, tile, gsize = np.linspace(0.5, 60.0, 13), 128, 4
+    elif case == "tight-blobs":
+        pts, labs = _fixture(n=1500, n_blobs=3)
+        thr, tile, gsize = np.linspace(0.2, 20.0, 23), 64, 8
+    else:
+        pts, labs = _fixture()
+        thr, tile, gsize = np.linspace(0.5, 80.0, 17), int(case[4:]), 8
+    thr = (thr**2).astype(np.float32)
+    pts_s, labs_s, plan = _sorted_plan(pts, labs, thr, 5, tile, gsize)
+    coords_p, _, items, thr_t, n_thr = tbk.binned_inputs(pts_s, labs_s, plan, torch.device("cpu"))
+    seg = tbk.segments(items, n_thr, gsize)
+    kept = tbk.chunk_pairs_kept(coords_p, plan.n, seg, thr_t, plan.tile)
+    m = -(-plan.tile // 32)
+    assert kept.shape == (seg.shape[1], m, m)
+    assert not bool(kept.all())
+    for s_idx, (ti, tj, lo, hi) in enumerate(seg.T.tolist()):
+        gi = torch.arange(ti * plan.tile, (ti + 1) * plan.tile)
+        gj = torch.arange(tj * plan.tile, (tj + 1) * plan.tile)
+        d2 = _difference_d2(coords_p[gi], coords_p[gj])
+        live = (d2 <= thr_t[hi - 1]) & (gi[:, None] < gj[None, :]) & (gj[None, :] < plan.n)
+        pad = m * 32 - plan.tile
+        live = torch.nn.functional.pad(live, (0, pad, 0, pad)).view(m, 32, m, 32).any(dim=3).any(dim=1)
+        assert not bool((live & ~kept[s_idx]).any()), (ti, tj)
+
+
+@pytest.mark.parametrize("tile,dim,n_thr,n_cls,rows", [
+    (1024, 2, 49, 16, 49),  # the main path: every threshold of a window has its row
+    (1024, 2, 49, 40, 26),  # top rows of a window, the rest through the overflow row
+    (512, 2, 49, 96, 4),
+    (512, 2, 49, 154, 1),
+    (512, 2, 49, 155, 0),  # not two rows: global atomics only
+    (128, 3, 21, 5, 21),
+])
+def test_k1_shared_histogram_rows(tile, dim, n_thr, n_cls, rows):
+    """K1 keeps as many shared (C, C) rows as fit its budget beside the staged
+    tiles and one overflow row, at most one per threshold."""
+    base, got = tbk._k1_layout(tile, dim, n_thr, n_cls)
+    assert got == rows
+    assert base + (rows + 1) * n_cls * n_cls * 4 <= tbk._K1_SMEM_BYTES or rows == 0
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_card):
-    for dim, n_cls in ((1, 5), (2, 5), (3, 5), (2, 120)):
+    # all rows shared (C=5), top rows and the overflow row (C=120 at tile 128:
+    # 2 of 21 rows), global atomics only (C=240)
+    for dim, n_cls in ((2, 5), (3, 5), (2, 120), (2, 240)):
         pts, labs = _fixture(n=3000, dim=dim, n_cls=n_cls)
         thr = (np.linspace(0.5, 50.0, 21) ** 2).astype(np.float32)
         pts_s, labs_s, plan = _sorted_plan(pts, labs, thr, n_cls, 128, 8)

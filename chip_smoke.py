@@ -30,7 +30,11 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    the main path does not take (K3 with global atomics, K1 with 96 classes
    (a few shared rows) and 200 (global atomics only), K1 in 3D, K5a on a
    skewed graph's degree buckets and K5b's float32 operands on that
-   200k-cell graph, K2 with 128 classes and in 3D). Integer kernels
+   200k-cell graph, K2 with 128 classes, in 3D, with 31 classes (the
+   histogram shared only beside the smaller tile), with coincident points,
+   labels outside [0, C), equal and zero thresholds and thresholds on pairs'
+   d2, and its ``[diag]`` line: the main path's time with no pair counted).
+   Integer kernels
    (K1-K4) and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
@@ -549,21 +553,53 @@ def perm_working_set(z, u, perms) -> None:
           f"by positions: {' '.join(times)}", flush=True)
 
 
-def check_dense_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int,
-                      plain_warm: bool = True) -> dict:
-    """K2 counts against the plain version, bitwise."""
+def _dense_args(pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int) -> tuple:
     import torch
 
-    from squidpy_torch.ops.dense_pairs import _dense_plain, _k2_layout, dense_pairs
+    return (torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda(),
+            torch.from_numpy(np.asarray(labs, np.int32)).cuda(),
+            torch.from_numpy(np.sort(thr).astype(np.float32)).cuda(), n_cls)
+
+
+def check_dense_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int,
+                      plain_warm: bool = True, repeats: int = 3, reg: int | None = None) -> dict:
+    """K2 counts against the plain version, bitwise; given ``reg``, the
+    launch must keep that many column points a thread."""
+    from squidpy_torch.ops.dense_pairs import _dense_plain, dense_pairs
 
     n, dim = pts.shape
-    thr_t = torch.from_numpy(np.sort(thr).astype(np.float32)).cuda()
-    args = (torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda(),
-            torch.from_numpy(np.asarray(labs, np.int32)).cuda(), thr_t, n_cls)
-    return _compare(f"dense_pairs {name} n={n} d={dim} C={n_cls} L={len(thr)} "
-                    f"shared_hist={_k2_layout(dim, len(thr), n_cls)[1]}",
-                    lambda: dense_pairs(*args), lambda: _dense_plain(*args), repeats=3,
+    args = _dense_args(pts, labs, thr, n_cls)
+    stats: dict = {}
+    dense_pairs(*args, stats=stats)
+    if reg is not None and stats["reg"] != reg:
+        raise AssertionError(f"dense_pairs {name}: the launch kept {stats['reg']} column points a thread, not {reg}")
+    return _compare(f"dense_pairs {name} n={n} d={dim} C={n_cls} L={len(thr)} tile={stats['tile']} "
+                    f"reg={stats['reg']} blocks={stats['launched_blocks']} shared_hist={stats['shared']}",
+                    lambda: dense_pairs(*args), lambda: _dense_plain(*args), repeats=repeats,
                     bound=_dense_pairs_bound(n, dim, len(thr), n_cls), plain_warm=plain_warm)
+
+
+def dense_pairs_split(pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int) -> None:
+    """K2's time with the thresholds and with one threshold below every
+    pair's d2 (no pair is counted: the pair loop without the histogram),
+    with its launch shape, tile pairs per block and histogram flushes (a
+    diagnostic; the second result is checked to be all zero)."""
+    from squidpy_torch.ops.dense_pairs import dense_pairs
+
+    times, runs = [], []
+    for name, t in (("thresholds", thr), ("none_counted", np.array([-1e30], np.float32))):
+        args = _dense_args(pts, labs, t, n_cls)
+        runs.append({})
+        out = dense_pairs(*args, stats=runs[-1])
+        if name == "none_counted" and bool(out.any()):
+            raise AssertionError("dense_pairs counted a pair below a threshold under every d2")
+        times.append(f"{name}(L={len(t)})={_time_ms(lambda args=args: dense_pairs(*args), 5)[1]:.3f}ms")
+    stats = runs[0]  # the launch with the thresholds
+    print(f"[diag] dense_pairs n={len(pts)} C={n_cls} tile={stats['tile']} reg={stats['reg']} "
+          f"blocks={stats['launched_blocks']} (asked {stats['blocks']}) tile_pairs={stats['tile_pairs']} "
+          f"tile_pairs_per_block={stats['tile_pairs'] / stats['launched_blocks']:.1f} "
+          f"most_tile_pairs_one_block={stats['most_tile_pairs']} flush_every={stats['flush_every']} "
+          f"flushes={stats['flushes']}: {' '.join(times)}", flush=True)
 
 
 def _dense_pairs_bound(n: int, dim: int, n_thr: int, n_cls: int) -> tuple[float, str]:
@@ -622,7 +658,8 @@ def autocorr_kernel_checks(adata: StandIn, results: dict) -> dict[str, list[dict
     pts = np.asarray(small.obsm["spatial"], np.float32)
     thr = _squared_thresholds(results["pallas_interval"])
     codes = np.asarray(small.obs["cluster"].cat.codes, np.int32)
-    k2 = [check_dense_pairs("main path", pts, codes, thr, N_CLS, plain_warm=False)]
+    k2 = [check_dense_pairs("main path", pts, codes, thr, N_CLS, plain_warm=False, repeats=10)]
+    dense_pairs_split(pts, codes, thr, N_CLS)
     sub = np.random.default_rng(0).choice(len(pts), K2_SUBSET_CELLS, replace=False)
     k2.append(check_dense_pairs(f"main path thresholds, {K2_SUBSET_CELLS} of the {len(pts)} cells", pts[sub],
                                 codes[sub], thr, N_CLS))
@@ -646,13 +683,14 @@ def skewed_csr(n: int, seed: int):
 def branch_checks() -> dict[str, list[dict]]:
     """The branches the main path does not take: K5a over the degree buckets
     of a skewed ``SKEWED_CELLS``-row graph (also through ``spatial_autocorr``, Moran with
-    permutations and Geary, from a sparse X), K2 with 128 classes (the global histogram) and
-    in 3D."""
+    permutations and Geary, from a sparse X), K2 with 128 classes (the global histogram),
+    in 3D and on the edges of its threshold table and tile walk."""
     import torch
     from scipy import sparse as sp
 
     import squidpy_torch as sqt
     from squidpy_torch.ops.autocorr import _ell_plain, spmv_genes_bucketed
+    from squidpy_torch.ops.dense_pairs import _expanded_d2, _sq_norms
 
     n = SKEWED_CELLS
     adata = _dataset(n, seed=6)
@@ -695,6 +733,31 @@ def branch_checks() -> dict[str, list[dict]]:
         pts = rng.uniform(0.0, 10.0 * np.sqrt(n_pts), (n_pts, dim)).astype(np.float32)
         k2.append(check_dense_pairs("random, default interval", pts, rng.integers(0, n_cls, n_pts), _default_thresholds(pts),
                                     n_cls))
+    # 31 classes at 49 thresholds: the histogram fits in shared memory only
+    # beside a 512-point tile, so the layout keeps one column point a thread
+    n_pts = 100_000
+    pts = rng.uniform(0.0, 10.0 * np.sqrt(n_pts), (n_pts, 2)).astype(np.float32)
+    k2.append(check_dense_pairs("31 classes, histogram shared only beside tile 512", pts, rng.integers(0, 31, n_pts),
+                                _default_thresholds(pts), 31, reg=1))
+    # what the threshold table and the tile walk could get wrong, at a size
+    # that takes the main path's two column points a thread: n not a
+    # multiple of the tile (the last tile holds 673 points, so its second
+    # column half is padding), every fourth point on top of another (d2 <= 0
+    # by rounding, some below 0), labels outside [0, C), equal and zero
+    # thresholds, d2 on a threshold
+    n_pts = 100_001
+    pts = rng.uniform(0.0, 10.0 * np.sqrt(n_pts), (n_pts, 2)).astype(np.float32)
+    pts[1::4] = pts[::4][: len(pts[1::4])]
+    labs = rng.integers(-1, N_CLS + 1, n_pts)
+    thr = _default_thresholds(pts)
+    edge_thr = np.concatenate([[0.0, 0.0], thr[:3], thr[:3], thr[20:30]]).astype(np.float32)
+    k2.append(check_dense_pairs("coincident points, labels outside [0, C), equal and zero thresholds", pts, labs,
+                                edge_thr, N_CLS, reg=2))
+    # thresholds equal to pairs' expanded-form d2, as the kernel rounds it
+    p200 = torch.from_numpy(pts[:200])
+    d2 = _expanded_d2(p200, p200, _sq_norms(p200), _sq_norms(p200)).numpy()
+    k2.append(check_dense_pairs("thresholds on pairs' d2", pts[:2049], labs[:2049],
+                                np.unique(d2[d2 > 0])[::97][:40], N_CLS))
     return {"ell_autocorr": k5a, "perm_autocorr": k5b, "dense_pairs": k2}
 
 
@@ -854,9 +917,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    func = ""
     for line in _cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}", flush=True)
+        if "Function properties for" in line:
+            func = line.split("Function properties for", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            print(f"[ptxas] {func}: {line.split(':', 1)[-1].strip()}", flush=True)
 
     phases: dict[str, float] = {}
     t_phase = time.perf_counter()

@@ -12,6 +12,8 @@ only below 2^24 per (class pair, threshold), these at any size.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -23,18 +25,82 @@ __all__ = ["MAX_CLASSES", "dense_pair_counts", "dense_pairs"]
 # the JAX kernel pads the one-hot labels to 128 lanes
 MAX_CLASSES = 128
 
-# shared-memory budget of one K2 block: staged tiles plus, when it fits, the
-# (L, C, C) int32 histogram
+# shared-memory budget of one K2 block: the staged row tile (and column tile
+# for a runtime dimension), thresholds, bucket table and, when it fits, the
+# (L, C * C + 1) uint32 histogram
 _K2_SMEM_BYTES = 200 * 1024
+_SM_SMEM_BYTES = 228 * 1024  # shared memory of one H100 SM; each block also reserves 1 KB
+_K2_THREADS = 512  # 2D and 3D blocks
+_K2_MAX_REG = 2  # column points a thread keeps in registers: 1 or 2
+_K2_PAIRS_PER_BLOCK = 8  # a tile is made smaller until each block has this many tile pairs
+K2_BUCKETS = 2048  # d2 buckets of the threshold table (even)
+H100_SMS = 132
 
 
-def _k2_layout(dim: int, n_thr: int, n_cls: int) -> tuple[int, bool]:
-    """(tile, whether the (L, C, C) histogram sits in shared memory)."""
-    tile = 256 if dim <= 16 else 64
-    base = (2 * tile * dim + 2 * tile + n_thr) * 4 + 2 * tile * 4
-    if base > _K2_SMEM_BYTES:
+class K2Layout(NamedTuple):
+    tile: int  # points per tile: threads x reg
+    reg: int  # column points per thread
+    threads: int
+    blocks: int  # persistent blocks asked for: as many as shared memory and threads let share every SM
+    tile_pairs: int  # tile pairs ti <= tj of the upper triangle
+    flush_every: int  # tile pairs a block may add into its uint32 histogram between flushes
+    n_buckets: int
+    shared: bool  # whether the (L, C, C) histogram sits in shared memory
+
+
+def _k2_layout(n: int, dim: int, n_thr: int, n_cls: int, n_sm: int = H100_SMS) -> K2Layout:
+    """K2's launch shape. 2D and 3D points: ``_K2_THREADS`` threads, each
+    keeping ``reg`` column points in registers, the largest up to
+    ``_K2_MAX_REG`` that leaves every block ``_K2_PAIRS_PER_BLOCK`` tile
+    pairs among those that keep the histogram in shared memory (when any
+    does). Other dimensions: one column point a thread, tile 256 (64 above 16
+    dimensions). The launcher runs at most as many blocks as the card's
+    occupancy (registers included) keeps resident."""
+    stride = (dim + 5) // 4 * 4 if dim in (2, 3) else dim + 2
+    cands = []
+    for reg in range(_K2_MAX_REG, 0, -1) if dim in (2, 3) else (1,):
+        tile = _K2_THREADS * reg if dim in (2, 3) else (256 if dim <= 16 else 64)
+        staged = 1 if dim in (2, 3) else 2
+        base = (staged * tile * stride + n_thr) * 4 + K2_BUCKETS * 2
+        if base > _K2_SMEM_BYTES:
+            continue
+        hist = n_thr * (n_cls * n_cls + 1) * 4  # rows padded by one bin against bank conflicts
+        shared = base + hist <= _K2_SMEM_BYTES
+        threads = tile // reg
+        per_sm = max(1, min(2048 // threads, _SM_SMEM_BYTES // (base + hist * shared + 1024)))
+        n_tiles = -(-n // tile)
+        cands.append(K2Layout(tile, reg, threads, per_sm * n_sm, n_tiles * (n_tiles + 1) // 2,
+                              (2**31 - 1) // tile**2, K2_BUCKETS, shared))
+    if not cands:
         raise ValueError(f"{dim}-dimensional points do not fit the dense pair kernel's shared memory.")
-    return tile, base + n_thr * n_cls * n_cls * 4 <= _K2_SMEM_BYTES
+    if any(c.shared for c in cands):
+        cands = [c for c in cands if c.shared]
+    return next((c for c in cands if c.tile_pairs >= _K2_PAIRS_PER_BLOCK * c.blocks), cands[-1])
+
+
+def _k2_table(thr: np.ndarray, n_buckets: int) -> tuple[np.float32, np.ndarray]:
+    """Plain version of the threshold table each K2 block builds in shared
+    memory, for ascending float32 ``thr``: ``scale = fl(n_buckets /
+    thr[-1])`` (0 unless positive and finite) and, per bucket ``b``, the
+    first ``k`` with ``thr[k] >= x_b`` (at most ``L - 1``), where ``x_b`` is
+    the least float32 ``x`` with ``fl(x * scale) >= b`` (``-inf`` for bucket
+    0). A d2 lands in bucket ``clip(int(fl(d2 * scale)), 0, n_buckets - 1)``,
+    so its first threshold is at or after its bucket's entry."""
+    thr = np.asarray(thr, np.float32)
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        scale = np.float32(n_buckets) / thr[-1]
+    if not (np.isfinite(scale) and scale > 0):
+        scale = np.float32(0)
+    first = np.zeros(n_buckets, np.int64)
+    if scale > 0:
+        b = np.arange(1, n_buckets, dtype=np.float32)
+        x = b / scale  # within a few ulps of x_b: step down past it, then up onto it
+        while np.any(down := x * scale >= b):
+            x = np.where(down, np.nextafter(x, np.float32(-np.inf)), x)
+        while np.any(up := x * scale < b):
+            x = np.where(up, np.nextafter(x, np.float32(np.inf)), x)
+        first[1:] = np.minimum(np.searchsorted(thr, x, side="left"), len(thr) - 1)
+    return scale, first
 
 
 def _expanded_d2(pi: torch.Tensor, pj: torch.Tensor, ni: torch.Tensor, nj: torch.Tensor) -> torch.Tensor:
@@ -77,13 +143,16 @@ def _dense_plain(pts: torch.Tensor, labels: torch.Tensor, thr: torch.Tensor, n_c
     return (h + h.transpose(1, 2)).cumsum(0)
 
 
-def dense_pairs(pts: torch.Tensor, labels: torch.Tensor, thr: torch.Tensor, n_cls: int) -> torch.Tensor:
+def dense_pairs(pts: torch.Tensor, labels: torch.Tensor, thr: torch.Tensor, n_cls: int,
+                stats: dict | None = None) -> torch.Tensor:
     """Kernel K2: ``(L, C, C)`` int64 cumulative ordered pair counts.
 
     ``pts`` (n, d) float32, ``labels`` (n,) int32 (labels outside ``[0, C)``
     are not counted), ``thr`` (L,) float32 squared thresholds sorted
     ascending. A CPU tensor runs the plain torch version; a CUDA tensor
-    launches the kernel.
+    launches the kernel. Given a ``stats`` dict, a launch fills it with its
+    layout, the blocks it launched, the histogram flushes and the most tile
+    pairs one block took (this waits for the card).
     """
     if not 1 <= n_cls <= MAX_CLASSES:
         raise ValueError(f"the dense pair kernel takes 1 to {MAX_CLASSES} classes, found {n_cls}.")
@@ -96,21 +165,26 @@ def dense_pairs(pts: torch.Tensor, labels: torch.Tensor, thr: torch.Tensor, n_cl
     _cuda.require(thr, "thr", torch.float32, (n_thr,))
     if not 0 < dim <= 128:
         raise ValueError(f"the dense pair kernel takes 1 to 128 dimensions, found {dim}.")
-    if n >= 2**31 or -(-n // 64) > 65535:
+    if n >= 2**31:
         raise ValueError(f"too many points for the dense pair kernel: {n}.")
     out = torch.zeros((n_thr, n_cls, n_cls), dtype=torch.int64, device=pts.device)
     if n < 2 or n_thr == 0:
         return out
     if bool((thr[1:] < thr[:-1]).any()):
         raise ValueError("thresholds must be sorted ascending.")
-    tile, shared = _k2_layout(dim, n_thr, n_cls)
-    hist = torch.zeros_like(out)
+    lay = _k2_layout(n, dim, n_thr, n_cls, torch.cuda.get_device_properties(pts.device).multi_processor_count)
+    # the (L, C, C) histogram, then the tile-pair counter, the two tallies and the blocks launched
+    hist = torch.zeros(n_thr * n_cls * n_cls + 4, dtype=torch.int64, device=pts.device)
     code = _cuda.library().sqt_dense_pairs(
-        pts.data_ptr(), labels.data_ptr(), n, dim, thr.data_ptr(), n_thr, n_cls, tile, int(shared),
-        hist.data_ptr(), out.data_ptr(), _cuda.stream_ptr(),
+        pts.data_ptr(), labels.data_ptr(), n, dim, thr.data_ptr(), n_thr, n_cls, lay.n_buckets,
+        lay.tile, lay.reg, lay.blocks, lay.flush_every, int(lay.shared), hist.data_ptr(), out.data_ptr(),
+        _cuda.stream_ptr(),
     )
     _cuda.check(code, "dense_pairs")
     _cuda.launches["dense_pairs"] += 1
+    if stats is not None:
+        stats.update(lay._asdict(), launched_blocks=int(hist[-1]), flushes=int(hist[-3]),
+                     most_tile_pairs=int(hist[-2]))
     return out
 
 

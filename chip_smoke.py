@@ -26,8 +26,12 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    identity, a quarter and an eighth of the rows; K1's line with its
    distinct tile pairs and the pairs its culling keeps, then on the same
    points and thresholds with 40 classes, where its shared histogram holds
-   only the top rows of a window), then at fixed shapes and in the branches
-   the main path does not take (K3 with global atomics, K1 with 96 classes
+   only the top rows of a window; K3's ``[diag]`` line: its time with the
+   adds replaced by a register sum and with every label 0, its branch and
+   launch shape), then at fixed shapes and in the branches the main path
+   does not take (K3's shared branch with 40 classes and global atomics
+   with 200, K3's packed branch where a block's 16-bit counters reach their
+   limit, K4 at a cycle-walking n, K1 with 96 classes
    (a few shared rows) and 200 (global atomics only), K1 in 3D, K5a on a
    skewed graph's degree buckets and K5b's float32 operands on that
    200k-cell graph, K2 with 128 classes, in 3D, with 31 classes (the
@@ -201,11 +205,15 @@ def check_index_cipher(name: str, rk, n: int, edges) -> dict:
 
 
 def random_index_cipher(n: int, n_cols: int, n_cls: int) -> dict:
+    """K4 labels and positions for fresh keys; ``n`` may cycle-walk (a * b > n)."""
     import torch
 
-    from squidpy_torch._core.index_cipher import _cipher_plain, _round_keys, cipher_columns
+    from squidpy_torch._core.index_cipher import _cipher_plain, _radices, _round_keys, cipher_columns
     from squidpy_torch._core.rng import spawn_keys
 
+    a, b = _radices(n)
+    print(f"[branch] index_cipher n={n}: radices {a} x {b}, {'cycle-walks' if a * b > n else 'no cycle walk'}",
+          flush=True)
     rng = np.random.default_rng(1)
     counts = np.bincount(rng.integers(0, n_cls, n), minlength=n_cls)
     edges = torch.from_numpy(np.cumsum(counts)[:-1].astype(np.int32)).cuda()
@@ -217,29 +225,79 @@ def random_index_cipher(n: int, n_cols: int, n_cls: int) -> dict:
     return res
 
 
-def check_pair_counts(name: str, idx, mask, src, table, n_cls: int) -> dict:
+def check_pair_counts(name: str, idx, mask, src, table, n_cls: int, branch: str | None = None) -> dict:
     """K3 ``(P, C, C)`` counts of label columns over a padded-ELL graph,
-    against the plain version."""
-    from squidpy_torch.ops.nhood import _k3_layout, _pair_counts_plain, pair_counts_cols
+    against the plain version; given ``branch``, the launch must take it."""
+    from squidpy_torch.ops.nhood import _pair_counts_plain, pair_counts_cols
 
     n, k_max = idx.shape
     n_cols = src.shape[1]
-    shared = _k3_layout(n, n_cols, n_cls)[2]
+    stats: dict = {}
+    pair_counts_cols(idx, mask, src, table, n_cls, stats=stats)
+    if branch is not None and stats["branch"] != branch:
+        raise AssertionError(f"pair_counts {name}: the launch took the {stats['branch']} branch, not {branch}")
     edges = int(mask.sum())
     # ELL indices and mask once, the label columns once (source and table are
     # one tensor here), the (P, C, C) int32 output once; per stored edge and
     # column: the label pair's bin and one add
     nbytes = idx.numel() * 4 + mask.numel() + src.numel() * src.element_size() + n_cols * n_cls * n_cls * 4
     bound = _bound(nbytes, 3.0 * edges * n_cols)
-    return _compare(
-        f"pair_counts {name} n={n} k_max={k_max} P={n_cols} C={n_cls} {src.dtype} shared_hist={shared}",
+    res = _compare(
+        f"pair_counts {name} n={n} k_max={k_max} P={n_cols} C={n_cls} {src.dtype} branch={stats['branch']} "
+        f"cols_per_block={stats['cols_per_block']} rows_per_block={stats['rows_per_block']} blocks={stats['blocks']}",
         lambda: pair_counts_cols(idx, mask, src, table, n_cls),
         lambda: _pair_counts_plain(idx, mask, src, table, n_cls),
         repeats=5, bound=bound,
     )
+    return {**res, "layout": stats}
 
 
-def random_pair_counts(n: int, k: int, k_max: int, n_cols: int, n_cls: int) -> dict:
+def pair_counts_split(idx, mask, cols, n_cls: int) -> None:
+    """K3's time on the main path's chunk as it is, with the histogram adds
+    replaced by a register sum (the gathers and the loop alone), and with
+    every label 0 (every add of a column on one counter), beside its launch
+    shape (a diagnostic; the register-sum output is not counts)."""
+    import torch
+
+    from squidpy_torch.ops.nhood import _K3_PACKED_RESIDENT, _launch_k3, k3_packed_resident, pair_counts_cols
+
+    resident = k3_packed_resident(cols.dtype)
+    if resident != _K3_PACKED_RESIDENT:
+        raise AssertionError(f"{resident} packed K3 blocks fit an SM; the layout assumes {_K3_PACKED_RESIDENT}")
+    stats: dict = {}
+    pair_counts_cols(idx, mask, cols, cols, n_cls, stats=stats)
+    zeros = torch.zeros_like(cols)
+    times = [f"{name}={_time_ms(fn, 5)[1]:.3f}ms" for name, fn in (
+        ("counted", lambda: pair_counts_cols(idx, mask, cols, cols, n_cls)),
+        ("register_sum", lambda: _launch_k3(idx, mask, cols, cols, n_cls, count=False)),
+        ("all_labels_0", lambda: pair_counts_cols(idx, mask, zeros, zeros, n_cls)),
+    )]
+    print(f"[diag] pair_counts n={idx.shape[0]} k_max={idx.shape[1]} P={cols.shape[1]} C={n_cls} "
+          f"branch={stats['branch']} cols_per_block={stats['cols_per_block']} rows_per_block={stats['rows_per_block']} "
+          f"blocks={stats['blocks']} resident_per_sm={resident}: {' '.join(times)}", flush=True)
+
+
+def overflow_pair_counts() -> dict:
+    """K3's packed branch where one block's bin (0, 0) reaches its 16-bit
+    limit: every label 0 and every slot set, ``65,535 // k_max`` rows a
+    block, so each block holds 65,472 counts a column and each column's
+    total passes 65,535 only in the int32 output."""
+    import torch
+
+    k = 64
+    n = 3 * torch.cuda.get_device_properties(0).multi_processor_count * (65_535 // k)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.randint(0, n, (n, k), generator=g, device="cuda", dtype=torch.int32)
+    mask = torch.ones((n, k), dtype=torch.bool, device="cuda")
+    cols = torch.zeros((n, 32), dtype=torch.uint8, device="cuda")
+    res = check_pair_counts("overflow, all labels 0", idx, mask, cols, cols, N_CLS, branch="packed")
+    rows = res["layout"]["rows_per_block"]
+    if rows * k <= 65_535 - k:
+        raise AssertionError(f"the overflow shape's blocks hold {rows} rows, short of the 16-bit limit")
+    return res
+
+
+def random_pair_counts(n: int, k: int, k_max: int, n_cols: int, n_cls: int, branch: str) -> dict:
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -247,7 +305,7 @@ def random_pair_counts(n: int, k: int, k_max: int, n_cols: int, n_cls: int) -> d
     mask = torch.zeros((n, k_max), dtype=torch.bool, device="cuda")
     mask[:, :k] = True
     cols = torch.randint(0, n_cls, (n, n_cols), generator=g, device="cuda", dtype=torch.uint8)
-    return check_pair_counts(f"random k={k}", idx, mask, cols, cols, n_cls)
+    return check_pair_counts(f"random k={k}", idx, mask, cols, cols, n_cls, branch=branch)
 
 
 def _k1_work(coords_p, n: int, seg, thr, tile: int) -> dict:
@@ -784,9 +842,13 @@ def main_path_kernel_checks(adata: StandIn, interval: np.ndarray) -> dict[str, l
     edges = torch.from_numpy(np.cumsum(np.bincount(codes, minlength=N_CLS))[:-1].astype(np.int32)).cuda()
     k4 = check_index_cipher("main path, first chunk", rk, n, edges)
     cols = cipher_columns(rk, n, edges, torch.uint8)
-    k3 = check_pair_counts("main path, first chunk", graph.indices, graph.mask, cols, cols, N_CLS)
+    # the main path's 500-column chunks take the packed branch, its observed
+    # labels (P = 1, int32) the shared one
+    k3 = check_pair_counts("main path, first chunk", graph.indices, graph.mask, cols, cols, N_CLS, branch="packed")
+    pair_counts_split(graph.indices, graph.mask, cols, N_CLS)
+    del cols
     obs = torch.from_numpy(codes).cuda().reshape(-1, 1)
-    k3_obs = check_pair_counts("main path, observed", graph.indices, graph.mask, obs, obs, N_CLS)
+    k3_obs = check_pair_counts("main path, observed", graph.indices, graph.mask, obs, obs, N_CLS, branch="shared")
     pts = np.asarray(adata.obsm["spatial"], np.float32)
     k1 = check_binned_pairs("main path, short range", pts, codes, _squared_thresholds(interval), N_CLS,
                             plain_warm=False)
@@ -954,9 +1016,10 @@ def main() -> int:
     del adata, results
     phases["kernels_main_path_inputs"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    checks["index_cipher"].append(random_index_cipher(N_CELLS, 64, N_CLS))
-    checks["pair_counts"] += [random_pair_counts(N_CELLS, N_NEIGHS, 8, 64, N_CLS),
-                              random_pair_counts(N_CELLS, N_NEIGHS, 8, 16, 200)]
+    checks["index_cipher"] += [random_index_cipher(N_CELLS, 64, N_CLS), random_index_cipher(N_CELLS + 3, 33, N_CLS)]
+    checks["pair_counts"] += [random_pair_counts(N_CELLS, N_NEIGHS, 8, 64, N_CLS, "packed"),
+                              random_pair_counts(N_CELLS, N_NEIGHS, 8, 16, 200, "global"),
+                              random_pair_counts(N_CELLS, N_NEIGHS, 8, 37, 40, "shared"), overflow_pair_counts()]
     checks["binned_pairs"] += [random_binned_pairs(200_000, 2, N_CLS), random_binned_pairs(100_000, 3, N_CLS),
                                random_binned_pairs(20_000, 2, 96), random_binned_pairs(20_000, 2, 200)]
     for name, extra in branch_checks().items():

@@ -7,9 +7,10 @@ package's (``random_bits`` of each permutation key), so every column is
 bitwise equal to ``squidpy_tpu``'s.
 
 On a CUDA tensor the cipher runs as kernel K4 (``csrc/index_cipher.cu``), one
-thread per (i, p). On the CPU it runs the plain torch version below, in int64
-with 32-bit masks because torch has no uint32 shifts, division or modulo on
-the CPU.
+thread per (i, p), with every ``%`` and ``/`` replaced by exact multiply-high
+reductions whose multipliers come from :func:`_fastdiv_multiplier`. On the
+CPU it runs the plain torch version below, in int64 with 32-bit masks
+because torch has no uint32 shifts, division or modulo on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ _M1 = 0x7FEB352D
 _M2 = 0x846CA68B
 
 _KIND_U8_LABELS, _KIND_I32_LABELS, _KIND_POSITIONS = 0, 1, 2
+_MAX_KERNEL_EDGES = 1 << 15  # boundaries padded to a power of two: at most 128 KB of shared memory
 
 
 def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -58,6 +60,23 @@ def _radices(n: int) -> tuple[int, int]:
     a = math.isqrt(n - 1) + 1 if n > 1 else 1
     b = -(-n // a)
     return a, b
+
+
+def _fastdiv_multiplier(d: int) -> int:
+    """``ceil(2^64 / d) mod 2^64``: K4's exact quotient of a 32-bit ``x`` is
+    ``(M * x) >> 64`` (Lemire, Kaser and Kurz 2019), and ``x`` itself for
+    ``d = 1``, whose multiplier 2^64 wraps to 0."""
+    return ((1 << 64) - 1) // d + 1 & ((1 << 64) - 1)
+
+
+def _k4_block_columns(n_cols: int) -> int:
+    """Columns of a K4 block (a power of two <= 32; the block is that many
+    columns by ``256 / pw`` rows): the widest that leaves at most 1/16 of
+    the lanes past the last column idle."""
+    pw = 32
+    while pw > 1 and -(-n_cols // pw) * pw - n_cols > n_cols / 16:
+        pw //= 2
+    return pw
 
 
 def _encrypt(y: torch.Tensor, round_keys: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -117,16 +136,22 @@ def cipher_columns(
         _cuda.require(edges, "edges", torch.int32)
         if edges.device != round_keys.device:
             raise ValueError("`edges` and `round_keys` must be on the same device.")
+        if edges.numel() >= _MAX_KERNEL_EDGES:
+            raise ValueError(f"the cipher kernel stages at most {_MAX_KERNEL_EDGES - 1} class boundaries in shared "
+                             f"memory, found {edges.numel()}.")
     if not 0 < n < 2**32:
         raise ValueError(f"cipher domain size must lie in [1, 2^32), found {n}.")
     # the kernel reads the keys as uint32: the same low 32 bits as int32
     rk = round_keys.to(torch.int64)
     rk32 = torch.where(rk >= 2**31, rk - 2**32, rk).to(torch.int32).contiguous()
     a, b = _radices(n)
+    pw = _k4_block_columns(n_cols)
+    if -(-n_cols // pw) > 65_535:
+        raise ValueError(f"the cipher kernel takes at most {65_535 * pw} columns, found {n_cols}.")
     out = torch.empty((n, n_cols), dtype=out_dtype, device=round_keys.device)
     lib = _cuda.library()
     code = lib.sqt_index_cipher(
-        rk32.data_ptr(), rounds, n_cols, n, a, b,
+        rk32.data_ptr(), rounds, n_cols, n, a, b, _fastdiv_multiplier(a), _fastdiv_multiplier(b), pw,
         edges.data_ptr() if edges is not None else None, 0 if edges is None else edges.numel(),
         out.data_ptr(), kind, _cuda.stream_ptr(),
     )

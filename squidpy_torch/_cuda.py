@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels under ``csrc/``.
 
-All kernels compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, loaded with ``ctypes``. The build runs at first use, into
+All kernels compile with ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and link into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first use, into
 ``squidpy_torch/_build/``, keyed by a hash of the sources and flags, so a
 fresh checkout builds everything on its first kernel call. Nothing here is
 imported or compiled on a machine without a card: the wrappers in the ops
@@ -32,7 +33,7 @@ _BUILD_DIR = _PKG / "_build"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel name -> (source in the repo, TPU/XLA code it replaces)
@@ -53,8 +54,10 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _I, _P, _I, _P],
-    "sqt_pair_counts": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
+                         ctypes.c_uint64, _I, _P, _I, _P, _I, _P],
+    "sqt_pair_counts": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "sqt_pair_counts_resident": [_I, _P],
     "sqt_binned_pairs": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "sqt_dense_pairs": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "sqt_ell_autocorr": [_I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
@@ -90,11 +93,28 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         _BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
-        build_log = proc.stderr
+        objs = _BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+        objs.mkdir(exist_ok=True)
+        nvcc = _nvcc()
+        # one nvcc per source, all at once, then one link
+        procs = [(src, subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                 for src in sources]
+        logs = []
+        for src, proc in procs:
+            err = proc.communicate()[1]
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {src.name} with exit code {proc.returncode}:\n{err}")
+            logs.append(err)
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(objs / f"{src.stem}.o") for src in sources)],
+                              capture_output=True, text=True, check=False)
+        shutil.rmtree(objs, ignore_errors=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link with exit code {link.returncode}:\n{link.stderr}")
+        build_log = "".join(logs)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -2,13 +2,17 @@
 
 ``counts[p, a, b]`` is the number of stored edges ``i -> j`` (mask set) with
 ``src[i, p] = a`` and ``table[j, p] = b``. On a CUDA tensor the count runs as
-kernel K3 (``csrc/pair_counts.cu``), a per-block integer histogram; on the
-CPU it runs the plain torch version below. Counts are exact int32 per
+kernel K3 (``csrc/pair_counts.cu``), a per-block integer histogram in one of
+three branches that :func:`_k3_layout` picks from the shapes; on the CPU it
+runs the plain torch version below. Counts are exact int32 per
 permutation (at most ``n * k_max`` edges), so the JAX package's 2^23-edge f32
 chunking is not needed; callers sum across permutations in int64 or float64.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -23,11 +27,31 @@ __all__ = [
     "permuted_pair_counts_cols",
 ]
 
-# shared-memory budget of one K3 block's (P_blk, C, C) int32 histogram;
-# a single column's C x C above it takes the global-atomics branch
+# shared-memory budget of one shared-branch K3 block's (P_blk, C, C) int32
+# histogram; a single column's C x C above it takes the global-atomics branch
 _K3_SMEM_BYTES = 96 * 1024
 _K3_MAX_P_BLK = 64
 _K3_TARGET_BLOCKS = 1056  # 8 blocks per SM of an H100
+# packed branch: C <= 16 and at least 32 columns; 128 columns a block of 512
+# threads, 3 such blocks resident an SM (64 KB of shared memory each); uint16
+# counters, so a block counts at most 65,535 // k_max rows
+_K3_PACKED_MAX_CLS = 16
+_K3_PACKED_MIN_COLS = 32
+_K3_PACKED_COLS = 128
+_K3_PACKED_RESIDENT = 3
+_K3_COUNTER_MAX = 65_535
+_H100_SMS = 132
+_K3_BRANCHES = {"packed": 0, "shared": 1, "global": 2}
+
+
+class K3Layout(NamedTuple):
+    """A K3 launch: its branch, the columns and rows of a block, and the grid."""
+
+    branch: str  # "packed", "shared" or "global"
+    cols_per_block: int  # 128 (packed) or P_blk, a power of two <= 64
+    row_blocks: int
+    rows_per_block: int
+    blocks: int
 
 
 def _pair_counts_plain(
@@ -50,8 +74,23 @@ def _pair_counts_plain(
     return out.view(p, n_cls, n_cls).to(torch.int32)
 
 
-def _k3_layout(n: int, n_cols: int, n_cls: int) -> tuple[int, int, bool]:
-    """(P_blk, row blocks, shared histogram) of a K3 launch."""
+def _k3_layout(n: int, n_cols: int, n_cls: int, k_max: int, sms: int = _H100_SMS) -> K3Layout:
+    """The K3 launch for these shapes on a card with ``sms`` SMs.
+
+    Packed when ``C <= 16`` and ``P >= 32`` (and ``k_max <= 65,535``): row
+    blocks of at most ``65,535 // k_max`` rows, as many as round the grid up
+    to whole waves of resident blocks. Otherwise a shared (P_blk, C, C) int32
+    histogram, or global atomics when one column's does not fit.
+    """
+    if n_cls <= _K3_PACKED_MAX_CLS and n_cols >= _K3_PACKED_MIN_COLS and k_max <= _K3_COUNTER_MAX:
+        groups = -(-n_cols // _K3_PACKED_COLS)
+        row_blocks = max(1, -(-n // (_K3_COUNTER_MAX // max(k_max, 1))))
+        resident = _K3_PACKED_RESIDENT * sms
+        waves = -(-row_blocks * groups // resident)
+        row_blocks = max(row_blocks, waves * resident // groups)
+        rows = max(1, -(-n // row_blocks))
+        row_blocks = max(1, -(-n // rows))
+        return K3Layout("packed", _K3_PACKED_COLS, row_blocks, rows, row_blocks * groups)
     cc4 = n_cls * n_cls * 4
     p_blk = 1
     while p_blk < min(n_cols, _K3_MAX_P_BLK):  # a power of two, so it divides the 256 threads
@@ -61,21 +100,45 @@ def _k3_layout(n: int, n_cols: int, n_cls: int) -> tuple[int, int, bool]:
     shared = p_blk * cc4 <= _K3_SMEM_BYTES
     col_blocks = -(-n_cols // p_blk)
     row_blocks = max(1, min(-(-n // 256), -(-_K3_TARGET_BLOCKS // col_blocks)))
-    return p_blk, row_blocks, shared
+    rows = max(1, -(-n // row_blocks))
+    return K3Layout("shared" if shared else "global", p_blk, row_blocks, rows, row_blocks * col_blocks)
 
 
 def pair_counts_cols(
-    indices: torch.Tensor, mask: torch.Tensor, src_cols: torch.Tensor, table_cols: torch.Tensor, n_cls: int
+    indices: torch.Tensor,
+    mask: torch.Tensor,
+    src_cols: torch.Tensor,
+    table_cols: torch.Tensor,
+    n_cls: int,
+    *,
+    stats: dict | None = None,
 ) -> torch.Tensor:
     """Kernel K3: exact ``(P, C, C)`` int32 pair counts of ``(n, P)`` label columns.
 
     ``indices`` (n, k) int32 and ``mask`` (n, k) bool are the padded-ELL
     graph; ``src_cols`` and ``table_cols`` hold the source rows' labels and
     the table the neighbour indices point into (uint8 or int32). A CPU tensor
-    runs the plain torch version; a CUDA tensor launches the kernel.
+    runs the plain torch version; a CUDA tensor launches the kernel. Given
+    ``stats``, the launch's :class:`K3Layout` fields are stored in it.
     """
     if indices.device.type == "cpu":
         return _pair_counts_plain(indices, mask, src_cols, table_cols, n_cls)
+    return _launch_k3(indices, mask, src_cols, table_cols, n_cls, count=True, stats=stats)
+
+
+def _launch_k3(
+    indices: torch.Tensor,
+    mask: torch.Tensor,
+    src_cols: torch.Tensor,
+    table_cols: torch.Tensor,
+    n_cls: int,
+    *,
+    count: bool,
+    stats: dict | None = None,
+) -> torch.Tensor:
+    """Launch K3. ``count=False`` (packed branch only, a diagnostic) replaces
+    the histogram adds with a register sum: the output is then not the counts
+    and the launch does not count as one of K3's."""
     n, k = indices.shape
     n_cols = src_cols.shape[1]
     _cuda.require(indices, "indices", torch.int32)
@@ -88,17 +151,35 @@ def pair_counts_cols(
         raise ValueError(f"`table_cols` must have {n_cols} columns, found {table_cols.shape[1]}.")
     if n >= 2**31 or n * k >= 2**31:
         raise ValueError("pair counts take fewer than 2^31 rows and edges.")
-    if n * k and (int(indices.min()) < 0 or int(indices.max()) >= table_cols.shape[0]):
-        raise ValueError("neighbour indices must lie in [0, rows of `table_cols`).")
-    p_blk, row_blocks, shared = _k3_layout(n, n_cols, n_cls)
+    if n * k:
+        lo, hi = torch.stack(torch.aminmax(indices)).tolist()  # one reduction, one wait
+        if lo < 0 or hi >= table_cols.shape[0]:
+            raise ValueError("neighbour indices must lie in [0, rows of `table_cols`).")
+    sms = torch.cuda.get_device_properties(indices.device).multi_processor_count
+    layout = _k3_layout(n, n_cols, n_cls, k, sms)
+    if not count and layout.branch != "packed":
+        raise ValueError(f"the register-sum diagnostic runs on the packed branch only, not `{layout.branch}`.")
+    if stats is not None:
+        stats.update(layout._asdict())
     out = torch.zeros((n_cols, n_cls, n_cls), dtype=torch.int32, device=indices.device)
     code = _cuda.library().sqt_pair_counts(
         src_cols.data_ptr(), table_cols.data_ptr(), src_cols.element_size(), indices.data_ptr(), mask.data_ptr(),
-        n, k, n_cols, n_cls, p_blk, row_blocks, int(shared), out.data_ptr(), _cuda.stream_ptr(),
+        n, k, n_cols, n_cls, _K3_BRANCHES[layout.branch], layout.cols_per_block, layout.row_blocks,
+        layout.rows_per_block, int(count), out.data_ptr(), _cuda.stream_ptr(),
     )
     _cuda.check(code, "pair_counts")
-    _cuda.launches["pair_counts"] += 1
+    if count:
+        _cuda.launches["pair_counts"] += 1
     return out
+
+
+def k3_packed_resident(label_dtype: torch.dtype = torch.uint8) -> int:
+    """Packed-branch K3 blocks one SM of the current card keeps resident (the
+    layout assumes ``_K3_PACKED_RESIDENT``)."""
+    per_sm = ctypes.c_int(0)
+    _cuda.check(_cuda.library().sqt_pair_counts_resident(1 if label_dtype == torch.uint8 else 4,
+                                                         ctypes.byref(per_sm)), "pair_counts")
+    return per_sm.value
 
 
 def cluster_pair_counts(indices: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor, n_cls: int) -> torch.Tensor:

@@ -149,6 +149,40 @@ def test_co_occurrence_use_pallas_matches_jax():
     np.testing.assert_array_equal(adata.uns["cl_co_occurrence"]["occ"], occ_j)
 
 
+def test_nan_cells_at_128_categories():
+    """NaN cells (``cat.codes`` = -1) of a 128-category column: squidpy_tpu's
+    Pallas K2 counts them as category 127 (its one-hot sets lane -1, which is
+    lane 127, and the ``[:128]`` slice keeps it); the port counts them
+    nowhere, as squidpy_tpu's default path does. Both results are pinned."""
+    n, n_cls = 300, 128
+    rng = np.random.default_rng(11)
+    codes = rng.integers(0, n_cls - 1, n)  # category 127 holds only what the NaN cells add
+    nan = rng.choice(n, 30, replace=False)
+    pts = rng.uniform(0, 10 * np.sqrt(n), (n, 2))
+    radii = np.sqrt(_clear_thresholds(pts.astype(np.float32), np.array([30.0, 60.0, 90.0]) ** 2).astype(np.float64))
+    interval = np.concatenate([[0.0], radii])
+
+    def adata(c: np.ndarray) -> sq.AnnData:
+        a = sq.AnnData(X=np.zeros((n, 1)), var=pd.DataFrame(index=["g"]),
+                       obs=pd.DataFrame({"cl": pd.Categorical.from_codes(c, [f"c{i}" for i in range(n_cls)])},
+                                        index=[str(i) for i in range(n)]))
+        a.obsm["spatial"] = pts
+        return a
+
+    with_nan, as_127 = codes.copy(), codes.copy()
+    with_nan[nan], as_127[nan] = -1, n_cls - 1
+    occ_jax, int_jax = sq.gr.co_occurrence(adata(with_nan), "cl", interval=interval, copy=True, use_pallas=True)
+    assert not _knife_edges(pts.astype(np.float32), (int_jax[1:].astype(np.float64) ** 2).astype(np.float32))
+    occ_port, _ = sqt.gr.co_occurrence(adata(with_nan), "cl", interval=interval, copy=True, use_pallas=True)
+    # squidpy_tpu's K2: the NaN cells are category 127
+    occ_127, _ = sqt.gr.co_occurrence(adata(as_127), "cl", interval=interval, copy=True, use_pallas=True)
+    np.testing.assert_array_equal(occ_jax, occ_127)
+    # the port: the NaN cells count nowhere, as in squidpy_tpu's default path
+    occ_default, _ = sq.gr.co_occurrence(adata(with_nan), "cl", interval=interval, copy=True)
+    np.testing.assert_array_equal(occ_port, occ_default)
+    assert not np.array_equal(occ_port, occ_jax, equal_nan=True)
+
+
 def test_dense_pairs_argument_errors():
     adata = _adata(300, 129, seed=9)
     with pytest.raises(ValueError, match="at most 128 clusters"):

@@ -127,20 +127,99 @@ def test_unported_options_raise(adata_70k):
 
 @pytest.mark.parametrize("n_cols,n_cls", [(1, 4), (5, 16), (64, 16), (500, 16), (16, 200), (3, 400)])
 def test_k3_layout(n_cols, n_cls):
-    p_blk, row_blocks, shared = tnh._k3_layout(1_000_000, n_cols, n_cls)
-    assert 256 % p_blk == 0 and row_blocks >= 1
-    assert shared == (p_blk * n_cls * n_cls * 4 <= tnh._K3_SMEM_BYTES)
-    assert shared or p_blk == 1
+    lay = tnh._k3_layout(1_000_000, n_cols, n_cls, 8)
+    assert lay.row_blocks >= 1 and (lay.row_blocks - 1) * lay.rows_per_block < 1_000_000
+    assert lay.row_blocks * lay.rows_per_block >= 1_000_000
+    if lay.branch == "packed":
+        assert lay.cols_per_block == 128 and lay.rows_per_block * 8 <= 65_535
+        assert lay.blocks == lay.row_blocks * -(-n_cols // 128)
+    else:
+        assert 256 % lay.cols_per_block == 0
+        fits = lay.cols_per_block * n_cls * n_cls * 4 <= tnh._K3_SMEM_BYTES
+        assert lay.branch == ("shared" if fits else "global")
+        assert fits or lay.cols_per_block == 1
+
+
+@pytest.mark.parametrize("n_cols,n_cls,branch", [(1, 16, "shared"), (7, 16, "shared"), (500, 16, "packed"),
+                                                 (64, 17, "shared"), (16, 200, "global"), (3, 400, "global"),
+                                                 (32, 16, "packed"), (31, 16, "shared"), (33, 1, "packed")])
+def test_k3_branch(n_cols, n_cls, branch):
+    """Packed for C <= 16 and P >= 32, whatever n and k_max (shapes only)."""
+    for n, k_max in ((1_000_000, 8), (3_000, 6), (1, 1)):
+        assert tnh._k3_layout(n, n_cols, n_cls, k_max).branch == branch
+
+
+@pytest.mark.parametrize("n", [1, 31, 5_000, 1_000_000, 3_244_001, 2**31 - 1])
+@pytest.mark.parametrize("k_max", [1, 6, 8, 16, 64, 1_000])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k3_packed_rows_bound(n, k_max, sms):
+    """No packed counter can pass 65,535: a block's rows x k_max stay within
+    it; the rows cover n; the last wave of resident blocks is at least 80%
+    full, unless the grid spans more than 10 waves or n runs out of rows."""
+    lay = tnh._k3_layout(n, 500, 16, k_max, sms)
+    assert lay.branch == "packed"
+    assert lay.rows_per_block * k_max <= 65_535
+    assert lay.row_blocks * lay.rows_per_block >= n > (lay.row_blocks - 1) * lay.rows_per_block
+    resident = tnh._K3_PACKED_RESIDENT * sms
+    waves = -(-lay.blocks // resident)
+    assert lay.rows_per_block == 1 or waves > 10 or lay.blocks - (waves - 1) * resident >= 0.8 * resident
+
+
+def test_k3_packed_rows_reach_the_bound():
+    """The overflow shape of the card tests: all labels 0 and every slot set,
+    so one block's bin (0, 0) holds rows x k_max = 65,472 counts per column,
+    and each column's total passes 65,535 only across blocks."""
+    n, k_max = 3 * 132 * (65_535 // 64), 64
+    lay = tnh._k3_layout(n, 32, 16, k_max, 132)
+    assert lay == tnh.K3Layout("packed", 128, 396, 1_023, 396)
+    assert 65_535 - k_max < lay.rows_per_block * k_max <= 65_535 < n * k_max
+
+
+@pytest.mark.parametrize("n_cols", [33, 500])
+def test_permuted_pair_counts_wide_columns_match_jax(n_cols):
+    """Column counts that leave a partial last column block (33 of 128, 500 of
+    4 x 128) on the card's packed branch: the plain version against JAX."""
+    n, k = 1_500, 8
+    idx, mask = _masked_ell(n, k, n_cols)
+    cols = np.random.default_rng(n_cols).integers(0, 16, (n, n_cols)).astype(np.uint8)
+    want = np.asarray(jnh.permuted_pair_counts_cols(jnp.asarray(idx), jnp.asarray(mask), jnp.asarray(cols), 16))
+    got = tnh.permuted_pair_counts_cols(torch.from_numpy(idx), torch.from_numpy(mask), torch.from_numpy(cols), 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _card_cases(sms: int):
+    """(name, n, k, P, C, labels drawn below, dtype, mask density, branch):
+    every branch, aligned and unaligned packed loads, k_max not a multiple
+    of 8, labels outside [0, C), and the overflow shape."""
+    return [
+        ("packed uint8", 20_000, 8, 36, 16, 18, torch.uint8, 0.8, "packed"),
+        ("packed unaligned, C=5", 20_000, 8, 33, 5, 5, torch.uint8, 0.8, "packed"),
+        ("packed k=13, 3 column blocks", 9_000, 13, 300, 16, 16, torch.uint8, 0.8, "packed"),
+        ("packed int32", 20_000, 8, 36, 16, 18, torch.int32, 0.8, "packed"),
+        ("packed int32 unaligned", 20_000, 8, 37, 16, 18, torch.int32, 0.8, "packed"),
+        ("shared P=1 int32", 20_000, 8, 1, 16, 16, torch.int32, 0.8, "shared"),
+        ("shared P=7", 20_000, 8, 7, 16, 17, torch.uint8, 0.8, "shared"),
+        ("shared C=40", 20_000, 8, 37, 40, 40, torch.uint8, 0.8, "shared"),
+        ("global C=200", 20_000, 8, 16, 200, 200, torch.uint8, 0.8, "global"),
+        ("global C=300 int32", 20_000, 8, 37, 300, 300, torch.int32, 0.8, "global"),
+        ("overflow: all labels 0", 3 * sms * (65_535 // 64), 64, 32, 16, 1, torch.uint8, 1.0, "packed"),
+    ]
 
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_card):
-    for n_cls, dtype in ((16, torch.uint8), (200, torch.uint8), (300, torch.int32)):
-        idx, mask = _masked_ell(20_000, 8, n_cls)
-        cols = torch.randint(0, n_cls, (20_000, 37), dtype=dtype).cuda()
-        idx_d, mask_d = torch.from_numpy(idx).cuda(), torch.from_numpy(mask).cuda()
-        got = tnh.pair_counts_cols(idx_d, mask_d, cols, cols, n_cls)
-        assert torch.equal(got, tnh._pair_counts_plain(idx_d, mask_d, cols, cols, n_cls))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, n, k, n_cols, n_cls, hi, dtype, density, branch in _card_cases(sms):
+        idx = torch.randint(0, n, (n, k), generator=g, device="cuda", dtype=torch.int32)
+        mask = torch.rand((n, k), generator=g, device="cuda") < density
+        cols = torch.randint(-1 if dtype == torch.int32 else 0, hi, (n, n_cols), generator=g, device="cuda").to(dtype)
+        stats: dict = {}
+        got = tnh.pair_counts_cols(idx, mask, cols, cols, n_cls, stats=stats)
+        assert stats["branch"] == branch, name
+        assert torch.equal(got, tnh._pair_counts_plain(idx, mask, cols, cols, n_cls)), name
+        if name.startswith("overflow"):
+            assert stats["rows_per_block"] * k > 65_535 - k and int(got[0, 0, 0]) == n * k
 
 
 @pytest.fixture()

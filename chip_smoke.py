@@ -17,13 +17,19 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       Moran without permutations, Moran with 100, Geary with 100 (K5a,
       K5b, K4 positions); then ``co_occurrence(use_pallas=True)`` on 200k
       cells with the default interval=50 (K2);
-   then checks of what the calls returned;
+   then checks of what the calls returned, and one more Moran call under
+   the profiler, whose ``[host]`` line splits the call's host time by step;
 4. each kernel against its plain torch version on the card, with both
    times, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, its time: first on the main
-   path's own inputs (K5b on the bf16 operands ``spatial_autocorr`` gives it
-   at 1M cells, then its Moran time with the positions shrunk to the
-   identity, a quarter and an eighth of the rows; K1's line with its
+   path's own inputs (K5a over the ELL rows in the Morton order
+   ``spatial_autocorr`` walks them in, with ``torch.sparse.mm`` as the
+   yardstick of ``u = W z``, and its ``[diag]`` line: ``u = W z`` with the
+   identity walk, the Morton walk and the graph relabelled into Morton
+   order, the walk's own cost and the launch's layout; K5b on the bf16
+   operands ``spatial_autocorr`` gives it at 1M cells, then its Moran time
+   with the positions shrunk to the identity, a quarter and an eighth of the
+   rows; K1's line with its
    distinct tile pairs and the pairs its culling keeps, then on the same
    points and thresholds with 40 classes, where its shared histogram holds
    only the top rows of a window; K3's ``[diag]`` line: its time with the
@@ -33,8 +39,8 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    with 200, K3's packed branch where a block's 16-bit counters reach their
    limit, K4 at a cycle-walking n, K1 with 96 classes
    (a few shared rows) and 200 (global atomics only), K1 in 3D, K5a on a
-   skewed graph's degree buckets and K5b's float32 operands on that
-   200k-cell graph, K2 with 128 classes, in 3D, with 31 classes (the
+   skewed graph's degree buckets, each walked in Morton order, and K5b's
+   float32 operands on that 200k-cell graph, K2 with 128 classes, in 3D, with 31 classes (the
    histogram shared only beside the smaller tile), with coincident points,
    labels outside [0, C), equal and zero thresholds and thresholds on pairs'
    d2, and its ``[diag]`` line: the main path's time with no pair counted).
@@ -47,7 +53,10 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    agree, at 3000 cells (brute-force kNN, sort shuffles, dense sweep, K2)
    and at 100k cells (cipher shuffles, binned sweep): counts, z-scores and
    co-occurrence bitwise, permutation indices bitwise, autocorrelation
-   scores to the bound above and p-values to rtol 1e-3.
+   scores to the bound above and p-values to rtol 1e-3; and on the card
+   ``spatial_autocorr`` with and without ``obsm['spatial']`` (the Morton walk
+   or the identity): with permutations every column bitwise, Moran without
+   to the bound above.
 
 Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -529,10 +538,11 @@ def autocorr_path(adata: StandIn) -> tuple[dict, dict, dict]:
     }
 
 
-def check_ell_autocorr(name: str, idx, w, x, z, rows=None, library=None) -> list[dict]:
-    """K5a in its three modes against the plain version: ``u = W z``
-    bitwise, the Moran numerator of ``z`` and the Geary numerator of ``x``
-    to ``SUM_TOL * sum |terms|``."""
+def check_ell_autocorr(name: str, idx, w, x, z, rows=None, library=None, walk=None) -> list[dict]:
+    """K5a in its three modes (over a bucket's ``rows``, or the whole graph
+    in the order ``walk``) against the plain version: ``u = W z`` bitwise,
+    the Moran numerator of ``z`` and the Geary numerator of ``x`` to
+    ``SUM_TOL * sum |terms|``."""
     import torch
 
     from squidpy_torch.ops.autocorr import _ell_plain, ell_autocorr
@@ -540,7 +550,8 @@ def check_ell_autocorr(name: str, idx, w, x, z, rows=None, library=None) -> list
     n_b, k = idx.shape
     n, g = x.shape
     tag = f"ell_autocorr {name} n={n} rows={n_b} k={k} g={g}"
-    ell_bytes = idx.numel() * 4 + w.numel() * 4 + (rows.numel() * 4 if rows is not None else 0)
+    order = rows if rows is not None else walk
+    ell_bytes = idx.numel() * 4 + w.numel() * 4 + (order.numel() * 4 if order is not None else 0)
     out = []
     for mode, y, flops in (("spmv", z, 2), ("moran", z, 3), ("geary", x, 4)):
         # the gene block and the ELL arrays read once; u (the bucket's rows)
@@ -548,23 +559,84 @@ def check_ell_autocorr(name: str, idx, w, x, z, rows=None, library=None) -> list
         nbytes = n * g * 4 + ell_bytes + (n_b * g * 4 if mode == "spmv" else g * 4)
         terms = None
         if mode == "moran":
-            terms = _ell_plain("moran", idx, w.abs(), z.abs(), rows)
+            terms = _ell_plain("moran", idx, w.abs(), z.abs(), rows, walk)
         elif mode == "geary":
-            terms = _ell_plain("geary", idx, w.abs(), x, rows)
+            terms = _ell_plain("geary", idx, w.abs(), x, rows, walk)
         def plain(mode=mode, y=y):
-            res = _ell_plain(mode, idx, w, y, rows)
-            if mode == "spmv" and rows is not None:  # the bucket's rows of an (n, g) u
-                return torch.zeros_like(y).index_copy_(0, rows.long(), res)
+            res = _ell_plain(mode, idx, w, y, rows, walk)
+            if mode == "spmv" and order is not None:  # the rows of an (n, g) u, in their order
+                return torch.zeros_like(y).index_copy_(0, order.long(), res)
             return res
 
         out.append(_compare(
             f"{tag} mode={mode}",
-            lambda mode=mode, y=y: ell_autocorr(mode, idx, w, y, rows),
+            lambda mode=mode, y=y: ell_autocorr(mode, idx, w, y, rows, walk=walk),
             plain,
             repeats=5, bound=_bound(nbytes, flops * n_b * k * g), terms=terms,
             library=library if mode == "spmv" else None,
         ))
     return out
+
+
+def ell_walk_split(adata: StandIn, graph, walk, z) -> None:
+    """K5a's ``u = W z`` on the main path's block with the rows in their
+    given order (the identity), in the Morton order ``spatial_autocorr``
+    walks them in, and with the graph and ``z`` relabelled into that order
+    (the floor a walk can reach), each checked bitwise against the others;
+    the walk's own cost, built (coordinates to the card, codes, sort) and as
+    later calls find it cached on the AnnData; and the launch's layout (a
+    diagnostic)."""
+    import torch
+
+    from squidpy_torch._core.graph import _morton_walk, locality_walk
+    from squidpy_torch._device import get_device
+    from squidpy_torch.ops.autocorr import ell_autocorr, k5a_layout
+
+    n = z.shape[0]
+    build_ms, cached_ms = [], []
+    for _ in range(3):
+        built, t = _sync_time(lambda: _morton_walk(adata, n, get_device()))
+        build_ms.append(1e3 * t)
+        cached, t = _sync_time(lambda: locality_walk(adata, n, get_device()))
+        cached_ms.append(1e3 * t)
+    if cached is not walk or not torch.equal(built, walk):
+        raise AssertionError("the Morton walk is not the one spatial_autocorr cached, or differs when built again")
+    order = walk.long()
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=order.device)
+    relabelled = (rank[graph.indices[order].long()].to(torch.int32), graph.weights[order], z[order])
+    cases = (("identity", (graph.indices, graph.weights, z), None), ("morton", (graph.indices, graph.weights, z), walk),
+             ("relabelled", relabelled, None))
+    times, results = [], {}
+    for name, args, w in cases:
+        results[name], t = _time_ms(lambda args=args, w=w: ell_autocorr("spmv", *args, walk=w), 5)
+        times.append(f"{name}={t:.3f}ms")
+    if not (torch.equal(results["identity"], results["morton"])
+            and torch.equal(results["identity"][order], results["relabelled"])):
+        raise AssertionError("u = W z differs between the identity walk, the Morton walk and the relabelled graph")
+    lay = k5a_layout("spmv", n, z)
+    print(f"[diag] ell_autocorr spmv n={n} g={z.shape[1]} k={graph.indices.shape[1]}: {' '.join(times)} "
+          f"walk_build_ms={min(build_ms):.3f} walk_cached_ms={min(cached_ms):.4f} (best of 3; built "
+          f"{[round(t, 3) for t in build_ms]}) aligned={lay.aligned} slices={lay.slices} "
+          f"rows_per_item={lay.rows_per_item} stretch_rows={lay.stretch_rows} blocks={lay.blocks} "
+          f"resident_per_sm={lay.resident_per_sm} registers={lay.registers}", flush=True)
+
+
+def host_split(adata: StandIn) -> None:
+    """One more ``spatial_autocorr`` Moran call (no permutations) under the
+    profiler: the host time of each of its named steps (a diagnostic)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import squidpy_torch as sqt
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, wall = _sync_time(lambda: sqt.gr.spatial_autocorr(adata, mode="moran", copy=True))
+    steps = {e.key.split(".", 1)[1]: e.cpu_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith("spatial_autocorr.")}
+    if not steps:
+        raise AssertionError("the profile holds none of spatial_autocorr's ranges")
+    print(f"[host] spatial_autocorr moran n={adata.obsm['spatial'].shape[0]} genes={len(adata.var_names)}: "
+          f"wall={1e3 * wall:.1f}ms " + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()), flush=True)
 
 
 def check_perm_autocorr(name: str, z, u, r, perms) -> list[dict]:
@@ -686,8 +758,10 @@ def autocorr_kernel_checks(adata: StandIn, results: dict) -> dict[str, list[dict
     import torch
 
     from squidpy_torch._constants._constants import BF16_GATHER_MIN_N
+    from squidpy_torch._core.graph import locality_walk
     from squidpy_torch._core.index_cipher import cipher_index_batch
     from squidpy_torch._core.rng import spawn_keys
+    from squidpy_torch._device import get_device
     from squidpy_torch.ops.autocorr import ell_autocorr
 
     n = adata.obsm["spatial"].shape[0]
@@ -698,10 +772,15 @@ def autocorr_kernel_checks(adata: StandIn, results: dict) -> dict[str, list[dict
     w_sparse = torch.sparse_csr_tensor(
         torch.from_numpy(g_csr.indptr.astype(np.int64)), torch.from_numpy(g_csr.indices.astype(np.int64)),
         torch.from_numpy(g_csr.data.astype(np.float32)), size=g_csr.shape, check_invariants=False).cuda()
-    k5a = check_ell_autocorr("main path, first block", graph.indices, graph.weights, xb, zb,
-                             library=lambda: torch.sparse.mm(w_sparse, zb))
-    del xb
-    ub = ell_autocorr("spmv", graph.indices, graph.weights, zb)
+    # the ELL rows in the Morton order spatial_autocorr walked them in (its cached walk)
+    walk = locality_walk(adata, n, get_device())
+    if walk is None:
+        raise AssertionError("spatial_autocorr builds no walk for the main path's coordinates")
+    k5a = check_ell_autocorr("main path, first block, Morton walk", graph.indices, graph.weights, xb, zb,
+                             library=lambda: torch.sparse.mm(w_sparse, zb), walk=walk)
+    del xb, w_sparse
+    ell_walk_split(adata, graph, walk, zb)
+    ub = ell_autocorr("spmv", graph.indices, graph.weights, zb, walk=walk)
     perms = cipher_index_batch(spawn_keys(0, AUTOCORR_PERMS), n)
     r = torch.from_numpy(np.asarray(g_csr.sum(axis=1), np.float32).ravel()).cuda()
     # the null's operands as spatial_autocorr hands them to K5b at this size
@@ -747,6 +826,7 @@ def branch_checks() -> dict[str, list[dict]]:
     from scipy import sparse as sp
 
     import squidpy_torch as sqt
+    from squidpy_torch._core.graph import locality_walk, walk_buckets
     from squidpy_torch.ops.autocorr import _ell_plain, spmv_genes_bucketed
     from squidpy_torch.ops.dense_pairs import _expanded_d2, _sq_norms
 
@@ -759,21 +839,24 @@ def branch_checks() -> dict[str, list[dict]]:
     buckets = graph.degree_buckets()
     if buckets is None or not 2 <= len(buckets) <= 4:
         raise AssertionError(f"the skewed graph gave {None if buckets is None else len(buckets)} degree buckets")
+    # each bucket's rows in the Morton order of the cells, as spatial_autocorr walks them
+    walked = walk_buckets(buckets, locality_walk(adata, n, sqt.get_device()))
     x = torch.from_numpy(counts.astype(np.float32)).cuda()
     z = x - torch.mean(x, dim=0, keepdim=True)
     k5a = []
-    for b, (rows, idx, w) in enumerate(buckets):
-        k5a += check_ell_autocorr(f"bucket {b}/{len(buckets)}", idx, w, x, z, rows=rows)
+    for b, (rows, idx, w) in enumerate(walked):
+        k5a += check_ell_autocorr(f"bucket {b}/{len(buckets)}, Morton walk", idx, w, x, z, rows=rows)
     u_plain = torch.zeros_like(z)
     for rows, idx, w in buckets:
         u_plain[rows.long()] = _ell_plain("spmv", idx, w, z, rows)
-    if not torch.equal(spmv_genes_bucketed(buckets, z), u_plain):
-        raise AssertionError("bucketed u = W z differs from the plain version")
+    if not (torch.equal(spmv_genes_bucketed(walked, z), u_plain) and torch.equal(spmv_genes_bucketed(buckets, z),
+                                                                                   u_plain)):
+        raise AssertionError("bucketed u = W z (walked or not) differs from the plain version")
     # K5b's float32 operands (below 2^19 cells), over this graph's u = W z
     from squidpy_torch._core.index_cipher import cipher_index_batch
     from squidpy_torch._core.rng import spawn_keys
 
-    u = spmv_genes_bucketed(buckets, z)
+    u = spmv_genes_bucketed(walked, z)
     r = torch.from_numpy(np.asarray(_normalized_graph(adata)[0].sum(axis=1), np.float32).ravel()).cuda()
     k5b = check_perm_autocorr("skewed graph, float32", z, u, r, cipher_index_batch(spawn_keys(1, AUTOCORR_PERMS), n))
     del u
@@ -881,6 +964,37 @@ def _autocorr_terms_bound(adata: StandIn, res, mode: str) -> np.ndarray:
     return SUM_TOL * (n - 1) / (2 * s0) / den * (coo.data @ (x[coo.row] - x[coo.col]) ** 2)
 
 
+def walk_invariance(adata: StandIn) -> None:
+    """``spatial_autocorr`` on the card with ``obsm['spatial']`` (the Morton
+    walk) and without it (the identity): Moran and Geary with 20 permutations
+    agree in every column bitwise (``u = W z`` is the same in any row order);
+    Moran without permutations, whose fused numerator sums the rows in the
+    walk's order, to ``SUM_TOL * sum |terms|``."""
+    import squidpy_torch as sqt
+
+    runs = (("moran", 20), ("geary", 20), ("moran", None))
+    coords = adata.obsm.pop("spatial")
+    try:
+        plain = [sqt.gr.spatial_autocorr(adata, mode=m, n_perms=p, seed=0, copy=True) for m, p in runs]
+    finally:
+        adata.obsm["spatial"] = coords
+    walked = [sqt.gr.spatial_autocorr(adata, mode=m, n_perms=p, seed=0, copy=True) for m, p in runs]
+    for (mode, n_perms), a, b in zip(runs, walked, plain):
+        if n_perms is not None:
+            if list(a.index) != list(b.index):
+                raise AssertionError(f"spatial_autocorr {mode}: rows differ with and without the walk")
+            for col in a.columns:
+                np.testing.assert_array_equal(a.columns[col], b.columns[col], err_msg=f"walk changed {mode} {col}")
+        else:
+            order = {g: i for i, g in enumerate(b.index)}
+            diff = np.abs(a.columns["I"] - b.columns["I"][[order[g] for g in a.index]])
+            if not np.all(diff <= _autocorr_terms_bound(adata, a, "moran")):
+                raise AssertionError(f"Moran's I moved beyond {SUM_TOL} * sum |terms| with the walk")
+    print(f"[walk] n={adata.obsm['spatial'].shape[0]}: spatial_autocorr with and without obsm['spatial']: "
+          f"Moran/Geary with 20 permutations bitwise in every column, Moran without within {SUM_TOL} * sum |terms|",
+          flush=True)
+
+
 def reference_check(n: int, interval) -> None:
     """The public path on the card and on the CPU (plain torch) must agree:
     the kNN graph to the expanded form's rounding; counts, z-scores,
@@ -919,6 +1033,8 @@ def reference_check(n: int, interval) -> None:
             adata.uns["perms"] = (cipher_index_batch(keys, n) if n >= MIN_CIPHER_N
                                   else permutation_batch(keys, n, sqt.get_device())).cpu().numpy()
             adata.obsp["spatial_distances"] = knn_distances
+            if device == "cuda":
+                walk_invariance(adata)
             results.append(adata)
     gpu, cpu = results
     # the brute-force kNN (n <= 50k) ranks by expanded-form d2, whose f32
@@ -1007,6 +1123,9 @@ def main() -> int:
         raise AssertionError(f"kernels not launched by the main path's second part: {missing}")
     launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
     phases["main_path_b"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    host_split(adata)
+    phases["host_split"] = time.perf_counter() - t_phase
 
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take

@@ -16,9 +16,10 @@ import numpy as np
 import torch
 from scipy import sparse as sp
 
+from squidpy_torch._constants._pkg_constants import Key
 from squidpy_torch._device import get_device
 
-__all__ = ["SpatialGraph", "graph_from_adata", "round_up"]
+__all__ = ["SpatialGraph", "graph_from_adata", "locality_walk", "morton_order", "round_up", "walk_buckets"]
 
 
 def round_up(x: int, m: int) -> int:
@@ -150,6 +151,105 @@ class SpatialGraph:
             sel = rows_dev.long()
             out.append((rows_dev, self.indices[sel, :hi].contiguous(), self.weights[sel, :hi].contiguous()))
         return out if len(out) > 1 else None
+
+
+def _spread_bits(q: torch.Tensor, masks: tuple[int, ...], shifts: tuple[int, ...]) -> torch.Tensor:
+    for shift, mask in zip(shifts, masks):
+        q = (q | (q << shift)) & mask
+    return q
+
+
+def morton_order(coords: torch.Tensor) -> torch.Tensor:
+    """Stable Morton (Z-curve) order of ``(n, 2)`` or ``(n, 3)`` finite
+    points as an ``(n,)`` int32 tensor on their device: the permutation of
+    ``ops/pairbins.py`` ``morton_argsort`` (16 bits an axis in 2D, 10 in 3D,
+    quantised in float64 from the same ``lo`` and ``span``), bit for bit."""
+    c = coords.to(torch.float64)
+    if c.ndim != 2 or c.shape[1] not in (2, 3):
+        raise ValueError(f"Morton order takes (n, 2) or (n, 3) points, found shape {tuple(c.shape)}.")
+    if c.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int32, device=c.device)
+    lo, hi = torch.aminmax(c, dim=0)
+    span = torch.clamp(hi - lo, min=1e-300)
+    if c.shape[1] == 3:
+        q = torch.clamp(((c - lo) / span * 1023.0).to(torch.int64), max=1023)
+        masks, shifts = (0x030000FF, 0x0300F00F, 0x030C30C3, 0x09249249), (16, 8, 4, 2)
+        code = sum(_spread_bits(q[:, a], masks, shifts) << a for a in range(3))
+    else:
+        q = torch.clamp(((c - lo) / span * 65535.0).to(torch.int64), max=65535)
+        masks, shifts = (0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555), (8, 4, 2, 1)
+        code = _spread_bits(q[:, 0], masks, shifts) | (_spread_bits(q[:, 1], masks, shifts) << 1)
+    return torch.argsort(code, stable=True).to(torch.int32)
+
+
+def walk_buckets(
+    buckets: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]], walk: torch.Tensor
+) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Each degree bucket ``(rows, indices, weights)`` with its rows sorted
+    by their rank in ``walk`` (a permutation of the graph's rows). Each row
+    keeps its slots, so ``W x`` is unchanged."""
+    rank = torch.empty_like(walk)
+    rank[walk.long()] = torch.arange(walk.shape[0], dtype=walk.dtype, device=walk.device)
+    out = []
+    for rows, idx, w in buckets:
+        sel = torch.argsort(rank.index_select(0, rows))
+        out.append((rows.index_select(0, sel), idx.index_select(0, sel), w.index_select(0, sel)))
+    return out
+
+
+def _morton_walk(adata: Any, n_cells: int, device: torch.device) -> torch.Tensor | None:
+    """The Morton order of the cells' coordinates (``obsm['spatial']``),
+    computed on ``device``; None (the identity walk) unless they are
+    ``n_cells`` finite points of 2 or 3 coordinates."""
+    obsm = getattr(adata, "obsm", None)
+    if obsm is None or Key.obsm.spatial not in obsm:
+        return None
+    coords = np.asarray(obsm[Key.obsm.spatial])
+    real = np.issubdtype(coords.dtype, np.integer) or np.issubdtype(coords.dtype, np.floating)
+    if not real or coords.ndim != 2 or coords.shape[0] != n_cells or coords.shape[1] not in (2, 3):
+        return None
+    if coords.dtype not in (np.float32, np.float64):
+        coords = coords.astype(np.float64)
+    c = torch.as_tensor(np.ascontiguousarray(coords), device=device)
+    if not bool(torch.isfinite(c).all()):
+        return None
+    return morton_order(c)
+
+
+_WALK_KEY = "__squidpy_torch_walk__"
+
+
+def locality_walk(adata: Any, n_cells: int, device: torch.device) -> torch.Tensor | None:
+    """The order kernel K5a walks the ELL rows in on a CUDA ``device``: the
+    Morton order of ``obsm['spatial']`` (see :func:`_morton_walk`), so a
+    gathered gene row is found in the card's L2 by its other neighbours.
+
+    None (the identity walk) on any other device, whose plain path gains
+    nothing from an order. The walk is cached on ``adata.uns`` while the
+    same live coordinate array is installed (checked by weak reference), so
+    only the first call pays for it; a walk only orders the rows, so one
+    made stale by an in-place edit costs time, never a result.
+    """
+    if device.type != "cuda":
+        return None
+    coords = getattr(adata, "obsm", {}).get(Key.obsm.spatial)
+    cached = adata.uns.get(_WALK_KEY)
+    if (
+        coords is not None
+        and cached is not None
+        and cached["coords_ref"] is not None
+        and cached["coords_ref"]() is coords
+        and cached["n_cells"] == n_cells
+        and cached["device"] == device
+    ):
+        return cached["walk"]
+    walk = _morton_walk(adata, n_cells, device)
+    try:
+        coords_ref = weakref.ref(coords)
+    except TypeError:  # absent, or no weak references: not cached
+        coords_ref = None
+    adata.uns[_WALK_KEY] = {"walk": walk, "coords_ref": coords_ref, "n_cells": n_cells, "device": device}
+    return walk
 
 
 def _cache_key(connectivity_key: str) -> str:

@@ -60,7 +60,8 @@ _SIGNATURES = {
     "sqt_pair_counts_resident": [_I, _P],
     "sqt_binned_pairs": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "sqt_dense_pairs": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "sqt_ell_autocorr": [_I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "sqt_ell_autocorr": [_I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P, _P, _P, _P],
+    "sqt_ell_autocorr_layout": [_I, _I, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

@@ -17,11 +17,12 @@ import numpy as np
 import torch
 from scipy import sparse as sp
 from scipy import stats
+from torch.profiler import record_function
 
 from squidpy_torch._constants._constants import BF16_GATHER_MIN_N, SpatialAutocorr
 from squidpy_torch._constants._pkg_constants import Key
 from squidpy_torch._core.device_x import device_expression
-from squidpy_torch._core.graph import SpatialGraph
+from squidpy_torch._core.graph import SpatialGraph, locality_walk, walk_buckets
 from squidpy_torch._core.index_cipher import MIN_CIPHER_N, cipher_index_batch
 from squidpy_torch._core.rng import permutation_batch, spawn_keys
 from squidpy_torch._device import NDArrayA, assert_positive, get_device, to_host
@@ -203,44 +204,57 @@ def spatial_autocorr(
         raise NotImplementedError(f"Extracting from `adata.{attr}` is not yet implemented.")
 
     # X ships to the device once (narrowest lossless container) and every
-    # gene block is sliced or densified there
+    # gene block is sliced or densified there. Each step below runs in a
+    # named profiler range, so a profile splits the call's host time.
     dev_handle = dev_cols = None
     if attr == "X":
         holder = adata.raw if use_raw else adata
-        dev_handle = device_expression(
-            adata, layer=layer, use_raw=use_raw,
-            # a small gene subset does not force the whole matrix onto the
-            # device; an already-cached handle is reused either way
-            create=2 * len(index) >= len(holder.var_names),
-        )
-        if dev_handle is not None:
-            dev_cols = dev_handle.columns_of(list(map(str, index)))
+        with record_function("spatial_autocorr.device_expression"):
+            dev_handle = device_expression(
+                adata, layer=layer, use_raw=use_raw,
+                # a small gene subset does not force the whole matrix onto the
+                # device; an already-cached handle is reused either way
+                create=2 * len(index) >= len(holder.var_names),
+            )
+            if dev_handle is not None:
+                dev_cols = dev_handle.columns_of(list(map(str, index)))
 
     stat, ascending = ("I", False) if mode == SpatialAutocorr.MORAN else ("C", True)
     n_cells, n_feats = vals.shape
     expected = -1.0 / (n_cells - 1) if mode == SpatialAutocorr.MORAN else 1.0
 
-    g_csr = sp.csr_matrix(adata.obsp[connectivity_key], copy=True)
-    if transformation:  # l1 row-normalize
-        row_sums = np.asarray(g_csr.sum(axis=1)).ravel()
-        scale = np.divide(1.0, row_sums, out=np.zeros_like(row_sums, dtype=float), where=row_sums != 0)
-        g_csr = sp.csr_matrix(sp.diags(scale) @ g_csr)
+    with record_function("spatial_autocorr.csr_normalize"):
+        g_csr = sp.csr_matrix(adata.obsp[connectivity_key], copy=True)
+        if transformation:  # l1 row-normalize
+            row_sums = np.asarray(g_csr.sum(axis=1)).ravel()
+            scale = np.divide(1.0, row_sums, out=np.zeros_like(row_sums, dtype=float), where=row_sums != 0)
+            g_csr = sp.csr_matrix(sp.diags(scale) @ g_csr)
 
     device = get_device()
-    graph = SpatialGraph.from_csr(g_csr, dtype=np.float32)
+    with record_function("spatial_autocorr.from_csr"):
+        graph = SpatialGraph.from_csr(g_csr, dtype=np.float32)
     # skewed-degree graphs run the ELL passes per degree bucket, so rows pay
     # their own k_b, not the global k_max (None for kNN graphs)
-    buckets = graph.degree_buckets()
+    with record_function("spatial_autocorr.degree_buckets"):
+        buckets = graph.degree_buckets()
+    # on the card K5a walks the rows (of each bucket) in the cells' Morton
+    # order (None elsewhere); u = W z is the same in any row order
+    with record_function("spatial_autocorr.walk"):
+        walk = locality_walk(adata, graph.indices.shape[0], device)
+        if walk is not None and buckets is not None:
+            buckets = walk_buckets(buckets, walk)
 
     def _spmv(y: torch.Tensor) -> torch.Tensor:
-        return spmv_genes_bucketed(buckets, y) if buckets is not None else spmv_genes(graph.indices, graph.weights, y)
+        if buckets is not None:
+            return spmv_genes_bucketed(buckets, y)
+        return spmv_genes(graph.indices, graph.weights, y, walk=walk)
 
     def _scores(y: torch.Tensor) -> torch.Tensor:
         if mode == SpatialAutocorr.MORAN:
             return moran_scores_bucketed(buckets, y, s0) if buckets is not None else moran_scores(
-                graph.indices, graph.weights, y, s0)
+                graph.indices, graph.weights, y, s0, walk=walk)
         return geary_scores_bucketed(buckets, y, s0) if buckets is not None else geary_scores(
-            graph.indices, graph.weights, y, s0)
+            graph.indices, graph.weights, y, s0, walk=walk)
 
     s0 = float(g_csr.sum())
     if s0 == 0.0:
@@ -254,11 +268,12 @@ def spatial_autocorr(
     perms = None
     if n_perms is not None:
         assert_positive(n_perms, name="n_perms")
-        keys = spawn_keys(seed, n_perms)
-        if n_cells >= MIN_CIPHER_N:
-            perms = cipher_index_batch(keys, n_cells)  # O(n) keyed index cipher, kernel K4
-        else:
-            perms = permutation_batch(keys, n_cells, device)
+        with record_function("spatial_autocorr.permutations"):
+            keys = spawn_keys(seed, n_perms)
+            if n_cells >= MIN_CIPHER_N:
+                perms = cipher_index_batch(keys, n_cells)  # O(n) keyed index cipher, kernel K4
+            else:
+                perms = permutation_batch(keys, n_cells, device)
 
     row_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=1), dtype=np.float32).ravel()).to(device)
     col_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=0), dtype=np.float32).ravel()).to(device)
@@ -267,31 +282,32 @@ def spatial_autocorr(
     gather_dtype = torch.bfloat16 if n_cells >= BF16_GATHER_MIN_N else torch.float32
     score_parts: list[np.ndarray] = []
     sims_parts: list[np.ndarray] = []
-    for start_col in range(0, n_feats, gene_block_size):
-        if dev_cols is not None:
-            xb = dev_handle.dense_block(dev_cols[start_col : start_col + gene_block_size])
-        else:
-            xb = torch.from_numpy(_to_dense_block(vals, slice(start_col, start_col + gene_block_size))).to(device)
-        if perms is None:
-            score_parts.append(to_host(_scores(xb)))
-            continue
-        # the permutation identities need u = W z: one ELL pass serves the
-        # observed score and the null
-        zb = xb - torch.mean(xb, dim=0, keepdim=True)
-        del xb
-        ub = _spmv(zb)
-        if mode == SpatialAutocorr.MORAN:
-            score_parts.append(to_host(moran_scores_from_u(zb, ub, s0)))
-            sims_parts.append(to_host(moran_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype), perms, s0)))
-        else:
-            score_parts.append(to_host(geary_scores_from_u(zb, ub, row_sums_dev, col_sums_dev, s0)))
-            cg = torch.sum(col_sums_dev[:, None] * (zb * zb), dim=0)  # permutation-invariant third term
-            sims_parts.append(to_host(geary_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype),
-                                                        row_sums_dev.to(gather_dtype), cg, perms, s0)))
+    with record_function("spatial_autocorr.gene_blocks"):
+        for start_col in range(0, n_feats, gene_block_size):
+            if dev_cols is not None:
+                xb = dev_handle.dense_block(dev_cols[start_col : start_col + gene_block_size])
+            else:
+                xb = torch.from_numpy(_to_dense_block(vals, slice(start_col, start_col + gene_block_size))).to(device)
+            if perms is None:
+                score_parts.append(to_host(_scores(xb)))
+                continue
+            # the permutation identities need u = W z: one ELL pass serves the
+            # observed score and the null
+            zb = xb - torch.mean(xb, dim=0, keepdim=True)
+            del xb
+            ub = _spmv(zb)
+            if mode == SpatialAutocorr.MORAN:
+                score_parts.append(to_host(moran_scores_from_u(zb, ub, s0)))
+                sims_parts.append(to_host(moran_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype), perms, s0)))
+            else:
+                score_parts.append(to_host(geary_scores_from_u(zb, ub, row_sums_dev, col_sums_dev, s0)))
+                cg = torch.sum(col_sums_dev[:, None] * (zb * zb), dim=0)  # permutation-invariant third term
+                sims_parts.append(to_host(geary_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype),
+                                                            row_sums_dev.to(gather_dtype), cg, perms, s0)))
     score = np.concatenate(score_parts).astype(np.float64) if score_parts else np.empty(0)
     sims = np.concatenate(sims_parts, axis=1).astype(np.float64) if sims_parts else None
 
-    with np.errstate(divide="ignore", invalid="ignore"):
+    with record_function("spatial_autocorr.pvalues"), np.errstate(divide="ignore", invalid="ignore"):
         pvals = _score_pvalues(score, sims, g_csr, mode=mode, expected=expected, two_tailed=two_tailed)
     columns: dict[str, NDArrayA] = {stat: score}
     columns.update({k: np.broadcast_to(np.asarray(v, dtype=np.float64), score.shape).copy() for k, v in pvals.items()})
@@ -299,7 +315,8 @@ def spatial_autocorr(
         for pv in [c for c in columns if "pval" in c]:
             columns[f"{pv}_{corr_method}"] = multipletests(columns[pv], alpha=0.05, method=corr_method)[1]
 
-    order = _sort_order(score, ascending)
+    with record_function("spatial_autocorr.sort"):
+        order = _sort_order(score, ascending)
     result = AutocorrResult(index=np.asarray(index)[order], columns={k: v[order] for k, v in columns.items()})
     if copy:
         return result
@@ -397,7 +414,8 @@ def _score_pvalues(
     package): ``pval_norm``/``var_norm`` always, ``pval_z_sim``/``pval_sim``/
     ``var_sim`` for a null ``sims`` of shape ``(n_perms, n_feats)``;
     ``pval_z_sim`` stays one-tailed regardless of ``two_tailed``."""
-    var_norm = _normality_variance(w, mode)
+    with record_function("spatial_autocorr.normality_variance"):
+        var_norm = _normality_variance(w, mode)
     z_norm = (score - expected) / np.sqrt(var_norm)
     p_norm = _directional_tail(z_norm)
     if two_tailed:

@@ -24,6 +24,10 @@ then rounded to bf16 once, and scaled in the JAX package's dtypes (see
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -46,9 +50,14 @@ __all__ = [
 
 MODES = {"spmv": 0, "moran": 1, "geary": 2}
 
-# K5a launch: 32 genes x 8 rows per block; row groups sized for ~4096
-# blocks, each walking its rows in order
-_K5A_TARGET_BLOCKS = 4096
+# K5a launch: persistent blocks of 8 warps; a warp's item is consecutive ELL
+# rows of one 128-gene slice (4 genes a lane), and the items the resident
+# warps hold at once cover a stretch of rows whose gene rows fill this share
+# of the L2 (a quarter: on an H100 at 1M x 512 a quarter and an eighth were
+# fastest, a half ~25% slower)
+_K5A_WARPS = 8  # csrc/ell_autocorr.cu kWarps
+_K5A_SLICE = 128  # genes a warp: 32 lanes x kVec
+_K5A_L2_SHARE = 0.25
 # K5b launch: one launch per 16-gene tile of u, which stays in L2 while the
 # tile's records are gathered (32-byte bf16 records from 2^19 rows, 64-byte
 # float32 records below, so at most 32 MB a tile); blocks of 32 / (record /
@@ -61,10 +70,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _ell_plain(mode: str, indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
-               rows: torch.Tensor | None) -> torch.Tensor:
+               rows: torch.Tensor | None, walk: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of K5a, slot by slot as the JAX package sums:
-    ``spmv`` -> (n_b, g) rows of ``W x``; ``moran`` -> (g,) ``sum_i (w z_i) z_j``;
-    ``geary`` -> (g,) ``sum_i w (x_i - x_j)^2``."""
+    ``spmv`` -> (n_b, g) rows of ``W x`` (in the order of ``rows``, or of
+    ``walk`` over the graph's own rows); ``moran`` -> (g,) ``sum_i (w z_i)
+    z_j``; ``geary`` -> (g,) ``sum_i w (x_i - x_j)^2``, summed over the rows
+    in that order."""
+    if walk is not None:
+        rows, indices, weights = walk, indices[walk.long()], weights[walk.long()]
     xr = x if rows is None else x[rows.long()]
     idx = indices.long()
     acc = torch.zeros(xr.shape if mode == "spmv" else x.shape[1:], dtype=x.dtype, device=x.device)
@@ -81,35 +94,91 @@ def _ell_plain(mode: str, indices: torch.Tensor, weights: torch.Tensor, x: torch
     return acc
 
 
-def _k5a_groups(n_rows: int, n_genes: int) -> int:
-    gene_tiles = -(-n_genes // 32)
-    return max(1, min(-(-n_rows // 8), -(-_K5A_TARGET_BLOCKS // gene_tiles)))
+class K5aLayout(NamedTuple):
+    """How a K5a launch covers its rows: float4 lanes (``aligned``) or
+    scalar loads, ``slices`` 128-gene slices, ``blocks`` persistent blocks
+    (``resident_per_sm`` an SM at ``registers`` a thread), ``groups`` warps
+    a slice, items of ``rows_per_item`` rows, and the ``stretch_rows`` the
+    resident warps' items cover at once."""
+
+    aligned: bool
+    slices: int
+    blocks: int
+    groups: int
+    rows_per_item: int
+    items: int
+    stretch_rows: int
+    resident_per_sm: int
+    registers: int
+
+
+def _k5a_layout(n_b: int, g: int, aligned: bool, resident_per_sm: int, registers: int, sms: int,
+                l2_bytes: int) -> K5aLayout:
+    """The launch for ``n_b`` ELL rows of ``g`` genes: every warp resident,
+    and items sized so the warps' rows together hold ``_K5A_L2_SHARE`` of
+    the L2 in gene rows (at most an equal share of the rows each)."""
+    slices = -(-g // _K5A_SLICE)
+    blocks = max(resident_per_sm * sms, -(-slices // _K5A_WARPS))
+    groups = blocks * _K5A_WARPS // slices
+    stretch = max(1, int(l2_bytes * _K5A_L2_SHARE) // (4 * g))
+    rows_per_item = max(1, min(stretch // groups, -(-n_b // groups)))
+    items = -(-n_b // rows_per_item) * slices
+    return K5aLayout(aligned, slices, blocks, groups, rows_per_item, items, groups * rows_per_item, resident_per_sm,
+                     registers)
+
+
+@functools.lru_cache(maxsize=None)
+def _k5a_device(mode: int, aligned: bool, device: int) -> tuple[int, int, int, int]:
+    """Resident blocks an SM and registers a thread of one K5a instance, and
+    the device's SMs and L2 bytes (read once per device)."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _cuda.check(_cuda.library().sqt_ell_autocorr_layout(mode, int(aligned), out), "ell_autocorr")
+    return tuple(out)
+
+
+def k5a_layout(mode: str, n_b: int, x: torch.Tensor, out: torch.Tensor | None = None) -> K5aLayout:
+    """The layout of a K5a launch over ``n_b`` ELL rows of the CUDA gene
+    block ``x`` (and ``u``, ``out``): float4 lanes when every row of both
+    starts on 16 bytes."""
+    g = x.shape[1]
+    aligned = g % 4 == 0 and x.data_ptr() % 16 == 0 and (out is None or out.data_ptr() % 16 == 0)
+    per_sm, regs, sms, l2 = _k5a_device(MODES[mode], aligned, x.device.index or 0)
+    return _k5a_layout(n_b, g, aligned, per_sm, regs, sms, l2)
 
 
 def ell_autocorr(mode: str, indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
-                 rows: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel K5a over a padded-ELL graph or one degree bucket of it.
+                 rows: torch.Tensor | None = None, out: torch.Tensor | None = None,
+                 walk: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel K5a over a padded-ELL graph, one degree bucket of it, or the
+    whole graph in a walk order.
 
-    ``indices``/``weights`` (n_b, k) int32/float32 are the ELL rows (of the
-    bucket ``rows``, or of rows ``0..n-1`` when ``rows`` is None); ``x`` is
-    the (n, g) float32 gene block. ``mode='spmv'`` returns ``W x``: with
-    ``rows``, as an (n, g) tensor (``out`` if given, else zeros) whose rows
-    ``rows`` are written;
+    ``indices``/``weights`` (n_b, k) int32/float32 are the ELL rows of the
+    distinct graph rows ``rows`` (of rows ``0..n-1`` when ``rows`` is None).
+    ``walk``, an (n,) int32 permutation of ``x``'s n rows, instead walks the
+    graph's own arrays (row i for graph row i) in that order: the kernel
+    reads each row's slots through it, and no ELL row moves. ``x`` is the
+    (n, g) float32 gene block. ``mode='spmv'`` returns ``W x``: with
+    ``rows``, as an (n, g) tensor (``out`` if given, else new: zeros where
+    ``rows`` leave rows unwritten) whose rows ``rows`` are written;
     ``'moran'``/``'geary'`` return the (g,) numerator over those rows. A CPU
     tensor runs the plain torch version; a CUDA tensor launches the kernel.
     """
     if mode not in MODES:
         raise ValueError(f"Unknown ELL mode `{mode}`; expected one of {sorted(MODES)}.")
-    if indices.device.type == "cpu":
-        res = _ell_plain(mode, indices, weights, x, rows)
-        if mode != "spmv" or (rows is None and out is None):
-            return res
-        if out is None:
-            out = torch.zeros_like(x)
-        out[rows.long() if rows is not None else slice(None)] = res
-        return out
+    if walk is not None and rows is not None:
+        raise ValueError("`walk` orders the graph's own rows; it takes no bucket `rows`.")
     n_b, k = indices.shape
     n, g = x.shape
+    order = rows if rows is not None else walk
+    if mode == "spmv" and out is None and (order is not None or indices.device.type != "cpu"):
+        out = (torch.zeros if rows is not None else torch.empty)((n, g), dtype=x.dtype, device=x.device)
+    if indices.device.type == "cpu":
+        res = _ell_plain(mode, indices, weights, x, rows, walk)
+        if mode != "spmv" or out is None:
+            return res
+        out[order.long() if order is not None else slice(None)] = res
+        return out
     _cuda.require(indices, "indices", torch.int32)
     _cuda.require(weights, "weights", torch.float32, (n_b, k))
     _cuda.require(x, "x", torch.float32)
@@ -117,27 +186,32 @@ def ell_autocorr(mode: str, indices: torch.Tensor, weights: torch.Tensor, x: tor
         _cuda.require(rows, "rows", torch.int32, (n_b,))
     elif n_b != n:
         raise ValueError(f"without `rows` the ELL graph must have {n} rows, found {n_b}.")
+    if walk is not None:
+        _cuda.require(walk, "walk", torch.int32, (n,))
     if n >= 2**31 or n * g >= 2**40 or n_b * k >= 2**31:
         raise ValueError("the ELL kernel takes fewer than 2^31 rows and edges.")
-    if n_b * k and (int(indices.min()) < 0 or int(indices.max()) >= n):
-        raise ValueError("neighbour indices must lie in [0, n).")
-    if rows is not None and n_b and (int(rows.min()) < 0 or int(rows.max()) >= n):
-        raise ValueError("bucket rows must lie in [0, n).")
-    groups = _k5a_groups(n_b, g)
-    partial = None
+    if n_b * k:  # one reduction an array, one wait
+        ranges = [*torch.aminmax(indices)] + ([*torch.aminmax(order)] if order is not None else [])
+        lo, hi, *row_range = torch.stack(ranges).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError("neighbour indices must lie in [0, n).")
+        if row_range and (row_range[0] < 0 or row_range[1] >= n):
+            raise ValueError(f"{'bucket rows' if rows is not None else 'the walk'} must lie in [0, n).")
     if mode == "spmv":
-        if out is None:  # a bucket writes only its rows
-            out = (torch.zeros if rows is not None else torch.empty)((n, g), dtype=torch.float32, device=x.device)
         _cuda.require(out, "out", torch.float32, (n, g))
         result = out
     else:
-        partial = torch.empty((groups, g), dtype=torch.float64, device=x.device)
         result = torch.zeros((g,), dtype=torch.float32, device=x.device)
-    if n_b == 0 or g == 0:
+    if n_b == 0 or g == 0 or k == 0:  # nothing to sum: W x is 0 on these rows
+        if mode == "spmv" and n_b and g:
+            result.index_fill_(0, rows.long(), 0.0) if rows is not None else result.zero_()
         return result
+    layout = k5a_layout(mode, n_b, x, out)
+    partial = None if mode == "spmv" else torch.empty((layout.groups, g), dtype=torch.float64, device=x.device)
     code = _cuda.library().sqt_ell_autocorr(
-        MODES[mode], rows.data_ptr() if rows is not None else None, indices.data_ptr(), weights.data_ptr(),
-        n_b, k, x.data_ptr(), g, groups, out.data_ptr() if partial is None else None,
+        MODES[mode], int(layout.aligned), order.data_ptr() if order is not None else None, indices.data_ptr(),
+        weights.data_ptr(), n_b, k, x.data_ptr(), g, layout.slices, layout.blocks, layout.rows_per_item,
+        layout.items, int(walk is not None), result.data_ptr() if partial is None else None,
         partial.data_ptr() if partial is not None else None, result.data_ptr(), _cuda.stream_ptr(),
     )
     _cuda.check(code, "ell_autocorr")
@@ -145,14 +219,17 @@ def ell_autocorr(mode: str, indices: torch.Tensor, weights: torch.Tensor, x: tor
     return result
 
 
-def spmv_genes(indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``W @ x`` for ``x`` of shape ``(n, g)`` over a padded-ELL graph."""
-    return ell_autocorr("spmv", indices, weights, x)
+def spmv_genes(indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor,
+               walk: torch.Tensor | None = None) -> torch.Tensor:
+    """``W @ x`` for ``x`` of shape ``(n, g)`` over a padded-ELL graph, its
+    rows walked in the order ``walk`` if given."""
+    return ell_autocorr("spmv", indices, weights, x, walk=walk)
 
 
 def spmv_genes_bucketed(buckets: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]], x: torch.Tensor) -> torch.Tensor:
-    """``W @ x`` over degree buckets, each bucket's rows written in place."""
-    u = torch.zeros_like(x)
+    """``W @ x`` over degree buckets, each bucket's rows written in place;
+    the buckets cover every row."""
+    u = torch.empty_like(x)
     for rows, idx, w in buckets:
         ell_autocorr("spmv", idx, w, x, rows, out=u)
     return u
@@ -163,10 +240,12 @@ def _centered(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return z, torch.sum(z * z, dim=0)
 
 
-def moran_scores(indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor, s0: float) -> torch.Tensor:
-    """Moran's I per gene, ``(n / S0) (z^T W z) / (z^T z)``, without materialising ``W z``."""
+def moran_scores(indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor, s0: float,
+                 walk: torch.Tensor | None = None) -> torch.Tensor:
+    """Moran's I per gene, ``(n / S0) (z^T W z) / (z^T z)``, without
+    materialising ``W z`` (the rows walked in the order ``walk`` if given)."""
     z, den = _centered(x)
-    return (x.shape[0] / s0) * ell_autocorr("moran", indices, weights, z) / den
+    return (x.shape[0] / s0) * ell_autocorr("moran", indices, weights, z, walk=walk) / den
 
 
 def moran_scores_bucketed(buckets: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]], x: torch.Tensor,
@@ -177,9 +256,11 @@ def moran_scores_bucketed(buckets: list[tuple[torch.Tensor, torch.Tensor, torch.
     return (x.shape[0] / s0) * num / den
 
 
-def geary_scores(indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor, s0: float) -> torch.Tensor:
-    """Geary's C per gene, ``((n-1) / (2 S0)) sum w_ij (x_i - x_j)^2 / sum (x_i - mean)^2``."""
-    num = ell_autocorr("geary", indices, weights, x)
+def geary_scores(indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor, s0: float,
+                 walk: torch.Tensor | None = None) -> torch.Tensor:
+    """Geary's C per gene, ``((n-1) / (2 S0)) sum w_ij (x_i - x_j)^2 / sum
+    (x_i - mean)^2`` (the rows walked in the order ``walk`` if given)."""
+    num = ell_autocorr("geary", indices, weights, x, walk=walk)
     _, den = _centered(x)
     return ((x.shape[0] - 1) / (2.0 * s0)) * num / den
 

@@ -329,6 +329,243 @@ def test_spatial_autocorr_switches_to_bf16_at_min_n(n, mode, monkeypatch):
     assert np.all(np.isfinite(res.columns["var_sim"]))
 
 
+# -- the locality walk of K5a -------------------------------------------------
+
+
+def _points(dim: int, kind: str, n: int = 4000) -> np.ndarray:
+    rng = np.random.default_rng(dim * 10 + len(kind))
+    if kind == "uniform":
+        return rng.uniform(0.0, 10 * np.sqrt(n), (n, dim))
+    if kind == "ties":  # few distinct cells, many equal codes
+        return rng.integers(0, 6, (n, dim)).astype(np.float64)
+    if kind == "coincident":  # every point repeated, in scattered positions
+        pts = np.repeat(rng.normal(size=(n // 8, dim)), 8, axis=0)
+        return pts[rng.permutation(len(pts))]
+    return rng.uniform(-5.0, 5.0, (n, dim)).astype(np.float32)  # float32 coordinates
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ties", "coincident", "float32"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_morton_order_matches_morton_argsort(dim, kind):
+    """The walk's torch Morton order equals ``ops/pairbins.py``
+    ``morton_argsort`` (both packages' copies) bitwise: the same float64
+    quantisation, bit interleave and stable sort."""
+    from squidpy_torch._core.graph import morton_order
+    from squidpy_torch.ops.pairbins import morton_argsort as t_morton
+    from squidpy_tpu.ops.pairbins import morton_argsort as j_morton
+
+    pts = _points(dim, kind)
+    got = morton_order(torch.from_numpy(pts))
+    assert got.dtype == torch.int32 and got.shape == (len(pts),)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_morton(pts)))
+    np.testing.assert_array_equal(got.numpy(), t_morton(pts))
+
+
+def _walked_inputs(bucketed: bool, seed: int = 14):
+    csr, x, s0 = _ops_inputs(skewed=bucketed, seed=seed)
+    coords = np.random.default_rng(seed).uniform(0.0, 100.0, (csr.shape[0], 2))
+    from squidpy_torch._core.graph import morton_order, walk_buckets
+
+    tg = TGraph.from_csr(csr, dtype=np.float32)
+    buckets = tg.degree_buckets()
+    assert (buckets is not None) == bucketed
+    walk = morton_order(torch.from_numpy(coords))
+    return tg, buckets, walk_buckets(buckets, walk) if bucketed else None, walk, csr, x, s0
+
+
+@pytest.mark.parametrize("bucketed", [False, True], ids=["full", "buckets"])
+@pytest.mark.parametrize("mode", ["spmv", "moran", "geary"])
+def test_walked_rows_give_the_unwalked_result(mode, bucketed):
+    """K5a over the ELL rows in Morton order equals the unwalked launch:
+    ``u = W z`` bitwise (each row keeps its slots), the numerators within
+    ``1e-5 * sum |terms|`` (their rows are summed in another order)."""
+    tg, buckets, walked, walk, csr, x, _ = _walked_inputs(bucketed)
+    if bucketed:
+        assert sum(r.shape[0] for r, _, _ in walked) == x.shape[0]
+        for (rows, idx, _), (rows_w, idx_w, _) in zip(buckets, walked):
+            assert idx_w.shape == idx.shape  # each row keeps its bucket's slots
+            np.testing.assert_array_equal(np.sort(rows_w.numpy()), rows.numpy())  # the bucket's rows,
+            rank = np.argsort(walk.numpy())
+            assert np.all(np.diff(rank[rows_w.numpy()]) > 0)  # in walk order
+    xt = torch.from_numpy(x)
+    z = xt - xt.mean(dim=0, keepdim=True)
+    if mode == "spmv":
+        want = tac.spmv_genes(tg.indices, tg.weights, z)
+        got = tac.spmv_genes_bucketed(walked, z) if bucketed else tac.spmv_genes(tg.indices, tg.weights, z, walk=walk)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        if bucketed:
+            np.testing.assert_array_equal(tac.spmv_genes_bucketed(buckets, z).numpy(), want.numpy())
+        return
+    y = z if mode == "moran" else xt
+    if bucketed:
+        got = sum(tac.ell_autocorr(mode, i, w, y, r) for r, i, w in walked).numpy()
+        want = sum(tac.ell_autocorr(mode, i, w, y, r) for r, i, w in buckets).numpy()
+    else:
+        got = tac.ell_autocorr(mode, tg.indices, tg.weights, y, walk=walk).numpy()
+        want = tac.ell_autocorr(mode, tg.indices, tg.weights, y).numpy()
+    x64 = x.astype(np.float64)
+    terms = _terms_abs_moran(csr, x64) if mode == "moran" else _terms_abs_geary(csr, x64)
+    assert np.all(np.abs(got.astype(np.float64) - want) <= _abs_bound(terms)), (got, want)
+
+
+@pytest.mark.parametrize("n_b,g,aligned,per_sm,sms,l2", [
+    (1_000_000, 512, True, 4, 132, 50 << 20),  # the main path's block on an H100
+    (1_000_003, 14, False, 4, 132, 50 << 20),
+    (5_000, 512, True, 3, 132, 50 << 20),  # a small bucket: every warp gets rows
+    (300_000, 160_000, False, 2, 4, 4 << 20),  # more slices than resident warps
+    (1, 1, False, 1, 1, 1),
+])
+def test_k5a_layout_covers_the_rows(n_b, g, aligned, per_sm, sms, l2):
+    lay = tac._k5a_layout(n_b, g, aligned, per_sm, 32, sms, l2)
+    assert lay.aligned == aligned
+    assert lay.slices * 128 >= g > (lay.slices - 1) * 128
+    assert lay.blocks >= per_sm * sms and lay.blocks * tac._K5A_WARPS >= lay.slices
+    assert lay.groups == lay.blocks * tac._K5A_WARPS // lay.slices >= 1
+    items_rows = lay.items // lay.slices * lay.rows_per_item
+    assert lay.items % lay.slices == 0 and n_b <= items_rows < n_b + lay.rows_per_item
+    assert lay.stretch_rows == lay.groups * lay.rows_per_item
+    # the stretch's gene rows fill at most the L2's share, unless one row an item is already more
+    assert lay.rows_per_item == 1 or lay.stretch_rows * 4 * g <= l2 * tac._K5A_L2_SHARE
+    # and no warp is left without rows while others hold several
+    assert lay.rows_per_item == 1 or lay.groups * (lay.rows_per_item - 1) < n_b
+    if (n_b, g) == (1_000_000, 512):
+        assert (lay.slices, lay.groups, lay.rows_per_item, lay.stretch_rows) == (4, 1056, 6, 6336)
+
+
+@pytest.mark.parametrize("kind", ["missing", "nan", "inf", "rows", "one_column", "four_columns", "strings"])
+def test_locality_walk_is_the_identity_without_usable_coordinates(kind):
+    from squidpy_torch._core.graph import _morton_walk
+
+    adata = _adata(300, 2, seed=15)
+    coords = np.asarray(adata.obsm["spatial"])
+    if kind == "missing":
+        del adata.obsm["spatial"]
+    elif kind in ("nan", "inf"):
+        coords = coords.copy()
+        coords[17, 1] = np.nan if kind == "nan" else np.inf
+        adata.obsm["spatial"] = coords
+    elif kind == "rows":
+        adata.obsm["spatial"] = np.vstack([coords, coords[:1]])
+    elif kind == "one_column":
+        adata.obsm["spatial"] = coords[:, :1]
+    elif kind == "four_columns":
+        adata.obsm["spatial"] = np.hstack([coords, coords])
+    else:
+        adata.obsm["spatial"] = np.full((300, 2), "a")
+    assert _morton_walk(adata, 300, torch.device("cpu")) is None
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_locality_walk_is_the_morton_order(dim):
+    from squidpy_torch._core.graph import _morton_walk, locality_walk
+    from squidpy_torch.ops.pairbins import morton_argsort
+
+    adata = _adata(300, 2, seed=16)
+    pts = np.random.default_rng(16).integers(0, 1000, (300, dim))  # integer coordinates
+    adata.obsm["spatial"] = pts
+    walk = _morton_walk(adata, 300, torch.device("cpu"))
+    np.testing.assert_array_equal(walk.numpy(), morton_argsort(pts))
+    # only K5a on the card walks: the CPU's plain path keeps the row order
+    assert locality_walk(adata, 300, torch.device("cpu")) is None
+
+
+def test_locality_walk_is_cached_per_coordinate_array(monkeypatch):
+    """The card's walk is built once while the same coordinate array is
+    installed, and again when it is replaced or the cell count differs."""
+    from squidpy_torch._core import graph as tgraph
+
+    built = []
+    monkeypatch.setattr(tgraph, "_morton_walk", lambda a, n, d: built.append(n) or torch.arange(n, dtype=torch.int32))
+    adata = _adata(300, 2, seed=17)
+    card = torch.device("cuda")
+    first = tgraph.locality_walk(adata, 300, card)
+    assert tgraph.locality_walk(adata, 300, card) is first and built == [300]
+    adata.obsm["spatial"] = np.asarray(adata.obsm["spatial"]).copy()
+    assert tgraph.locality_walk(adata, 300, card) is not first and built == [300, 300]
+    tgraph.locality_walk(adata, 299, card)
+    assert built == [300, 300, 299]
+    del adata.obsm["spatial"]
+    tgraph.locality_walk(adata, 300, card)
+    assert len(built) == 4  # nothing to key the cache on: asked anew
+
+
+@pytest.mark.parametrize("mode,n_perms", [("moran", 20), ("geary", 20), ("moran", None), ("geary", None)])
+def test_spatial_autocorr_with_and_without_coordinates(mode, n_perms, monkeypatch):
+    """With ``obsm['spatial']`` the ELL passes walk the rows in Morton order;
+    without, in row order. With permutations every column is bitwise equal
+    (``u = W z`` is); without, the fused numerators sum the rows in another
+    order, so the scores agree to the test's tolerance. Both still match
+    the JAX package."""
+    from squidpy_torch._core.graph import _morton_walk
+    from squidpy_torch.gr import _ppatterns as tpp
+
+    adata = _adata(3000, 14, seed=6)  # test_spatial_autocorr_matches_jax's fixture
+    sq.gr.spatial_neighbors_knn(adata, n_neighs=6)
+    walks = []
+    # the walk the card would take, forced onto the CPU's plain path
+    monkeypatch.setattr(tpp, "locality_walk", lambda *a: walks.append(_morton_walk(*a)) or walks[-1])
+    kw = dict(mode=mode, n_perms=n_perms, seed=0, copy=True)
+    walked = sqt.gr.spatial_autocorr(adata, **kw)
+    coords = adata.obsm["spatial"]
+    del adata.obsm["spatial"]
+    plain = sqt.gr.spatial_autocorr(adata, **kw)
+    adata.obsm["spatial"] = coords
+    assert walks[0] is not None and walks[1] is None
+    stat = "I" if mode == "moran" else "C"
+    if n_perms is not None:
+        assert list(walked.index) == list(plain.index)
+        for col in plain.columns:
+            np.testing.assert_array_equal(walked.columns[col], plain.columns[col], err_msg=col)
+    else:
+        order = {g: i for i, g in enumerate(plain.index)}
+        bound = _score_bound(adata, walked, mode, True, "X")
+        diff = np.abs(walked.columns[stat] - plain.columns[stat][[order[g] for g in walked.index]])
+        assert np.all(diff <= bound)
+    df = sq.gr.spatial_autocorr(adata, **kw)
+    _assert_frames_agree(walked, df, stat, _score_bound(adata, walked, mode, True, "X"))
+
+
+def test_ell_autocorr_allocates_u_by_coverage():
+    """With a row map, ``u`` is zero on rows the map leaves out (a degree
+    bucket, its own ELL rows in map order) and every row is written when it
+    covers them all (a walk over the graph's own ELL arrays)."""
+    csr, x, _ = _ops_inputs(skewed=False, seed=18)
+    tg = TGraph.from_csr(csr, dtype=np.float32)
+    xt = torch.from_numpy(x)
+    want = tac.spmv_genes(tg.indices, tg.weights, xt)
+    rows = torch.arange(0, x.shape[0], 3, dtype=torch.int32)
+    part = tac.ell_autocorr("spmv", tg.indices[rows.long()], tg.weights[rows.long()], xt, rows)
+    np.testing.assert_array_equal(part[rows.long()].numpy(), want[rows.long()].numpy())
+    left = torch.ones(x.shape[0], dtype=torch.bool)
+    left[rows.long()] = False
+    assert not part[left].any()
+    # a walk: the graph's own arrays, walked in the order of `perm`
+    perm = torch.from_numpy(np.random.default_rng(18).permutation(x.shape[0]).astype(np.int32))
+    full = tac.ell_autocorr("spmv", tg.indices, tg.weights, xt, walk=perm)
+    np.testing.assert_array_equal(full.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mode", ["spmv", "moran", "geary"])
+def test_full_size_bucket_reads_its_own_rows(mode):
+    """A bucket over every row, in permuted order with its own reordered ELL
+    arrays (ELL row r for graph row ``rows[r]``), is a bucket, not a walk:
+    it gives ``W x``, and a walk is asked for only by ``walk=``."""
+    csr, x, _ = _ops_inputs(skewed=False, seed=19)
+    tg = TGraph.from_csr(csr, dtype=np.float32)
+    xt = torch.from_numpy(x)
+    rows = torch.from_numpy(np.random.default_rng(19).permutation(x.shape[0]).astype(np.int32))
+    got = tac.ell_autocorr(mode, tg.indices[rows.long()], tg.weights[rows.long()], xt, rows)
+    want = tac.ell_autocorr(mode, tg.indices, tg.weights, xt)
+    if mode == "spmv":
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    else:
+        x64 = x.astype(np.float64)
+        terms = _terms_abs_moran(csr, x64) if mode == "moran" else _terms_abs_geary(csr, x64)
+        assert np.all(np.abs(got.numpy().astype(np.float64) - want.numpy()) <= _abs_bound(terms))
+    with pytest.raises(ValueError, match="walk"):
+        tac.ell_autocorr(mode, tg.indices, tg.weights, xt, rows, walk=rows)
+
+
 def test_ell_and_perm_modes_reject_unknown():
     x = torch.zeros((4, 2))
     with pytest.raises(ValueError, match="ELL mode"):
@@ -530,6 +767,23 @@ def test_kernels_match_plain_on_card(cuda_card):
             want = tac._ell_plain(mode, tg.indices, tg.weights, torch.from_numpy(x), None).numpy()
             terms = (_terms_abs_moran(csr, x) if mode == "moran" else _terms_abs_geary(csr, x))
             assert np.all(np.abs(got - want) <= _abs_bound(terms) + 1e-6 * np.abs(want))
+        # the walked launch: the whole graph, and its degree buckets, in Morton order
+        from squidpy_torch._core.graph import morton_order, walk_buckets
+
+        coords = np.random.default_rng(11).uniform(0.0, 100.0, (x.shape[0], 2))
+        walk = morton_order(torch.from_numpy(coords).cuda())
+        u_want = tac._ell_plain("spmv", tg.indices, tg.weights, torch.from_numpy(x), None).numpy()
+        for buckets in (None, tgc.degree_buckets()):
+            walked = walk_buckets(buckets, walk) if buckets is not None else None
+            u_got = (tac.spmv_genes_bucketed(walked, xc) if walked is not None
+                     else tac.spmv_genes(tgc.indices, tgc.weights, xc, walk=walk))
+            np.testing.assert_array_equal(u_got.cpu().numpy(), u_want)
+            for mode in ("moran", "geary"):
+                got = (sum(tac.ell_autocorr(mode, i, w, xc, r) for r, i, w in walked) if walked is not None
+                       else tac.ell_autocorr(mode, tgc.indices, tgc.weights, xc, walk=walk)).cpu().numpy()
+                want = tac._ell_plain(mode, tg.indices, tg.weights, torch.from_numpy(x), None).numpy()
+                terms = (_terms_abs_moran(csr, x) if mode == "moran" else _terms_abs_geary(csr, x))
+                assert np.all(np.abs(got - want) <= _abs_bound(terms) + 1e-6 * np.abs(want))
         perms = trng.permutation_batch(trng.spawn_keys(0, 40), x.shape[0], torch.device("cuda"))
         for dtype in (torch.float32, torch.bfloat16):  # K5b's two operand types (bf16 at n >= 2^19)
             xd = xc.to(dtype)

@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; no error is caught and passed over):
 
 1. device: require a CUDA card, print its name and power limit, TF32 off;
 2. build: compile the CUDA kernels from ``squidpy_torch/csrc`` (timed);
-3. the main path through the public API at Xenium scale, in two parts,
+3. the main path through the public API at Xenium scale, in three parts,
    each with the launch counters reset before it and read after it, and
    every kernel of the part required to have run:
    a. 1M cells, k=6, 16 clusters: ``spatial_neighbors_knn`` ->
@@ -17,8 +17,21 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       Moran without permutations, Moran with 100, Geary with 100 (K5a,
       K5b, K4 positions); then ``co_occurrence(use_pallas=True)`` on 200k
       cells with the default interval=50 (K2);
-   then checks of what the calls returned, and one more Moran call under
-   the profiler, whose ``[host]`` line splits the call's host time by step;
+   c. on the same cells and genes: ``spatial_neighbors_radius`` (r = 25,
+      ~19.6 neighbours a cell: K6) -> ``nhood_enrichment`` (1000
+      permutations, k_max 48) -> ``spatial_autocorr`` Moran with 100
+      permutations (K5a on each of the graph's degree buckets, K4
+      positions, K5b); then ``spatial_neighbors_delaunay`` (host qhull) ->
+      ``nhood_enrichment`` (K4, K3);
+   then checks of what the calls returned (part c: the radius graph's
+   density, symmetry and largest distance, the Delaunay graph's density,
+   at least two degree buckets on each and a K5a launch on each radius
+   bucket, edge totals of the counts), one more Moran call under the
+   profiler, whose ``[host]`` line splits the call's host time by step, and
+   one more ``spatial_neighbors_radius`` call, whose ``[host]`` line splits
+   it into the search, the copy to the host, CSR assembly, ``_finalize_pair``
+   and the postprocessors, beside K6's device steps (grid, count, scan,
+   fill, row order) and ``from_csr`` of the graph;
 4. each kernel against its plain torch version on the card, with both
    times, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, its time: first on the main
@@ -43,9 +56,18 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    float32 operands on that 200k-cell graph, K2 with 128 classes, in 3D, with 31 classes (the
    histogram shared only beside the smaller tile), with coincident points,
    labels outside [0, C), equal and zero thresholds and thresholds on pairs'
-   d2, and its ``[diag]`` line: the main path's time with no pair counted).
+   d2, and its ``[diag]`` line: the main path's time with no pair counted;
+   on part c's graphs, K3 on the radius and Delaunay ELL layouts (the first
+   permutation chunk and the observed labels) and K5a over each degree
+   bucket of the radius graph in its Morton walk; K6 on part c's own input,
+   all 1M cells at r = 25, with its ``[diag]`` line (pairs, candidates, cell
+   side, cells, each device step), then on the ~200k cells of a corner
+   fifth of the section, in 3D, 4D, with coincident points at r = 25 and
+   r = 0, r above the extent, NaN and inf rows, and a radius that enlarges
+   the grid's side).
    Integer kernels
-   (K1-K4) and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
+   (K1-K4), K6's CSR (offsets, columns and distances) and K5a's ``u = W x``
+   must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
    relative tolerance would mean nothing);
@@ -56,7 +78,12 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    scores to the bound above and p-values to rtol 1e-3; and on the card
    ``spatial_autocorr`` with and without ``obsm['spatial']`` (the Morton walk
    or the identity): with permutations every column bitwise, Moran without
-   to the bound above.
+   to the bound above; and at 3000 cells the graph builders (radius, its
+   (10, 25) interval through the ``spatial_neighbors`` facade, with
+   ``library_key`` and two threads, Delaunay, the grid with two rings and the
+   facade's grid mode on a hexagonal lattice) give bitwise ``obsp`` and
+   ``uns``, and nhood and autocorrelation on the radius graph agree as
+   above.
 
 Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -82,6 +109,9 @@ PALLAS_CELLS = 200_000
 K2_SUBSET_CELLS = 30_000  # a smaller K2 shape drawn from the main path's cells, beside its own launch
 SKEWED_CELLS = 200_000
 K1_MANY_CLS = 40  # a fine Xenium/MERFISH annotation: K1's shared histogram holds only part of a window
+RADIUS = 25.0  # ~2.5 cell spacings: pi * 25^2 / 100 ~ 19.6 neighbours, a contact-plus-next-ring niche
+K6_CELLS = 200_000  # K6 against its plain version (4e10 pair tests) on a corner of the main path's cells
+K6_BRANCH_CELLS = 100_000  # K6's branches; the plain version tests n^2 pairs
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; 32-bit integer ops are counted at it too
@@ -464,14 +494,14 @@ def main_path(n: int) -> tuple[StandIn, np.ndarray, dict, dict]:
     }
 
 
-def _normalized_graph(adata: StandIn):
+def _normalized_graph(adata: StandIn, key: str = "spatial_connectivities"):
     """The row-normalised CSR and its float32 ELL graph on the card, as
     ``spatial_autocorr(transformation=True)`` builds them."""
     from scipy import sparse as sp
 
     from squidpy_torch._core.graph import SpatialGraph
 
-    g = sp.csr_matrix(adata.obsp["spatial_connectivities"], dtype=np.float64)
+    g = sp.csr_matrix(adata.obsp[key], dtype=np.float64)
     rs = np.asarray(g.sum(axis=1)).ravel()
     g = sp.csr_matrix(sp.diags(np.divide(1.0, rs, out=np.zeros_like(rs), where=rs != 0)) @ g)
     return g, SpatialGraph.from_csr(g, dtype=np.float32)
@@ -803,6 +833,46 @@ def autocorr_kernel_checks(adata: StandIn, results: dict) -> dict[str, list[dict
     return {"ell_autocorr": k5a, "perm_autocorr": k5b, "dense_pairs": k2}
 
 
+def new_graph_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
+    """K3 and K5a against their plain versions on the graphs part c gave
+    them: K3 on the radius graph's and the Delaunay graph's ELL layouts
+    with the first 500-permutation chunk of ``nhood_enrichment(seed=0)``
+    (packed branch) and the observed labels (shared branch); K5a in its
+    three modes on the first 512-gene block over each degree bucket of the
+    normalised radius graph, its rows in the Morton walk ``spatial_autocorr``
+    took."""
+    import torch
+
+    from squidpy_torch._core.graph import locality_walk, walk_buckets
+    from squidpy_torch._core.index_cipher import DEFAULT_ROUNDS, _round_keys, cipher_columns
+    from squidpy_torch._core.rng import spawn_keys
+    from squidpy_torch._device import get_device
+    from squidpy_torch.gr._nhood import _PERM_CHUNK
+
+    codes = np.asarray(adata.obs["cluster"].cat.codes, dtype=np.int32)
+    n = codes.shape[0]
+    rk = _round_keys(spawn_keys(0, N_PERMS)[:_PERM_CHUNK], DEFAULT_ROUNDS)
+    edges = torch.from_numpy(np.cumsum(np.bincount(codes, minlength=N_CLS))[:-1].astype(np.int32)).cuda()
+    cols = cipher_columns(rk, n, edges, torch.uint8)
+    obs = torch.from_numpy(codes).cuda().reshape(-1, 1)
+    k3 = []
+    for key in ("radius", "delaunay"):
+        graph = adata.uns[f"__squidpy_torch_ell__{key}_connectivities"]["graph"]
+        k3.append(check_pair_counts(f"{key} graph, first chunk", graph.indices, graph.mask, cols, cols, N_CLS,
+                                    branch="packed"))
+        k3.append(check_pair_counts(f"{key} graph, observed", graph.indices, graph.mask, obs, obs, N_CLS,
+                                    branch="shared"))
+    del cols
+    handle = adata.uns["__squidpy_torch_device_x__None_False"]["handle"]
+    xb = handle.dense_block(np.arange(N_GENES))
+    zb = xb - torch.mean(xb, dim=0, keepdim=True)
+    walked = walk_buckets(_degree_buckets(adata, "radius_connectivities"), locality_walk(adata, n, get_device()))
+    k5a = []
+    for b, (rows, idx, w) in enumerate(walked):
+        k5a += check_ell_autocorr(f"radius graph, bucket {b}/{len(walked)}, Morton walk", idx, w, xb, zb, rows=rows)
+    return {"pair_counts": k3, "ell_autocorr": k5a}
+
+
 def skewed_csr(n: int, seed: int):
     """A radius-graph-like adjacency: 5% hub rows of ~60 neighbours, the rest ~6."""
     from scipy import sparse as sp
@@ -1075,6 +1145,254 @@ def reference_check(n: int, interval) -> None:
           f"Moran/Geary scores within {SUM_TOL} * sum |terms| (largest |diff| / sum |terms| {worst:.3e}), "
           f"p-values rtol 1e-3 ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+def _degree_buckets(adata: StandIn, key: str) -> list:
+    """The degree buckets ``spatial_autocorr`` takes on the graph ``key``."""
+    buckets = _normalized_graph(adata, key)[1].degree_buckets()
+    if buckets is None or len(buckets) < 2:
+        raise AssertionError(f"the {key} graph took {0 if buckets is None else len(buckets)} degree buckets, not >= 2")
+    return buckets
+
+
+def _assert_symmetric(adj) -> None:
+    """Every stored (i, j) has its (j, i), checked on the card."""
+    import torch
+
+    n = adj.shape[0]
+    indptr = torch.from_numpy(adj.indptr.astype(np.int64)).cuda()
+    cols = torch.from_numpy(adj.indices.astype(np.int64)).cuda()
+    rows = torch.repeat_interleave(torch.arange(n, device=cols.device), torch.diff(indptr), output_size=cols.numel())
+    if not torch.equal(torch.sort(rows * n + cols).values, torch.sort(cols * n + rows).values):
+        raise AssertionError("the radius graph is not symmetric")
+
+
+def radius_path(adata: StandIn) -> tuple[dict, dict]:
+    """The third part of the main path, on the same 1M cells and 512 genes:
+    ``spatial_neighbors_radius`` (r = 25, K6) -> ``nhood_enrichment`` (1000
+    permutations: K4, K3) -> ``spatial_autocorr`` Moran with 100 permutations
+    (K5a on each degree bucket, K4 positions, K5b); then
+    ``spatial_neighbors_delaunay`` (host qhull) -> ``nhood_enrichment``. The
+    launch counters are reset just before the public calls and read just
+    after; then checks of what the calls returned. Returns the launches and
+    the seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+
+    n = adata.obsm["spatial"].shape[0]
+    _cuda.reset_launches()
+    _, t_radius = _sync_time(lambda: sqt.gr.spatial_neighbors_radius(adata, radius=RADIUS, key_added="radius"))
+    nh_r, t_nh_r = _sync_time(lambda: sqt.gr.nhood_enrichment(
+        adata, "cluster", connectivity_key="radius", n_perms=N_PERMS, seed=0, copy=True))
+    moran, t_moran = _sync_time(lambda: sqt.gr.spatial_autocorr(
+        adata, connectivity_key="radius_connectivities", mode="moran", n_perms=AUTOCORR_PERMS, seed=0, copy=True))
+    _, t_del = _sync_time(lambda: sqt.gr.spatial_neighbors_delaunay(adata, key_added="delaunay"))
+    nh_d, t_nh_d = _sync_time(lambda: sqt.gr.nhood_enrichment(
+        adata, "cluster", connectivity_key="delaunay", n_perms=N_PERMS, seed=0, copy=True))
+    launches = dict(_cuda.launches)
+
+    adj, dst = adata.obsp["radius_connectivities"], adata.obsp["radius_distances"]
+    if not 18.0 < adj.nnz / n < 20.0:  # pi r^2 density, less the section's edges
+        raise AssertionError(f"the radius graph has {adj.nnz / n:.2f} neighbours a cell, expected ~19.6")
+    if float(dst.data.max()) > RADIUS:
+        raise AssertionError("the radius graph holds a distance above the radius")
+    _assert_symmetric(adj)
+    tri = adata.obsp["delaunay_connectivities"]
+    if not 5.9 < tri.nnz / n < 6.0:  # 6 - 6 / n on the convex hull's inside
+        raise AssertionError(f"the Delaunay graph has {tri.nnz / n:.3f} neighbours a cell, expected just below 6")
+    buckets_r, buckets_d = _degree_buckets(adata, "radius_connectivities"), _degree_buckets(adata, "delaunay_connectivities")
+    if launches["ell_autocorr"] < len(buckets_r):
+        raise AssertionError(f"K5a ran {launches['ell_autocorr']} times over {len(buckets_r)} degree buckets")
+    for res, graph in ((nh_r, adj), (nh_d, tri)):
+        if res.zscore.shape != (N_CLS, N_CLS) or not np.all(np.isfinite(res.zscore)):
+            raise AssertionError("nhood_enrichment on a new graph: wrong shape or a non-finite z-score")
+        if int(res.counts.astype(np.int64).sum()) != graph.nnz:
+            raise AssertionError("nhood_enrichment on a new graph: the counts do not sum to its edges")
+    p_max = (AUTOCORR_PERMS // 2 + 1) / (AUTOCORR_PERMS + 1)
+    cols = moran.columns
+    if len(moran.index) != N_GENES or not all(np.all(np.isfinite(v)) for v in cols.values()):
+        raise AssertionError("spatial_autocorr on the radius graph: missing rows or non-finite columns")
+    if not np.all((cols["pval_sim"] > 0) & (cols["pval_sim"] <= p_max)):
+        raise AssertionError(f"spatial_autocorr on the radius graph: pval_sim outside (0, {p_max:.4f}]")
+    k_max = {key: int(adata.uns[f"__squidpy_torch_ell__{key}_connectivities"]["graph"].k_max)
+             for key in ("radius", "delaunay")}
+    return launches, {
+        "radius_graph_s": t_radius, "nhood_radius_s": t_nh_r, "autocorr_moran_perms_radius_s": t_moran,
+        "delaunay_graph_s": t_del, "nhood_delaunay_s": t_nh_d, "radius_mean_degree": adj.nnz / n,
+        "radius_k_max": k_max["radius"], "delaunay_k_max": k_max["delaunay"],
+        "radius_bucket_widths": [int(i.shape[1]) for _, i, _ in buckets_r],
+        "delaunay_bucket_widths": [int(i.shape[1]) for _, i, _ in buckets_d],
+    }
+
+
+def radius_host_split(adata: StandIn) -> None:
+    """One more ``spatial_neighbors_radius`` call (``copy=True``) under the
+    profiler: the host time of its named steps (the search, which waits for
+    the count pass, the copy to the host, which waits for the rest, CSR
+    assembly, ``_finalize_pair``, the postprocessors); K6's device steps in a
+    separate call, by CUDA events; and ``from_csr`` of the graph, as the first
+    statistic on it builds its ELL graph (a diagnostic)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import squidpy_torch as sqt
+    from squidpy_torch._core.graph import SpatialGraph
+    from squidpy_torch.ops.radius import radius_pairs
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, wall = _sync_time(lambda: sqt.gr.spatial_neighbors_radius(adata, radius=RADIUS, copy=True))
+    steps = {e.key.split(".", 1)[1]: e.cpu_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith("spatial_neighbors.")}
+    if not steps:
+        raise AssertionError("the profile holds none of spatial_neighbors' ranges")
+    stats: dict = {}
+    radius_pairs(torch.from_numpy(np.asarray(adata.obsm["spatial"], np.float32)).cuda(), RADIUS, stats=stats)
+    _, t_csr = _sync_time(lambda: SpatialGraph.from_csr(adata.obsp["radius_connectivities"]))
+    k6 = " ".join(f"k6_{k}={stats[k]:.3f}ms" for k in ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms"))
+    print(f"[host] spatial_neighbors_radius n={adata.obsm['spatial'].shape[0]} r={RADIUS}: wall={1e3 * wall:.1f}ms "
+          + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items())
+          + f" | {k6} | from_csr_first_statistic={1e3 * t_csr:.1f}ms", flush=True)
+
+
+def check_radius_pairs(name: str, pts: np.ndarray, radius: float, repeats: int = 3, plain_warm: bool = True,
+                       diag: bool = False) -> dict:
+    """K6's CSR (through its wrapper: grid, both passes, scan and row order)
+    against the plain version on the card, bitwise; given ``diag``, a
+    ``[diag]`` line of its grid and device steps."""
+    import torch
+
+    from squidpy_torch.ops.radius import _radius_plain, radius_pairs, radius_threshold
+
+    x = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda()
+    n, d = x.shape
+    stats: dict = {}
+    radius_pairs(x, radius, stats=stats)
+    got, ms = _time_ms(lambda: radius_pairs(x, radius), repeats)
+    want, plain_ms = _time_ms(lambda: _radius_plain(x, float(radius_threshold(radius))), 1, warm=plain_warm)
+    for g, w, what in zip(got, want, ("indptr", "indices", "distances")):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"radius_pairs {name}: {what} differ from the plain version (tolerance 0)")
+    nnz = int(got[0][-1])
+    # the coordinates read once; the int64 row offsets and, an edge, an int32
+    # column and a float32 distance written once; or, per candidate pair it
+    # tests, d subtractions, d multiplies, d - 1 adds and a compare
+    bound = _bound(n * d * 4 + (n + 1) * 8 + nnz * 8, stats["candidates"] * 3 * d)
+    print(f"[kernel] radius_pairs {name} n={n} d={d} r={radius} pairs={nnz} candidates={stats['candidates']}: "
+          f"max_abs_err=0.0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound[0]:.4f} ({bound[1]})",
+          flush=True)
+    if diag:
+        print(f"[diag] radius_pairs n={n} d={d} r={radius}: pairs={nnz} candidates={stats['candidates']} "
+              f"side={stats['side']:.6f} cells={stats['cells']} dims={stats['dims']} points={stats['points']} "
+              + " ".join(f"{k}={stats[k]:.3f}ms" for k in ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms")),
+              flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
+def radius_kernel_checks(adata: StandIn) -> list[dict]:
+    """K6 against its plain version: first on the main path's own input (all
+    its cells at its radius; the plain version tests 1e12 pairs), then on
+    the ``K6_CELLS`` of them in a corner square of a fifth of the section,
+    then in the branches: 3D, 4D (axes past the grid), coincident points at
+    r = 25 and r = 0, r above the extent, NaN and inf rows, and a radius so
+    small that the grid's side is enlarged."""
+    coords = np.asarray(adata.obsm["spatial"])
+    out = [check_radius_pairs("main path", coords, RADIUS, repeats=10, plain_warm=False, diag=True)]
+    corner = 10.0 * np.sqrt(N_CELLS) * np.sqrt(K6_CELLS / N_CELLS)
+    sub = coords[(coords[:, 0] < corner) & (coords[:, 1] < corner)]
+    out.append(check_radius_pairs(f"main path cells in a corner ({len(sub)})", sub, RADIUS, repeats=10,
+                                  plain_warm=False))
+    rng = np.random.default_rng(12)
+    n = K6_BRANCH_CELLS
+    cube = (n * 4.0 / 3.0 * np.pi * RADIUS**3 / 20.0) ** (1.0 / 3.0)  # ~20 neighbours in 3D
+    out.append(check_radius_pairs("3D", rng.uniform(0.0, cube, (n, 3)), RADIUS))
+    out.append(check_radius_pairs("4D", rng.uniform(0.0, 60.0, (n // 5, 4)), 12.0))
+    flat = rng.uniform(0.0, 10.0 * np.sqrt(n), (n, 2))
+    flat[1::4] = flat[::4][: len(flat[1::4])]
+    out += [check_radius_pairs("coincident points", flat, RADIUS), check_radius_pairs("coincident, r = 0", flat, 0.0)]
+    small = min(n, 3000)
+    out.append(check_radius_pairs("r above the extent", rng.uniform(0.0, 10.0 * np.sqrt(small), (small, 2)), 1e4))
+    bad = rng.uniform(0.0, 10.0 * np.sqrt(n), (n, 2))
+    bad[::97] = np.nan
+    bad[5::101, 1] = np.inf
+    out.append(check_radius_pairs("NaN and inf rows", bad, RADIUS))
+    out.append(check_radius_pairs("r = 0.01, grid side enlarged", rng.uniform(0.0, 1e3, (n // 5, 2)), 0.01))
+    return out
+
+
+def _hex_dataset(n: int, seed: int) -> StandIn:
+    """A Visium-like hexagonal lattice of spacing 100, with ``uns['spatial']``."""
+    side = int(np.ceil(np.sqrt(n)))
+    jj, ii = np.divmod(np.arange(side * side), side)
+    coords = (100.0 * np.c_[ii + 0.5 * (jj % 2), jj * np.sqrt(3) / 2])[:n]
+    adata = StandIn(coords, np.random.default_rng(seed).integers(0, N_CLS, n), N_CLS)
+    adata.uns["spatial"] = {"library": {"scalefactors": {"spot_diameter_fullres": 55.0}}}
+    return adata
+
+
+def graph_reference_check(n: int) -> None:
+    """The graph builders on the card and on the CPU (plain torch, host
+    qhull) must give the same ``obsp`` CSR and ``uns`` params, bitwise: the
+    radius graph (scalar, the (10, 25) interval through the facade, and
+    ``library_key`` with ``n_jobs=2``), Delaunay, the grid with two rings and
+    the facade's grid mode on a hexagonal lattice; then ``nhood_enrichment``
+    (counts and z-scores bitwise) and ``spatial_autocorr`` (scores to
+    ``SUM_TOL * sum |terms|``, p-values rtol 1e-3) on the radius graph."""
+    import warnings
+
+    import squidpy_torch as sqt
+
+    t0 = time.perf_counter()
+    cases = (
+        ("radius", "spatial_neighbors_radius", dict(radius=RADIUS)),
+        ("radius, interval through the facade", "spatial_neighbors", dict(coord_type="generic", radius=(10.0, RADIUS))),
+        ("radius, library_key, 2 jobs", "spatial_neighbors_radius", dict(radius=RADIUS, library_key="lib", n_jobs=2)),
+        ("delaunay", "spatial_neighbors_delaunay", dict()),
+        ("grid, 2 rings", "spatial_neighbors_grid", dict(n_rings=2)),
+        ("facade, visium grid", "spatial_neighbors", dict()),
+    )
+    x = poisson_counts(n, 16, seed=13, low=0.5)
+    results: dict = {}
+    for device in ("cuda", "cpu"):
+        with sqt.set_device(device), warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            for name, fn, kw in cases:
+                adata = _hex_dataset(n, 14) if "grid" in name else _dataset(n, seed=15)
+                adata.obs["lib"] = _Categorical(np.arange(n) % 2, 2)
+                getattr(sqt.gr, fn)(adata, **kw)
+                results[device, name] = adata
+            adata = results[device, "radius"]
+            adata.set_expression(x)
+            sqt.gr.nhood_enrichment(adata, "cluster", n_perms=50, seed=0)
+            sqt.gr.spatial_autocorr(adata, mode="moran", n_perms=20, seed=0)
+            sqt.gr.spatial_autocorr(adata, mode="geary", n_perms=20, seed=0)
+    for name, _, _ in cases:
+        gpu, cpu = results["cuda", name], results["cpu", name]
+        for key in ("spatial_connectivities", "spatial_distances"):
+            a, b = gpu.obsp[key], cpu.obsp[key]
+            if not all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("indptr", "indices", "data")):
+                raise AssertionError(f"{name}: obsp[{key!r}] differs between card and CPU")
+        if gpu.uns["spatial_neighbors"] != cpu.uns["spatial_neighbors"]:
+            raise AssertionError(f"{name}: uns['spatial_neighbors'] differs between card and CPU")
+    gpu, cpu = results["cuda", "radius"], results["cpu", "radius"]
+    for field in ("count", "zscore"):
+        if not np.array_equal(gpu.uns["cluster_nhood_enrichment"][field], cpu.uns["cluster_nhood_enrichment"][field],
+                              equal_nan=True):
+            raise AssertionError(f"nhood_enrichment[{field!r}] on the radius graph differs between card and CPU")
+    for key, mode, stat in (("moranI", "moran", "I"), ("gearyC", "geary", "C")):
+        a, b = gpu.uns[key], cpu.uns[key]
+        if list(a.index) != list(b.index):
+            raise AssertionError(f"{key} on the radius graph: rows differ between card and CPU")
+        if not np.all(np.abs(a.columns[stat] - b.columns[stat]) <= _autocorr_terms_bound(cpu, b, mode)):
+            raise AssertionError(f"{key} on the radius graph differs between card and CPU beyond the bound")
+        for col in a.columns:
+            if col in ("var_norm", "pval_sim"):
+                np.testing.assert_array_equal(a.columns[col], b.columns[col], err_msg=f"{key}[{col!r}]")
+            elif col != stat:
+                np.testing.assert_allclose(a.columns[col], b.columns[col], rtol=1e-3, atol=1e-12,
+                                           err_msg=f"{key}[{col!r}]")
+    print(f"[reference] n={n} graph builders: card and CPU agree bitwise ({', '.join(c[0] for c in cases)}); on the "
+          f"radius graph nhood counts/z-scores bitwise, Moran/Geary within {SUM_TOL} * sum |terms|, p-values rtol "
+          f"1e-3 ({time.perf_counter() - t0:.1f} s)", flush=True)
+
 
 def main() -> int:
     import torch
@@ -1127,11 +1445,29 @@ def main() -> int:
     host_split(adata)
     phases["host_split"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    launches_c, secs_c = radius_path(adata)
+    print(f"[main path c] n={N_CELLS} r={RADIUS} genes={N_GENES} perms={N_PERMS}/{AUTOCORR_PERMS} "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in secs_c.items()), flush=True)
+    print(f"[launches c] {launches_c}", flush=True)
+    missing = [k for k in ("radius_pairs", "pair_counts", "index_cipher", "ell_autocorr", "perm_autocorr")
+               if launches_c[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the main path's third part: {missing}")
+    launches = {k: launches[k] + launches_c[k] for k in launches}
+    phases["main_path_c"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    radius_host_split(adata)
+    phases["radius_host_split"] = time.perf_counter() - t_phase
+
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take
     t_phase = time.perf_counter()
     checks = main_path_kernel_checks(adata, interval)
     checks.update(autocorr_kernel_checks(adata, results))
+    for name, extra in new_graph_kernel_checks(adata).items():
+        checks[name] += extra
+    checks["radius_pairs"] = radius_kernel_checks(adata)
     del adata, results
     phases["kernels_main_path_inputs"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -1150,6 +1486,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     reference_check(3000, 20)
     reference_check(100_000, np.linspace(0.0, 5.0 * secs["mean_knn_distance"], 9))
+    graph_reference_check(3000)
     phases["card_vs_cpu"] = time.perf_counter() - t_phase
     print("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()), flush=True)
 

@@ -1,6 +1,8 @@
 """squidpy_torch: the PyTorch/CUDA port of squidpy_tpu, one slice at a time.
 
-Ported so far: the kNN spatial graph, ``gr.nhood_enrichment``,
+Ported so far: the spatial graphs (``gr.spatial_neighbors`` and its kNN,
+radius, Delaunay, grid and builder variants, ``gr.mask_graph``),
+``gr.nhood_enrichment``,
 ``gr.co_occurrence`` (also with ``use_pallas=True``) and
 ``gr.spatial_autocorr`` (Moran's I, Geary's C). It imports torch, numpy and scipy, never jax or
 squidpy_tpu. The device is explicit: ``cuda`` by default, ``set_device("cpu")``

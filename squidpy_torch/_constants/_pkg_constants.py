@@ -11,6 +11,8 @@ class Key:
         spatial = "spatial"
 
     class uns:
+        spatial = "spatial"  # Visium metadata: its presence makes the `spatial_neighbors` facade pick a grid
+
         @classmethod
         def spatial_neighs(cls, value: str | None = None) -> str:
             return f"{Key.obsm.spatial}_neighbors" if value is None else f"{value}_neighbors"

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -44,11 +45,13 @@ KERNELS = {
     "dense_pairs": ("squidpy_torch/csrc/dense_pairs.cu", "squidpy_tpu/ops/pallas_pairs.py:75"),
     "ell_autocorr": ("squidpy_torch/csrc/ell_autocorr.cu", "squidpy_tpu/ops/autocorr.py:59"),
     "perm_autocorr": ("squidpy_torch/csrc/perm_autocorr.cu", "squidpy_tpu/ops/autocorr.py:272"),
+    "radius_pairs": ("squidpy_torch/csrc/radius_pairs.cu", "squidpy_tpu/ops/knn.py:408"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
 build_log = ""
 
 _P = ctypes.c_void_p
@@ -62,6 +65,7 @@ _SIGNATURES = {
     "sqt_dense_pairs": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "sqt_ell_autocorr": [_I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P, _P, _P, _P],
     "sqt_ell_autocorr_layout": [_I, _I, _P],
+    "sqt_radius_pairs": [_P, _I, _P, _P, _P, ctypes.c_int64, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _I, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }
@@ -80,43 +84,37 @@ def _nvcc() -> str:
     raise RuntimeError("`nvcc` was not found on PATH or under $CUDA_HOME/bin; cannot build the CUDA kernels.")
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if the sources changed."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    sources = sorted(_SRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for f in sorted(_SRC_DIR.glob("*.cu*")):
-        digest.update(f.name.encode())
-        digest.update(f.read_bytes())
-    so = _BUILD_DIR / f"libsquidpy_torch_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        objs = _BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
-        objs.mkdir(exist_ok=True)
-        nvcc = _nvcc()
-        # one nvcc per source, all at once, then one link
-        procs = [(src, subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)],
-                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-                 for src in sources]
-        logs = []
-        for src, proc in procs:
-            err = proc.communicate()[1]
-            if proc.returncode != 0:
-                for _, other in procs:
-                    other.kill()
-                    other.wait()
-                raise RuntimeError(f"nvcc failed on {src.name} with exit code {proc.returncode}:\n{err}")
-            logs.append(err)
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(objs / f"{src.stem}.o") for src in sources)],
-                              capture_output=True, text=True, check=False)
-        shutil.rmtree(objs, ignore_errors=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link with exit code {link.returncode}:\n{link.stderr}")
-        build_log = "".join(logs)
-        os.replace(tmp, so)
+def _compile(sources: list[Path], so: Path) -> str:
+    """Build ``so`` from ``sources``: one nvcc per source, all at once, then
+    one link into a temporary file that replaces ``so`` whole. Returns the
+    compilers' log."""
+    _BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    objs = _BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+    objs.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    procs = [(src, subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for src in sources]
+    logs = []
+    for src, proc in procs:
+        err = proc.communicate()[1]
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed on {src.name} with exit code {proc.returncode}:\n{err}")
+        logs.append(err)
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(objs / f"{src.stem}.o") for src in sources)],
+                          capture_output=True, text=True, check=False)
+    shutil.rmtree(objs, ignore_errors=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link with exit code {link.returncode}:\n{link.stderr}")
+    os.replace(tmp, so)
+    return "".join(logs)
+
+
+def _load(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -124,8 +122,30 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sqt_error_string.argtypes = [ctypes.c_int]
     lib.sqt_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if the sources changed.
+
+    Threads may call this at once (``spatial_neighbors_radius`` builds each
+    library's graph in a thread pool): one builds and loads under a lock,
+    the others wait for it and share the result."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            sources = sorted(_SRC_DIR.glob("*.cu"))
+            digest = hashlib.sha256(" ".join(FLAGS).encode())
+            for f in sorted(_SRC_DIR.glob("*.cu*")):
+                digest.update(f.name.encode())
+                digest.update(f.read_bytes())
+            so = _BUILD_DIR / f"libsquidpy_torch_{digest.hexdigest()[:16]}.so"
+            if not so.exists():
+                build_log = _compile(sources, so)
+            _lib = _load(so)
+    return _lib
 
 
 def check(code: int, kernel: str) -> None:

@@ -1,8 +1,11 @@
 """Graph construction for spatial neighbour graphs (counterpart of ``squidpy_tpu/gr/neighbors.py``).
 
-The ported slice covers the builder base classes, the kNN builder and the
-postprocessors it composes. The kNN query runs on the device up to 50k
-points and on the host ``cKDTree`` beyond (:mod:`squidpy_torch.ops.knn`).
+The builder classes and postprocessors of the JAX package. The kNN query
+runs on the device up to 50k points and on the host ``cKDTree`` beyond, the
+radius search on the device (kernel K6 on the card,
+:mod:`squidpy_torch.ops.knn`); the Delaunay triangulation is host qhull, as
+in the JAX package. The host steps of a build carry profiler ranges named
+``spatial_neighbors.*``.
 """
 
 from __future__ import annotations
@@ -16,19 +19,25 @@ from typing import Any, Generic, TypeVar, cast
 import numpy as np
 import scipy.sparse as sps
 from scipy.sparse import csr_matrix, spmatrix
+from scipy.spatial import Delaunay
+from torch.profiler import record_function
 
 from squidpy_torch._constants._constants import CoordType, Transform
 from squidpy_torch._device import NDArrayA, assert_positive
-from squidpy_torch.ops.knn import auto_knn
+from squidpy_torch.ops.knn import auto_knn, radius_neighbors
 
 __all__ = [
     "GraphMatrixT",
     "GraphBuilder",
     "GraphBuilderCSR",
     "GraphPostprocessor",
+    "DistanceIntervalPostprocessor",
     "PercentilePostprocessor",
     "TransformPostprocessor",
     "KNNBuilder",
+    "RadiusBuilder",
+    "DelaunayBuilder",
+    "GridBuilder",
     "symmetric_normalize_csr",
 ]
 
@@ -39,11 +48,15 @@ GraphPostprocessor = Callable[[GraphMatrixT, GraphMatrixT], tuple[GraphMatrixT, 
 
 def _standard_postprocessors(
     *,
+    interval: tuple[float, float] | None = None,
     percentile: float | None = None,
     transform: str | Transform | None = None,
 ) -> list[GraphPostprocessor]:
-    """Optional percentile pruning, then the adjacency transform (always last)."""
+    """Optional distance-interval pruning, optional percentile pruning, then
+    the adjacency transform (always last)."""
     steps: list[GraphPostprocessor] = []
+    if interval is not None:
+        steps.append(DistanceIntervalPostprocessor(tuple(sorted(interval))))
     if percentile is not None:
         steps.append(PercentilePostprocessor(percentile))
     steps.append(TransformPostprocessor(Transform(transform) if transform is not None else Transform.NONE))
@@ -67,8 +80,9 @@ class GraphBuilder(ABC, Generic[CoordT, GraphMatrixT]):
 
     def build(self, coords: CoordT) -> tuple[GraphMatrixT, GraphMatrixT]:
         graph = self.build_graph(coords)
-        for step in self.postprocessors():
-            graph = step(*graph)
+        with record_function("spatial_neighbors.postprocess"):
+            for step in self.postprocessors():
+                graph = step(*graph)
         return graph
 
     @abstractmethod
@@ -121,9 +135,11 @@ class GraphBuilderCSR(GraphBuilder[NDArrayA, csr_matrix], ABC):
 
 def _finalize_pair(adj: csr_matrix, dst: csr_matrix, *, set_diag: bool) -> tuple[csr_matrix, csr_matrix]:
     """Self-loops on/off, zero self-distances; both matrices get explicit
-    diagonal entries so their ``.data`` arrays stay parallel."""
-    adj.setdiag(1.0 if set_diag else adj.diagonal())
-    dst.setdiag(0.0)
+    diagonal entries so their ``.data`` arrays stay parallel (the interval
+    postprocessor masks one with the other)."""
+    with record_function("spatial_neighbors.finalize"):
+        adj.setdiag(1.0 if set_diag else adj.diagonal())
+        dst.setdiag(0.0)
     return adj, dst
 
 
@@ -160,6 +176,164 @@ class KNNBuilder(GraphBuilderCSR):
         n = coords.shape[0]
         dists, col_indices = auto_knn(coords, self.n_neighs)
         return _knn_to_csr(dists, col_indices, n, set_diag=self.set_diag)
+
+
+class RadiusBuilder(GraphBuilderCSR):
+    """Radius graph: all pairs within euclidean distance ``radius``. A tuple
+    searches with its larger end and prunes to the interval afterwards."""
+
+    def __init__(
+        self,
+        radius: float | tuple[float, float],
+        transform: str | Transform | None = None,
+        set_diag: bool = False,
+        percentile: float | None = None,
+    ) -> None:
+        steps = _standard_postprocessors(
+            interval=radius if isinstance(radius, tuple) else None,
+            percentile=percentile,
+            transform=transform,
+        )
+        super().__init__(transform=transform, set_diag=set_diag, percentile=percentile, postprocessors=steps)
+        self.radius = radius
+
+    def uns_params(self) -> dict[str, Any]:
+        return dict(coord_type=CoordType.GENERIC.v, radius=self.radius, transform=self.transform.v)
+
+    def build_graph(self, coords: NDArrayA) -> tuple[csr_matrix, csr_matrix]:
+        n = coords.shape[0]
+        r = self.radius if isinstance(self.radius, (int, float)) else max(self.radius)
+        indptr, indices, dists = radius_neighbors(coords, float(r))
+        with record_function("spatial_neighbors.csr"):
+            adj = csr_matrix((np.ones(len(indices), dtype=np.float32), indices, indptr), shape=(n, n))
+            dst = csr_matrix((dists.astype(np.float64), indices.copy(), indptr.copy()), shape=(n, n))
+        return _finalize_pair(adj, dst, set_diag=self.set_diag)
+
+
+class DelaunayBuilder(GraphBuilderCSR):
+    """Delaunay-triangulation graph (host qhull, as in the JAX package).
+
+    ``radius`` only prunes edges after construction: a tuple keeps edges
+    with length in the interval, a scalar is shorthand for ``(0, r)``.
+    """
+
+    def __init__(
+        self,
+        radius: float | tuple[float, float] | None = None,
+        transform: str | Transform | None = None,
+        set_diag: bool = False,
+        percentile: float | None = None,
+    ) -> None:
+        if isinstance(radius, (int, float)):
+            radius = (0.0, float(radius))
+        steps = _standard_postprocessors(interval=radius, percentile=percentile, transform=transform)
+        super().__init__(transform=transform, set_diag=set_diag, percentile=percentile, postprocessors=steps)
+        self.radius = radius
+
+    def uns_params(self) -> dict[str, Any]:
+        return dict(coord_type=CoordType.GENERIC.v, radius=self.radius, transform=self.transform.v)
+
+    def build_graph(self, coords: NDArrayA) -> tuple[csr_matrix, csr_matrix]:
+        n = coords.shape[0]
+        tri = Delaunay(coords)
+        indptr, indices = tri.vertex_neighbor_vertices
+        adj = csr_matrix((np.ones_like(indices, dtype=np.float32), indices, indptr), shape=(n, n))
+        rows = np.repeat(np.arange(n), np.diff(indptr))
+        dists = np.linalg.norm(coords[rows] - coords[indices], axis=1)
+        dst = csr_matrix((dists, indices.copy(), indptr.copy()), shape=(n, n))
+        return _finalize_pair(adj, dst, set_diag=self.set_diag)
+
+
+class GridBuilder(GraphBuilderCSR):
+    """Grid-lattice graph (Visium-style): kNN with a median-distance cutoff;
+    ``n_rings > 1`` expands connectivity ring by ring (distance = ring index)."""
+
+    def __init__(
+        self,
+        n_neighs: int = 6,
+        n_rings: int = 1,
+        delaunay: bool = False,
+        transform: str | Transform | None = None,
+        set_diag: bool = False,
+    ) -> None:
+        assert_positive(n_neighs, name="n_neighs")
+        assert_positive(n_rings, name="n_rings")
+        steps = _standard_postprocessors(transform=transform)
+        super().__init__(transform=transform, set_diag=set_diag, percentile=None, postprocessors=steps)
+        self.n_neighs = n_neighs
+        self.n_rings = n_rings
+        self.delaunay = delaunay
+
+    def uns_params(self) -> dict[str, Any]:
+        return dict(
+            coord_type=CoordType.GRID.v,
+            n_neighbors=self.n_neighs,
+            n_rings=self.n_rings,
+            delaunay=self.delaunay,
+            transform=self.transform.v,
+        )
+
+    def build_graph(self, coords: NDArrayA) -> tuple[csr_matrix, csr_matrix]:
+        if self.n_rings > 1:
+            adj = self._base_adjacency(coords, set_diag=True)
+            res, walk = adj, adj
+            for i in range(self.n_rings - 1):
+                walk = walk @ adj
+                walk[res.nonzero()] = 0.0
+                walk.eliminate_zeros()
+                walk.data[:] = i + 2.0
+                res = res + walk
+            adj = res
+            adj.setdiag(float(self.set_diag))
+            adj.eliminate_zeros()
+            dst = adj.copy()
+            adj.data[:] = 1.0
+        else:
+            adj = self._base_adjacency(coords, set_diag=self.set_diag)
+            dst = adj.copy()
+        dst.setdiag(0.0)
+        return adj, dst
+
+    def _base_adjacency(self, coords: NDArrayA, *, set_diag: bool) -> csr_matrix:
+        n = coords.shape[0]
+        if self.delaunay:
+            tri = Delaunay(coords)
+            indptr, indices = tri.vertex_neighbor_vertices
+            adj = csr_matrix((np.ones_like(indices, dtype=np.float32), indices, indptr), shape=(n, n))
+        else:
+            dists, col_indices = auto_knn(coords, self.n_neighs)
+            dists_f, cols_f = dists.reshape(-1), col_indices.reshape(-1)
+            rows_f = np.repeat(np.arange(n), self.n_neighs)
+            # keep only lattice-adjacent candidates: the grid spacing is near
+            # the median kNN distance, so a 1.3x-median cutoff prunes
+            # diagonal and boundary artifacts
+            cutoff = np.median(dists_f) * 1.3
+            keep = dists_f < cutoff
+            adj = csr_matrix(
+                (np.ones(int(keep.sum()), dtype=np.float32), (rows_f[keep], cols_f[keep])),
+                shape=(n, n),
+            )
+        if set_diag:
+            adj.setdiag(1.0)
+        return adj
+
+
+def _filter_by_radius_interval(adj: csr_matrix, dst: csr_matrix, radius: tuple[float, float]) -> None:
+    minn, maxx = radius
+    mask = (dst.data < minn) | (dst.data > maxx)
+    a_diag = adj.diagonal()
+    dst.data[mask] = 0.0
+    adj.data[mask] = 0.0
+    adj.setdiag(a_diag)
+
+
+@dataclass(frozen=True)
+class DistanceIntervalPostprocessor:
+    interval: tuple[float, float]
+
+    def __call__(self, adj: csr_matrix, dst: csr_matrix) -> tuple[csr_matrix, csr_matrix]:
+        _filter_by_radius_interval(adj, dst, self.interval)
+        return adj, dst
 
 
 @dataclass(frozen=True)

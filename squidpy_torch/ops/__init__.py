@@ -5,5 +5,7 @@
 - :mod:`squidpy_torch._core.index_cipher` — K4, cipher shuffles (``csrc/index_cipher.cu``);
 - :mod:`squidpy_torch.ops.dense_pairs` — K2, dense pair counts (``csrc/dense_pairs.cu``);
 - :mod:`squidpy_torch.ops.autocorr` — K5a, ELL autocorrelation sums (``csrc/ell_autocorr.cu``), and
-  K5b, permuted Moran/Geary numerators (``csrc/perm_autocorr.cu``).
+  K5b, permuted Moran/Geary numerators (``csrc/perm_autocorr.cu``);
+- :mod:`squidpy_torch.ops.radius` — K6, the radius search (``csrc/radius_pairs.cu``), behind
+  :func:`squidpy_torch.ops.knn.radius_neighbors`.
 """

@@ -1,10 +1,12 @@
-"""Exact k-nearest-neighbour search (counterpart of ``squidpy_tpu/ops/knn.py``).
+"""Exact k-nearest-neighbour and radius search (counterpart of ``squidpy_tpu/ops/knn.py``).
 
-Same dispatch as the JAX package: an exact brute-force search on the device
-up to ``_BRUTE_FORCE_MAX_N`` points, the multi-threaded host ``cKDTree``
-beyond. The brute force is plain torch (the JAX version is XLA code, not a
-Pallas kernel): expanded-form squared distances by ``torch.matmul`` with TF32
-off, ``torch.topk``, then exact difference-form distances for the winners.
+Same kNN dispatch as the JAX package: an exact brute-force search on the
+device up to ``_BRUTE_FORCE_MAX_N`` points, the multi-threaded host
+``cKDTree`` beyond. The brute force is plain torch (the JAX version is XLA
+code, not a Pallas kernel): expanded-form squared distances by
+``torch.matmul`` with TF32 off, ``torch.topk``, then exact difference-form
+distances for the winners. The radius search is kernel K6 on the card
+(:mod:`squidpy_torch.ops.radius`).
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from squidpy_torch._device import get_device
+from squidpy_torch._device import get_device, to_host
+from squidpy_torch.ops.radius import radius_pairs
 
-__all__ = ["auto_knn", "brute_force_knn", "pairwise_sq_dists"]
+__all__ = ["auto_knn", "brute_force_knn", "pairwise_sq_dists", "radius_neighbors"]
 
 # above this size the O(n^2) device sweep loses to the host tree; both are
 # exact, so the dispatch is purely a performance decision
@@ -89,3 +93,19 @@ def brute_force_knn(
     i = np.concatenate(idxs)
     order = np.argsort(d, axis=1, kind="stable")
     return np.take_along_axis(d, order, axis=1), np.take_along_axis(i, order, axis=1)
+
+
+def radius_neighbors(
+    coords: np.ndarray, radius: float, *, row_tile: int | None = None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """All neighbours within ``radius`` (inclusive), excluding self, as CSR
+    ``(indptr int64, indices int32, distances float32)`` with each row's
+    columns ascending. The test is float32 difference-form ``d2 <= r2`` with
+    ``r2 = float32(float(radius) ** 2)``; on the card it runs as K6, on the
+    CPU as its plain version in row tiles of ``row_tile`` (no result depends
+    on it)."""
+    coords = np.ascontiguousarray(coords, dtype=np.float32)
+    with record_function("spatial_neighbors.radius_search"):
+        indptr, indices, dists = radius_pairs(torch.from_numpy(coords).to(get_device()), radius, row_tile=row_tile)
+    with record_function("spatial_neighbors.to_host"):
+        return to_host(indptr), to_host(indices), to_host(dists)

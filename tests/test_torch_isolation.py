@@ -54,6 +54,19 @@ _SLICE = textwrap.dedent(
     sqt.gr.spatial_autocorr(adata, mode="geary")
     assert np.isfinite(adata.uns["moranI"].columns["pval_sim"]).all()
     assert sorted(adata.uns["gearyC"].index) == adata.var_names
+    sqt.gr.spatial_neighbors_radius(adata, radius=(2.0, 15.0), key_added="radius")
+    sqt.gr.nhood_enrichment(adata, "cl", connectivity_key="radius", n_perms=20, seed=0)
+    sqt.gr.spatial_autocorr(adata, connectivity_key="radius_connectivities", mode="moran", n_perms=10, seed=0)
+    sqt.gr.spatial_neighbors_delaunay(adata, key_added="delaunay", transform="spectral")
+    sqt.gr.spatial_neighbors_grid(adata, n_neighs=4, n_rings=2, key_added="grid")
+    sqt.gr.spatial_neighbors_from_builder(adata, sqt.gr.neighbors.RadiusBuilder(radius=12.0), key_added="built")
+    sqt.gr.mask_graph(adata, None, np.array([[0, 0], [300, 0], [300, 300], [0, 300]]))
+    import warnings
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        sqt.gr.spatial_neighbors(adata, delaunay=True, key_added="facade")
+    assert adata.obsp["radius_connectivities"].nnz > 0 and adata.uns["delaunay_neighbors"]["params"]["coord_type"] == "generic"
+    assert 0 < adata.obsp["mask_spatial_connectivities"].nnz < adata.obsp["spatial_connectivities"].nnz
     leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu") if sys.modules.get(m) is not None]
     assert not leaked, leaked
     print("SLICE OK")
@@ -119,6 +132,40 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
 
         assert cipher_index_batch(spawn_keys(0, 2), 100).shape == (2, 100)
     assert all(v == 0 for v in _cuda.launches.values())
+
+
+def test_library_builds_once_across_threads(monkeypatch, tmp_path):
+    """Threads that reach a cold build at once (the radius builder's thread
+    pool) build the library once and share it."""
+    import threading
+    import time
+
+    from squidpy_torch import _cuda
+
+    builds, loaded = [], object()
+
+    def slow_compile(sources, so):
+        builds.append(so)
+        time.sleep(0.2)  # a second thread arrives while the first builds
+        return "log"
+
+    monkeypatch.setattr(_cuda, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_cuda, "_lib", None)
+    monkeypatch.setattr(_cuda, "build_log", "")
+    monkeypatch.setattr(_cuda, "_compile", slow_compile)
+    monkeypatch.setattr(_cuda, "_load", lambda so: loaded)
+    got, start = [], threading.Barrier(4)
+
+    def call():
+        start.wait()
+        got.append(_cuda.library())
+
+    threads = [threading.Thread(target=call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and got == [loaded] * 4 and _cuda.build_log == "log"
 
 
 def test_kernel_sources_carry_their_notes():

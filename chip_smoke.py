@@ -29,9 +29,12 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    bucket, edge totals of the counts), one more Moran call under the
    profiler, whose ``[host]`` line splits the call's host time by step, and
    one more ``spatial_neighbors_radius`` call, whose ``[host]`` line splits
-   it into the search, the copy to the host, CSR assembly, ``_finalize_pair``
-   and the postprocessors, beside K6's device steps (grid, count, scan,
-   fill, row order) and ``from_csr`` of the graph;
+   it into the search, the copy to the host, CSR assembly (K6 writes the
+   diagonal, so no host insertion) and the postprocessors, beside K6's
+   device steps (grid, count, scan, fill, row order), its host syncs and
+   ``from_csr`` of the graph; and the diagonal insertion of the kNN and
+   Delaunay builds at 1M cells (``_finalize_pair``'s profiler range,
+   scipy's ``setdiag``), with whether each build's CSR is canonical;
 4. each kernel against its plain torch version on the card, with both
    times, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, its time: first on the main
@@ -59,11 +62,16 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    d2, and its ``[diag]`` line: the main path's time with no pair counted;
    on part c's graphs, K3 on the radius and Delaunay ELL layouts (the first
    permutation chunk and the observed labels) and K5a over each degree
-   bucket of the radius graph in its Morton walk; K6 on part c's own input,
-   all 1M cells at r = 25, with its ``[diag]`` line (pairs, candidates, cell
-   side, cells, each device step), then on the ~200k cells of a corner
-   fifth of the section, in 3D, 4D, with coincident points at r = 25 and
-   r = 0, r above the extent, NaN and inf rows, and a radius that enlarges
+   bucket of the radius graph in its Morton walk, with ``torch.sparse.mm``
+   of the bucket's CSR rows as the yardstick; K6 on part c's own input,
+   all 1M cells at r = 25, with and without the diagonal, with its
+   ``[diag]`` lines (pairs, candidates, cell side, cells, each device step,
+   host syncs, rows per row-order tier), then on the ~200k cells of a
+   corner fifth of the section (also with the order tiers lowered), in 3D,
+   4D, with coincident points at r = 25 and r = 0, r above the extent (the
+   block tier, and the global merge with lowered limits), a cluster of
+   20,000 coincident points (the global merge at the natural limits), NaN
+   and inf rows (also at an infinite radius), and a radius that enlarges
    the grid's side).
    Integer kernels
    (K1-K4), K6's CSR (offsets, columns and distances) and K5a's ``u = W x``
@@ -112,6 +120,9 @@ K1_MANY_CLS = 40  # a fine Xenium/MERFISH annotation: K1's shared histogram hold
 RADIUS = 25.0  # ~2.5 cell spacings: pi * 25^2 / 100 ~ 19.6 neighbours, a contact-plus-next-ring niche
 K6_CELLS = 200_000  # K6 against its plain version (4e10 pair tests) on a corner of the main path's cells
 K6_BRANCH_CELLS = 100_000  # K6's branches; the plain version tests n^2 pairs
+K6_CLUSTER = 20_000  # coincident points whose rows pass K6's block tier (16,384 entries): the global merge
+K6_LOW_TIERS = (8, 16)  # K6's row-order tiers lowered: rows of ~20 through the block tier and the global merge
+K6_STEPS = ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms")  # K6's device steps, as its stats name them
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; 32-bit integer ops are counted at it too
@@ -840,7 +851,8 @@ def new_graph_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
     (packed branch) and the observed labels (shared branch); K5a in its
     three modes on the first 512-gene block over each degree bucket of the
     normalised radius graph, its rows in the Morton walk ``spatial_autocorr``
-    took."""
+    took, with ``torch.sparse.mm`` of the bucket's rows of the CSR W as the
+    yardstick of ``u = W z``."""
     import torch
 
     from squidpy_torch._core.graph import locality_walk, walk_buckets
@@ -867,9 +879,16 @@ def new_graph_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
     xb = handle.dense_block(np.arange(N_GENES))
     zb = xb - torch.mean(xb, dim=0, keepdim=True)
     walked = walk_buckets(_degree_buckets(adata, "radius_connectivities"), locality_walk(adata, n, get_device()))
+    g_csr = _normalized_graph(adata, "radius_connectivities")[0]
     k5a = []
     for b, (rows, idx, w) in enumerate(walked):
-        k5a += check_ell_autocorr(f"radius graph, bucket {b}/{len(walked)}, Morton walk", idx, w, xb, zb, rows=rows)
+        # the yardstick: torch.sparse.mm of the bucket's rows of the CSR W
+        sub = g_csr[rows.cpu().numpy()]
+        w_b = torch.sparse_csr_tensor(
+            torch.from_numpy(sub.indptr.astype(np.int64)), torch.from_numpy(sub.indices.astype(np.int64)),
+            torch.from_numpy(sub.data.astype(np.float32)), size=sub.shape, check_invariants=False).cuda()
+        k5a += check_ell_autocorr(f"radius graph, bucket {b}/{len(walked)}, Morton walk", idx, w, xb, zb, rows=rows,
+                                  library=lambda w_b=w_b: torch.sparse.mm(w_b, zb))
     return {"pair_counts": k3, "ell_autocorr": k5a}
 
 
@@ -1226,10 +1245,12 @@ def radius_path(adata: StandIn) -> tuple[dict, dict]:
 def radius_host_split(adata: StandIn) -> None:
     """One more ``spatial_neighbors_radius`` call (``copy=True``) under the
     profiler: the host time of its named steps (the search, which waits for
-    the count pass, the copy to the host, which waits for the rest, CSR
-    assembly, ``_finalize_pair``, the postprocessors); K6's device steps in a
-    separate call, by CUDA events; and ``from_csr`` of the graph, as the first
-    statistic on it builds its ELL graph (a diagnostic)."""
+    K6's two reads of the card, the copy to the host, which waits for the
+    rest, CSR assembly of the finished CSR K6 wrote, the postprocessors); K6's
+    device steps in a separate call as the builder makes it (``with_self``),
+    by CUDA events, with its host syncs and rows per order tier; and
+    ``from_csr`` of the graph, as the first statistic on it builds its ELL
+    graph (a diagnostic)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1243,20 +1264,69 @@ def radius_host_split(adata: StandIn) -> None:
              if e.key.startswith("spatial_neighbors.")}
     if not steps:
         raise AssertionError("the profile holds none of spatial_neighbors' ranges")
+    if "finalize" in steps:
+        raise AssertionError("the radius build still inserts its diagonal on the host")
     stats: dict = {}
-    radius_pairs(torch.from_numpy(np.asarray(adata.obsm["spatial"], np.float32)).cuda(), RADIUS, stats=stats)
+    radius_pairs(torch.from_numpy(np.asarray(adata.obsm["spatial"], np.float32)).cuda(), RADIUS, with_self=True,
+                 stats=stats)
     _, t_csr = _sync_time(lambda: SpatialGraph.from_csr(adata.obsp["radius_connectivities"]))
-    k6 = " ".join(f"k6_{k}={stats[k]:.3f}ms" for k in ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms"))
+    k6 = " ".join(f"k6_{k}={stats[k]:.3f}ms" for k in K6_STEPS)
     print(f"[host] spatial_neighbors_radius n={adata.obsm['spatial'].shape[0]} r={RADIUS}: wall={1e3 * wall:.1f}ms "
           + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items())
-          + f" | {k6} | from_csr_first_statistic={1e3 * t_csr:.1f}ms", flush=True)
+          + f" | {k6} k6_host_syncs={stats['host_syncs']} | from_csr_first_statistic={1e3 * t_csr:.1f}ms", flush=True)
+
+
+def finalize_split(adata: StandIn) -> None:
+    """The diagonal insertion (``_finalize_pair``: scipy's ``setdiag`` of
+    both matrices) of the kNN (k = 6) and Delaunay builds on the main
+    path's cells: its profiler range in one ``build_graph`` each, on one
+    cKDTree query and one qhull run, and whether each build's CSR is
+    canonical (sorted, without duplicates) before the insertion."""
+    import warnings
+
+    import scipy.sparse as sps
+    from scipy.spatial import Delaunay
+    from torch.profiler import ProfilerActivity, profile
+
+    from squidpy_torch.gr import neighbors as nb
+    from squidpy_torch.ops.knn import auto_knn
+
+    coords = np.asarray(adata.obsm["spatial"])
+    n = len(coords)
+    dists, cols = auto_knn(coords, N_NEIGHS)
+    tri = Delaunay(coords)
+    indptr, indices = tri.vertex_neighbor_vertices
+    canonical = {
+        "knn": sps.csr_matrix((np.ones(n * N_NEIGHS), (np.repeat(np.arange(n), N_NEIGHS), cols.reshape(-1))),
+                              shape=(n, n)).has_canonical_format,
+        "delaunay": sps.csr_matrix((np.ones(len(indices)), indices, indptr), shape=(n, n)).has_canonical_format,
+    }
+    builds = {"knn": lambda: nb._knn_to_csr(dists, cols, n, set_diag=False),
+              "delaunay": lambda: nb.DelaunayBuilder().build_graph(coords)}
+    parts = []
+    real = nb.Delaunay
+    try:
+        nb.Delaunay = lambda _: tri  # the qhull run above, not a second one
+        for build, fn in builds.items():
+            with warnings.catch_warnings(action="ignore", category=sps.SparseEfficiencyWarning), \
+                    profile(activities=[ProfilerActivity.CPU]) as prof:
+                adj, _ = fn()
+            ms = [e.cpu_time_total / 1e3 for e in prof.key_averages() if e.key == "spatial_neighbors.finalize"]
+            parts.append(f"{build} canonical={canonical[build]} nnz={adj.nnz} finalize={ms[0]:.1f}ms")
+    finally:
+        nb.Delaunay = real
+    print(f"[host] diagonal insertion n={n}: " + " ".join(parts), flush=True)
 
 
 def check_radius_pairs(name: str, pts: np.ndarray, radius: float, repeats: int = 3, plain_warm: bool = True,
-                       diag: bool = False) -> dict:
-    """K6's CSR (through its wrapper: grid, both passes, scan and row order)
-    against the plain version on the card, bitwise; given ``diag``, a
-    ``[diag]`` line of its grid and device steps."""
+                       diag: bool = False, with_self: bool = False, tiers: tuple[int, int] | None = None,
+                       tier: str | None = None) -> dict:
+    """K6's CSR (through its wrapper: grid, both passes, scan and row order;
+    ``with_self`` writes each row's diagonal; ``tiers`` lowers the row
+    order's tier limits) against the plain version on the card, bitwise;
+    at most two host syncs; rows in the order tier ``tier``, where given;
+    given ``diag``, a ``[diag]`` line of its grid, device steps, syncs and
+    rows per tier."""
     import torch
 
     from squidpy_torch.ops.radius import _radius_plain, radius_pairs, radius_threshold
@@ -1264,56 +1334,85 @@ def check_radius_pairs(name: str, pts: np.ndarray, radius: float, repeats: int =
     x = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda()
     n, d = x.shape
     stats: dict = {}
-    radius_pairs(x, radius, stats=stats)
-    got, ms = _time_ms(lambda: radius_pairs(x, radius), repeats)
-    want, plain_ms = _time_ms(lambda: _radius_plain(x, float(radius_threshold(radius))), 1, warm=plain_warm)
+    radius_pairs(x, radius, with_self=with_self, stats=stats, _tiers=tiers)
+    got, ms = _time_ms(lambda: radius_pairs(x, radius, with_self=with_self, _tiers=tiers), repeats)
+    want, plain_ms = _time_ms(lambda: _radius_plain(x, float(radius_threshold(radius)), with_self=with_self), 1,
+                              warm=plain_warm)
     for g, w, what in zip(got, want, ("indptr", "indices", "distances")):
         if g.shape != w.shape or not torch.equal(g, w):
             raise AssertionError(f"radius_pairs {name}: {what} differ from the plain version (tolerance 0)")
+    del want
+    if stats["host_syncs"] > 2:
+        raise AssertionError(f"radius_pairs {name}: {stats['host_syncs']} host syncs, at most 2")
+    if tier is not None and stats[f"rows_{tier}"] <= 0:
+        raise AssertionError(f"radius_pairs {name}: no row went through the {tier} tier")
     nnz = int(got[0][-1])
-    # the coordinates read once; the int64 row offsets and, an edge, an int32
-    # column and a float32 distance written once; or, per candidate pair it
-    # tests, d subtractions, d multiplies, d - 1 adds and a compare
+    # the coordinates read once; the int64 row offsets and, an edge (the
+    # diagonal too, with_self), an int32 column and a float32 distance
+    # written once; or, per candidate pair it tests, d subtractions, d
+    # multiplies, d - 1 adds and a compare
     bound = _bound(n * d * 4 + (n + 1) * 8 + nnz * 8, stats["candidates"] * 3 * d)
-    print(f"[kernel] radius_pairs {name} n={n} d={d} r={radius} pairs={nnz} candidates={stats['candidates']}: "
-          f"max_abs_err=0.0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound[0]:.4f} ({bound[1]})",
+    rows = f"rows warp/block/global={stats['rows_warp']}/{stats['rows_block']}/{stats['rows_global']}"
+    print(f"[kernel] radius_pairs {name} n={n} d={d} r={radius} with_self={with_self} tiers={tiers or 'default'} "
+          f"pairs={nnz} candidates={stats['candidates']}: max_abs_err=0.0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={bound[0]:.4f} ({bound[1]}) host_syncs={stats['host_syncs']} {rows} longest={stats['longest']}",
           flush=True)
     if diag:
-        print(f"[diag] radius_pairs n={n} d={d} r={radius}: pairs={nnz} candidates={stats['candidates']} "
-              f"side={stats['side']:.6f} cells={stats['cells']} dims={stats['dims']} points={stats['points']} "
-              + " ".join(f"{k}={stats[k]:.3f}ms" for k in ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms")),
-              flush=True)
+        print(f"[diag] radius_pairs n={n} d={d} r={radius} with_self={with_self}: pairs={nnz} "
+              f"candidates={stats['candidates']} side={stats['side']:.6f} cells={stats['cells']} dims={stats['dims']} "
+              f"points={stats['points']} " + " ".join(f"{k}={stats[k]:.3f}ms" for k in K6_STEPS)
+              + f" host_syncs={stats['host_syncs']} {rows} longest={stats['longest']}", flush=True)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": None}
 
 
 def radius_kernel_checks(adata: StandIn) -> list[dict]:
     """K6 against its plain version: first on the main path's own input (all
-    its cells at its radius; the plain version tests 1e12 pairs), then on
-    the ``K6_CELLS`` of them in a corner square of a fifth of the section,
-    then in the branches: 3D, 4D (axes past the grid), coincident points at
-    r = 25 and r = 0, r above the extent, NaN and inf rows, and a radius so
-    small that the grid's side is enlarged."""
+    its cells at its radius; the plain version tests 1e12 pairs), with the
+    diagonal as the builder calls it (the ``kernels`` line's numbers), and
+    without it (the default of ``radius_neighbors``), then on the ``K6_CELLS`` of
+    them in a corner square of a fifth of the section (also with the order
+    tiers lowered, so rows of ~20 go through the block tier and the global
+    merge), then in the branches: 3D, 4D (axes past the grid), coincident
+    points at r = 25 and r = 0, r above the extent (rows of 2999: the block
+    tier; with lowered limits, the global merge), a cluster of 20,000
+    coincident points (rows past the block tier's natural limit: the global
+    merge), NaN and inf rows, and a radius so small that the grid's side is
+    enlarged."""
     coords = np.asarray(adata.obsm["spatial"])
-    out = [check_radius_pairs("main path", coords, RADIUS, repeats=10, plain_warm=False, diag=True)]
+    out = [check_radius_pairs("main path, with self", coords, RADIUS, repeats=10, plain_warm=False, diag=True,
+                              with_self=True)]
+    out.append(check_radius_pairs("main path", coords, RADIUS, repeats=10, plain_warm=False, diag=True))
     corner = 10.0 * np.sqrt(N_CELLS) * np.sqrt(K6_CELLS / N_CELLS)
     sub = coords[(coords[:, 0] < corner) & (coords[:, 1] < corner)]
     out.append(check_radius_pairs(f"main path cells in a corner ({len(sub)})", sub, RADIUS, repeats=10,
                                   plain_warm=False))
+    out.append(check_radius_pairs(f"main path cells in a corner ({len(sub)}), lowered tiers", sub, RADIUS,
+                                  with_self=True, tiers=K6_LOW_TIERS, tier="global"))
     rng = np.random.default_rng(12)
     n = K6_BRANCH_CELLS
     cube = (n * 4.0 / 3.0 * np.pi * RADIUS**3 / 20.0) ** (1.0 / 3.0)  # ~20 neighbours in 3D
     out.append(check_radius_pairs("3D", rng.uniform(0.0, cube, (n, 3)), RADIUS))
-    out.append(check_radius_pairs("4D", rng.uniform(0.0, 60.0, (n // 5, 4)), 12.0))
+    out.append(check_radius_pairs("4D", rng.uniform(0.0, 60.0, (n // 5, 4)), 12.0, with_self=True))
     flat = rng.uniform(0.0, 10.0 * np.sqrt(n), (n, 2))
     flat[1::4] = flat[::4][: len(flat[1::4])]
-    out += [check_radius_pairs("coincident points", flat, RADIUS), check_radius_pairs("coincident, r = 0", flat, 0.0)]
+    out += [check_radius_pairs("coincident points", flat, RADIUS), check_radius_pairs("coincident, r = 0", flat, 0.0),
+            check_radius_pairs("coincident, r = 0, with self", flat, 0.0, with_self=True)]
     small = min(n, 3000)
-    out.append(check_radius_pairs("r above the extent", rng.uniform(0.0, 10.0 * np.sqrt(small), (small, 2)), 1e4))
+    above = rng.uniform(0.0, 10.0 * np.sqrt(small), (small, 2))
+    out += [check_radius_pairs("r above the extent", above, 1e4, tier="block"),
+            check_radius_pairs("r above the extent, with self, global merge", above, 1e4, with_self=True,
+                               tiers=(64, 512), tier="global")]
+    cluster = rng.uniform(0.0, 10.0 * np.sqrt(n), (n, 2))
+    cluster[:K6_CLUSTER] = cluster[0]
+    out.append(check_radius_pairs(f"a cluster of {K6_CLUSTER} coincident points", cluster, RADIUS, with_self=True,
+                                  tier="global", repeats=2))
     bad = rng.uniform(0.0, 10.0 * np.sqrt(n), (n, 2))
     bad[::97] = np.nan
     bad[5::101, 1] = np.inf
-    out.append(check_radius_pairs("NaN and inf rows", bad, RADIUS))
+    out += [check_radius_pairs("NaN and inf rows", bad, RADIUS),
+            check_radius_pairs("NaN and inf rows, with self", bad, RADIUS, with_self=True),
+            check_radius_pairs("NaN and inf rows, infinite radius", bad[:2000], np.inf, with_self=True)]
     out.append(check_radius_pairs("r = 0.01, grid side enlarged", rng.uniform(0.0, 1e3, (n // 5, 2)), 0.01))
     return out
 
@@ -1459,6 +1558,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     radius_host_split(adata)
     phases["radius_host_split"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    finalize_split(adata)
+    phases["finalize_split"] = time.perf_counter() - t_phase
 
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take

@@ -10,7 +10,9 @@ modules reach :func:`library` only for CUDA tensors.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a run resets
 it with :func:`reset_launches` and reads it afterwards to show which kernels
-the path went through.
+the path went through. A kernel whose C interface has several entry points
+(``radius_pairs``: bounds, bin, scatter, the two passes, the order) counts
+each call into that interface, which may start more than one CUDA kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
                          ctypes.c_uint64, _I, _P, _I, _P, _I, _P],
@@ -65,7 +68,12 @@ _SIGNATURES = {
     "sqt_dense_pairs": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "sqt_ell_autocorr": [_I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, ctypes.c_int64, _I, _P, _P, _P, _P],
     "sqt_ell_autocorr_layout": [_I, _I, _P],
-    "sqt_radius_pairs": [_P, _I, _P, _P, _P, ctypes.c_int64, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _I, _P],
+    "sqt_radius_bounds": [_P, ctypes.c_int64, _I, _I, _P, _P],
+    "sqt_radius_bin": [_P, ctypes.c_int64, _I, _I, _D, _D, _D, _D, _I, _I, _I, _I, _P, _P, _P],
+    "sqt_radius_scatter": [_P, ctypes.c_int64, _I, _P, _P, _P, _P, _P, _P],
+    "sqt_radius_pairs": [_P, _I, _P, _P, _P, ctypes.c_int64, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P,
+                         _P, _I, _P],
+    "sqt_radius_order": [_P, ctypes.c_int64, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

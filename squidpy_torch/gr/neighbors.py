@@ -2,10 +2,10 @@
 
 The builder classes and postprocessors of the JAX package. The kNN query
 runs on the device up to 50k points and on the host ``cKDTree`` beyond, the
-radius search on the device (kernel K6 on the card,
-:mod:`squidpy_torch.ops.knn`); the Delaunay triangulation is host qhull, as
-in the JAX package. The host steps of a build carry profiler ranges named
-``spatial_neighbors.*``.
+radius search on the device (kernel K6 on the card, which writes each row's
+diagonal itself, :mod:`squidpy_torch.ops.knn`); the Delaunay triangulation
+is host qhull, as in the JAX package. The host steps of a build carry
+profiler ranges named ``spatial_neighbors.*``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from torch.profiler import record_function
 
 from squidpy_torch._constants._constants import CoordType, Transform
 from squidpy_torch._device import NDArrayA, assert_positive
-from squidpy_torch.ops.knn import auto_knn, radius_neighbors
+from squidpy_torch.ops.knn import auto_knn, radius_graph
 
 __all__ = [
     "GraphMatrixT",
@@ -201,13 +201,18 @@ class RadiusBuilder(GraphBuilderCSR):
         return dict(coord_type=CoordType.GENERIC.v, radius=self.radius, transform=self.transform.v)
 
     def build_graph(self, coords: NDArrayA) -> tuple[csr_matrix, csr_matrix]:
+        # the search writes each row's diagonal (distance 0) in its place, so
+        # the CSR is finished here: explicit diagonal entries, 1.0 or 0.0 in adj
         n = coords.shape[0]
         r = self.radius if isinstance(self.radius, (int, float)) else max(self.radius)
-        indptr, indices, dists = radius_neighbors(coords, float(r))
+        indptr, indices, dists, diag = radius_graph(coords, float(r))
         with record_function("spatial_neighbors.csr"):
-            adj = csr_matrix((np.ones(len(indices), dtype=np.float32), indices, indptr), shape=(n, n))
+            data = np.ones(len(indices), dtype=np.float32)
+            if not self.set_diag:
+                data[diag] = 0.0
+            adj = csr_matrix((data, indices, indptr), shape=(n, n))
             dst = csr_matrix((dists.astype(np.float64), indices.copy(), indptr.copy()), shape=(n, n))
-        return _finalize_pair(adj, dst, set_diag=self.set_diag)
+        return adj, dst
 
 
 class DelaunayBuilder(GraphBuilderCSR):

@@ -7,5 +7,5 @@
 - :mod:`squidpy_torch.ops.autocorr` — K5a, ELL autocorrelation sums (``csrc/ell_autocorr.cu``), and
   K5b, permuted Moran/Geary numerators (``csrc/perm_autocorr.cu``);
 - :mod:`squidpy_torch.ops.radius` — K6, the radius search (``csrc/radius_pairs.cu``), behind
-  :func:`squidpy_torch.ops.knn.radius_neighbors`.
+  :func:`squidpy_torch.ops.knn.radius_neighbors` and :func:`squidpy_torch.ops.knn.radius_graph`.
 """

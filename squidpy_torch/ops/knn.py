@@ -18,9 +18,9 @@ import torch
 from torch.profiler import record_function
 
 from squidpy_torch._device import get_device, to_host
-from squidpy_torch.ops.radius import radius_pairs
+from squidpy_torch.ops.radius import _sqrt_rn, radius_pairs
 
-__all__ = ["auto_knn", "brute_force_knn", "pairwise_sq_dists", "radius_neighbors"]
+__all__ = ["auto_knn", "brute_force_knn", "pairwise_sq_dists", "radius_graph", "radius_neighbors"]
 
 # above this size the O(n^2) device sweep loses to the host tree; both are
 # exact, so the dispatch is purely a performance decision
@@ -85,9 +85,10 @@ def brute_force_knn(
             d2[ar, r0 + ar] = float("inf")
         idx = torch.topk(d2, k, dim=1, largest=False, sorted=True).indices
         # exact distances via the difference form: the expansion loses
-        # precision for near-coincident points
+        # precision for near-coincident points; correctly rounded roots, so
+        # the CPU's equal the card's
         diff = x[idx] - rows[:, None, :]
-        dists.append(torch.sqrt((diff * diff).sum(dim=-1)).cpu().numpy())
+        dists.append(_sqrt_rn((diff * diff).sum(dim=-1)).cpu().numpy())
         idxs.append(idx.to(torch.int32).cpu().numpy())
     d = np.concatenate(dists)
     i = np.concatenate(idxs)
@@ -109,3 +110,16 @@ def radius_neighbors(
         indptr, indices, dists = radius_pairs(torch.from_numpy(coords).to(get_device()), radius, row_tile=row_tile)
     with record_function("spatial_neighbors.to_host"):
         return to_host(indptr), to_host(indices), to_host(dists)
+
+
+def radius_graph(coords: np.ndarray, radius: float) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`radius_neighbors` with each point its own neighbour at distance
+    0, in its ascending place (K6's ``with_self``), and the position of each
+    row's diagonal entry in ``indices`` (int64, ``n``)."""
+    coords = np.ascontiguousarray(coords, dtype=np.float32)
+    with record_function("spatial_neighbors.radius_search"):
+        indptr, indices, dists = radius_pairs(torch.from_numpy(coords).to(get_device()), radius, with_self=True)
+        entry_rows = torch.searchsorted(indptr, torch.arange(indices.numel(), device=indptr.device), right=True) - 1
+        diag = torch.nonzero(indices == entry_rows).squeeze(1)
+    with record_function("spatial_neighbors.to_host"):
+        return to_host(indptr), to_host(indices), to_host(dists), to_host(diag)

@@ -116,6 +116,24 @@ def test_brute_force_knn_matches_jax():
     np.testing.assert_allclose(d_t[same], d_j[same], rtol=1e-6)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_brute_force_knn_roots_are_correctly_rounded(dim):
+    """The brute force's distances are the correctly rounded float32 roots
+    of their difference-form ``d2`` (numpy's, as the card's), bit for bit,
+    and still agree with the JAX package's to rtol 1e-6."""
+    coords = np.random.default_rng(8).uniform(0, 300, (4000, dim)).astype(np.float32)
+    d_t, i_t = brute_force_knn(coords, 6, row_tile=512)
+    diff = coords[i_t] - coords[:, None, :]
+    d2 = diff[..., 0] * diff[..., 0]
+    for a in range(1, dim):
+        d2 = d2 + diff[..., a] * diff[..., a]
+    np.testing.assert_array_equal(d_t, np.sqrt(d2))
+    d_j, i_j = jax_brute_force_knn(coords, 6)
+    same = (np.sort(i_t, 1) == np.sort(i_j, 1)).all(1)
+    assert _near_tie_rows(coords, 6, np.flatnonzero(~same)).all()
+    np.testing.assert_allclose(d_t[same], d_j[same], rtol=1e-6)
+
+
 def test_knn_rejects_k_at_least_n():
     with pytest.raises(ValueError, match="n_neighs"):
         brute_force_knn(np.zeros((4, 2), np.float32), 4)

@@ -36,6 +36,7 @@ import squidpy_tpu as sq
 from squidpy_torch._core.graph import SpatialGraph
 from squidpy_torch._core.rng import random_bits, spawn_keys
 from squidpy_torch.gr import neighbors as tnb
+from squidpy_torch.ops.knn import radius_neighbors
 from squidpy_tpu.gr import neighbors as jnb
 
 torch.set_num_threads(1)
@@ -142,6 +143,13 @@ RADIUS_CASES = {
     "library_key, 1 job": dict(radius=RADIUS, library_key="lib", n_jobs=1),
     "library_key, 2 jobs": dict(radius=RADIUS, library_key="lib", n_jobs=2),
     "key_added": dict(radius=(0.0, 12.5), key_added="niche"),
+    "interval, set_diag": dict(radius=(8.0, RADIUS), set_diag=True),
+    "percentile, set_diag": dict(radius=RADIUS, percentile=80.0, set_diag=True),
+    "spectral, set_diag": dict(radius=RADIUS, transform="spectral", set_diag=True),
+    "cosine": dict(radius=RADIUS, transform="cosine"),
+    "interval, percentile, cosine, set_diag": dict(radius=(8.0, RADIUS), percentile=70.0, transform="cosine",
+                                                   set_diag=True),
+    "library_key, set_diag": dict(radius=RADIUS, library_key="lib", set_diag=True),
 }
 
 
@@ -159,6 +167,66 @@ def test_spatial_neighbors_radius_matches_jax(case):
         lib = np.asarray(at.obs["lib"].cat.codes)
         coo = adj.tocoo()
         assert np.all(lib[coo.row] == lib[coo.col])
+
+
+class _RadiusBuilderBefore(tnb.RadiusBuilder):
+    """The radius builder as it assembled its CSR before the search wrote
+    the diagonal: the CSR without it, then scipy's ``setdiag`` on both
+    matrices."""
+
+    def build_graph(self, coords):
+        n = coords.shape[0]
+        r = self.radius if isinstance(self.radius, (int, float)) else max(self.radius)
+        indptr, indices, dists = radius_neighbors(coords, float(r))
+        adj = sp.csr_matrix((np.ones(len(indices), dtype=np.float32), indices, indptr), shape=(n, n))
+        dst = sp.csr_matrix((dists.astype(np.float64), indices.copy(), indptr.copy()), shape=(n, n))
+        adj.setdiag(1.0 if self.set_diag else adj.diagonal())
+        dst.setdiag(0.0)
+        return adj, dst
+
+
+def _assert_identical_csr(got, want, what: str) -> None:
+    """The same CSR to the bit: arrays, their dtypes and the sorted flag
+    (sorted, where no cosine transform reordered both)."""
+    for field in ("indptr", "indices", "data"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype, (what, field, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=f"{what}.{field}")
+    assert got.has_sorted_indices == want.has_sorted_indices, what
+
+
+@pytest.mark.parametrize("case", list(RADIUS_CASES))
+def test_radius_graph_is_the_setdiag_of_the_csr_without_it(case):
+    """The finished CSR the search now gives is bitwise what scipy's
+    ``setdiag`` made of the CSR without the diagonal, through every
+    postprocessor and ``library_key``'s combine."""
+    kw = dict(RADIUS_CASES[case])
+    key = kw.pop("key_added", "spatial")
+    library_key, n_jobs = kw.pop("library_key", None), kw.pop("n_jobs", 1)
+    at, before = _adata(600, 0), _adata(600, 0)
+    sqt.gr.spatial_neighbors_radius(at, library_key=library_key, n_jobs=n_jobs, key_added=key, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", sp.SparseEfficiencyWarning)
+        sqt.gr.spatial_neighbors_from_builder(before, _RadiusBuilderBefore(**kw), library_key=library_key,
+                                              n_jobs=n_jobs, key_added=key)
+    for suffix in ("connectivities", "distances"):
+        name = f"{key}_{suffix}"
+        _assert_identical_csr(at.obsp[name], before.obsp[name], name)
+
+
+def test_radius_builder_writes_explicit_diagonals():
+    """Before the postprocessors, every row holds its diagonal: 1.0 or an
+    explicit 0.0 in the adjacency, 0.0 in the distances."""
+    coords = np.asarray(_adata(300, 3).obsm["spatial"])
+    coords[[4, 9]] = np.nan  # rows with no neighbour still hold their diagonal
+    for set_diag in (False, True):
+        adj, dst = tnb.RadiusBuilder(radius=RADIUS, set_diag=set_diag).build_graph(coords)
+        rows = np.repeat(np.arange(len(coords)), np.diff(adj.indptr))
+        diag = rows == adj.indices
+        assert np.count_nonzero(diag) == len(coords)
+        assert np.all(adj.data[diag] == float(set_diag)) and np.all(adj.data[~diag] == 1.0)
+        assert np.all(dst.data[diag] == 0.0) and np.array_equal(dst.indices, adj.indices)
+        assert np.diff(adj.indptr)[4] == 1 and np.diff(adj.indptr)[9] == 1
 
 
 DELAUNAY_CASES = {

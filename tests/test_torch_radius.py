@@ -26,9 +26,11 @@ plain version on the card (tests marked ``cuda``, skipped without one).
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import squidpy_torch as sqt
@@ -245,6 +247,31 @@ def test_row_tiles_change_nothing():
             assert torch.equal(a, b)
 
 
+def test_with_self_is_scipy_setdiag_of_the_csr_without():
+    """``with_self=True`` is the CSR without the diagonal put through scipy's
+    ``setdiag(0.0)``: one more entry a row (column = row, distance 0.0) in
+    its ascending place, for NaN, inf and coincident points, at r = 0 and at
+    an infinite radius too."""
+    c = _coords(400, 2, 6.0, seed=21)
+    c[1::7] = c[::7][: len(c[1::7])]
+    c[[5, 50]] = np.nan
+    c[60, 1] = np.inf
+    c[[70, 71], 0] = -np.inf
+    x = torch.from_numpy(c)
+    for radius in (0.0, 6.0, 1e4, np.inf):
+        without = radius_pairs(x, radius)
+        want = sp.csr_matrix((without[2].numpy(), without[1].numpy(), without[0].numpy()), shape=(len(c), len(c)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", sp.SparseEfficiencyWarning)
+            want.setdiag(0.0)
+        got = radius_pairs(x, radius, with_self=True)
+        np.testing.assert_array_equal(got[0].numpy(), want.indptr)
+        np.testing.assert_array_equal(got[1].numpy(), want.indices)
+        np.testing.assert_array_equal(got[2].numpy(), want.data)
+        assert got[0].dtype == torch.int64 and got[1].dtype == torch.int32 and got[2].dtype == torch.float32
+        assert torch.equal(torch.diff(got[0]), torch.diff(without[0]) + 1)
+
+
 # -- the kernel's grid, walked on the CPU as the kernel walks it ----------------
 
 
@@ -271,97 +298,268 @@ def _grid_cases() -> list[tuple[str, np.ndarray, float]]:
         ("tiny radius, side enlarged to 2n cells", wide, 1e-3),
         ("tiny radius, side enlarged, pairs kept", wide, 30.0),
         ("infinite radius, infinite coordinates", inf, np.inf),
+        ("every point coincident", np.full((90, 2), 3.5, np.float32), 1.0),
+        ("no finite point", np.full((40, 2), np.nan, np.float32), 1.0),
+        ("no coordinates", np.zeros((30, 0), np.float32), 1.0),
     ]
 
 
-@pytest.mark.parametrize("name,c,radius", _grid_cases(), ids=[case[0] for case in _grid_cases()])
-def test_cell_grid_invariants(name, c, radius):
-    """The grid holds each point with finite gridded coordinates (every
-    point if ``r2`` is inf) once, in cell order, in at most 2m cells;
-    ``candidate_pairs`` counts each point against its 3^3 cells' points."""
-    r2 = float(radius_threshold(radius))
-    grid = cell_grid(torch.from_numpy(c), r2)
-    kept = np.ones(len(c), bool) if np.isinf(r2) else np.isfinite(c[:, : min(c.shape[1], 3)]).all(axis=1)
-    np.testing.assert_array_equal(np.sort(grid.order.numpy()), np.nonzero(kept)[0])
-    assert np.prod(grid.dims) <= max(2 * kept.sum(), 1)
-    assert torch.all(torch.diff(grid.cell_start) >= 0) and int(grid.cell_start[-1]) == kept.sum()
-    cells = grid.cells.numpy().astype(np.int64)
-    flat = (cells[:, 2] * grid.dims[1] + cells[:, 1]) * grid.dims[0] + cells[:, 0]
-    assert np.all(np.diff(flat) >= 0) and np.all(cells < np.array(grid.dims))
-    near = np.abs(cells[:, None, :] - cells[None, :, :]).max(axis=2) <= 1
-    assert candidate_pairs(grid) == int(near.sum()) - len(cells)
-
-
-def _view(ptr: int, dtype: np.dtype, count: int) -> np.ndarray:
+def _view(ptr: int | None, dtype: np.dtype, count: int) -> np.ndarray:
     """A writable numpy view of ``count`` items at a tensor's ``data_ptr``."""
+    if not count:
+        return np.zeros(0, dtype)
     itemsize = np.dtype(dtype).itemsize
     return np.frombuffer((ctypes.c_char * (count * itemsize)).from_address(ptr), dtype=dtype)
 
 
 class _EmulatedK6:
-    """``sqt_radius_pairs`` in numpy, reading and writing CPU tensors through
-    the pointers the wrapper passes, one sorted point at a time as a thread
-    of the kernel does."""
+    """K6's C interface in numpy, reading and writing CPU tensors through the
+    pointers the wrapper passes, as the kernels do: the bounds as
+    order-preserving int keys, the cells in float64, the scatter in an
+    arbitrary order inside each cell (as atomics leave it), the two passes
+    one sorted point at a time, the list of rows past a warp's sort, and
+    the row order by tier: those rows in chunks, then, past the block limit,
+    merge rounds through the scratch copy in each row's own parity."""
 
-    def __init__(self) -> None:
-        self.launches: list[int] = []
+    def __init__(self, seed: int = 0) -> None:
+        self.calls: list[str] = []
+        self.tiers: dict[str, int] = {}
+        self.rng = np.random.default_rng(seed)
 
-    def sqt_radius_pairs(self, pts, d, orig, cells, cell_start, m, nx, ny, nz, r2, counts, indptr, out_idx, out_dist,
-                         fill, stream):
-        self.launches.append(fill)
-        if m == 0:
+    def sqt_radius_bounds(self, x, n, d, g, bounds, stream):
+        self.calls.append("bounds")
+        pts = _view(x, np.float32, n * d).reshape(n, d)[:, :g]
+        finite = pts[np.isfinite(pts).all(axis=1)]
+        keys = lambda v: np.where(v.view(np.int32) < 0, v.view(np.int32) ^ np.int32(0x7FFFFFFF),  # noqa: E731
+                                  v.view(np.int32))
+        out = _view(bounds, np.int32, 7)
+        out[:] = [2**31 - 1] * 3 + [-(2**31)] * 3 + [len(finite)]
+        if len(finite):
+            out[:g], out[3 : 3 + g] = keys(finite.min(axis=0)), keys(finite.max(axis=0))
+        return 0
+
+    def sqt_radius_bin(self, x, n, d, g, lo0, lo1, lo2, side, nx, ny, nz, one_cell, cell, cell_count, stream):
+        self.calls.append("bin")
+        pts = _view(x, np.float32, n * d).reshape(n, d)[:, :g].astype(np.float64)
+        out, count = _view(cell, np.int32, n), _view(cell_count, np.int32, nx * ny * nz + 1)
+        if one_cell:
+            out[:] = 0
+        else:
+            finite = np.isfinite(pts).all(axis=1)
+            q = np.zeros((n, 3), np.int64)
+            with np.errstate(invalid="ignore"):
+                q[:, :g] = np.floor((pts - np.array([lo0, lo1, lo2])[:g]) / side)
+            q = np.clip(q, 0, np.array([nx, ny, nz]) - 1)
+            out[:] = np.where(finite, (q[:, 2] * ny + q[:, 1]) * nx + q[:, 0], nx * ny * nz)
+        np.add.at(count, out, 1)
+        return 0
+
+    def sqt_radius_scatter(self, x, n, d, cell, cursor, pts, orig, cell_sorted, stream):
+        self.calls.append("scatter")
+        if n == 0:
             return 0
-        p = _view(pts, np.float32, m * d).reshape(m, d)
-        o = _view(orig, np.int32, m)
-        c = _view(cells, np.int32, 3 * m).reshape(m, 3)
-        start = _view(cell_start, np.int64, nx * ny * nz + 1)
+        src = _view(x, np.float32, n * d).reshape(n, d)
+        c = _view(cell, np.int32, n)
+        cur = _view(cursor, np.int32, int(c.max()) + 1)
+        dst, o, cs = _view(pts, np.float32, n * d).reshape(n, d), _view(orig, np.int32, n), _view(cell_sorted, np.int32, n)
+        for i in self.rng.permutation(n):  # atomics in any order
+            slot = cur[c[i]]
+            cur[c[i]] += 1
+            dst[slot], o[slot], cs[slot] = src[i], i, c[i]
+        return 0
+
+    def sqt_radius_pairs(self, pts, d, orig, cell, cell_start, n, nx, ny, nz, r2, with_self, counts, long_rows,
+                         tier_sizes, warp_lim, indptr, out_idx, out_dist, fill, stream):
+        self.calls.append("fill" if fill else "count")
+        p = _view(pts, np.float32, n * d).reshape(n, d)
+        o, c = _view(orig, np.int32, n), _view(cell, np.int32, n)
+        start = _view(cell_start, np.int32, nx * ny * nz + 2)
         found = []
-        for t in range(m):
-            cx, cy, cz = c[t]
+        for t in range(n):
             hits, dists = [], []
-            for z in range(max(cz - 1, 0), min(cz + 1, nz - 1) + 1):
-                for y in range(max(cy - 1, 0), min(cy + 1, ny - 1) + 1):
-                    # the three cells along x: one contiguous range of the sort
-                    base = (z * ny + y) * nx
-                    s = np.arange(start[base + max(cx - 1, 0)], start[base + min(cx + 1, nx - 1) + 1])
-                    s = s[s != t]
-                    d2 = np.zeros(len(s), np.float32)
-                    with np.errstate(invalid="ignore", over="ignore"):
-                        for a in range(d):
-                            diff = p[t, a] - p[s, a]
-                            d2 = diff * diff if a == 0 else d2 + diff * diff
-                        keep = d2 <= np.float32(r2)
-                    hits += o[s[keep]].tolist()
-                    dists += np.sqrt(d2[keep]).tolist()
+            if c[t] < nx * ny * nz:
+                cx, cy, cz = c[t] % nx, c[t] // nx % ny, c[t] // (nx * ny)
+                for z in range(max(cz - 1, 0), min(cz + 1, nz - 1) + 1):
+                    for y in range(max(cy - 1, 0), min(cy + 1, ny - 1) + 1):
+                        # the three cells along x: one contiguous range of the sort
+                        base = (z * ny + y) * nx
+                        s = np.arange(start[base + max(cx - 1, 0)], start[base + min(cx + 1, nx - 1) + 1])
+                        d2 = np.zeros(len(s), np.float32)
+                        with np.errstate(invalid="ignore", over="ignore"):
+                            for a in range(d):
+                                diff = p[t, a] - p[s, a]
+                                d2 = diff * diff if a == 0 else d2 + diff * diff
+                            keep = (d2 <= np.float32(r2)) & (s != t)
+                        if with_self:  # its own point, where the walk meets it
+                            keep |= s == t
+                            d2[s == t] = 0.0
+                        hits += o[s[keep]].tolist()
+                        dists += np.sqrt(d2[keep]).tolist()
+            elif with_self:
+                hits, dists = [o[t]], [np.float32(0.0)]
             found.append((o[t], hits, dists))
-        rows = int(o.max()) + 1
         if not fill:
-            view = _view(counts, np.int32, rows)
+            view, sizes, listed = _view(counts, np.int32, n), _view(tier_sizes, np.int32, 2), _view(long_rows, np.int32, n)
             for row, hits, _ in found:
                 view[row] = len(hits)
+                if len(hits) > warp_lim:
+                    listed[sizes[0]] = row
+                    sizes[0] += 1
+                    sizes[1] = max(sizes[1], len(hits))
             return 0
-        offsets = _view(indptr, np.int64, rows + 1)
-        total = max(int(offsets[row]) + len(hits) for row, hits, _ in found)
-        cols, dist = _view(out_idx, np.int32, total), _view(out_dist, np.float32, total)
+        offsets = _view(indptr, np.int64, n + 1)
+        cols, dist = _view(out_idx, np.int32, int(offsets[-1])), _view(out_dist, np.float32, int(offsets[-1]))
         for row, hits, dists in found:
             cols[offsets[row] : offsets[row] + len(hits)] = hits
             dist[offsets[row] : offsets[row] + len(hits)] = dists
         return 0
 
+    def sqt_radius_order(self, indptr, n, idx, dist, tmp_idx, tmp_dist, long_rows, n_long, longest, warp_lim,
+                         block_lim, stream):
+        self.calls.append("order")
+        offsets = _view(indptr, np.int64, n + 1)
+        nnz = int(offsets[-1])
+        cols, dst = _view(idx, np.int32, nnz), _view(dist, np.float32, nnz)
+        listed = _view(long_rows, np.int32, n_long)
+        lens = np.diff(offsets)
+        assert np.all(lens[listed] > warp_lim) and len(set(listed.tolist())) == n_long
+        assert n_long == np.sum(lens > warp_lim) and longest == max(lens[listed], default=0)
+        self.tiers = {"warp": int(np.sum((lens >= 2) & (lens <= warp_lim))),
+                      "block": int(np.sum((lens[listed] <= block_lim))), "global": int(np.sum(lens[listed] > block_lim))}
 
+        def sort(c, v, lo, hi):
+            perm = np.argsort(c[lo:hi], kind="stable")
+            c[lo:hi], v[lo:hi] = c[lo:hi][perm], v[lo:hi][perm]
+
+        def rounds(length, chunk):
+            return int(np.ceil(np.log2(length / chunk))) if length > chunk else 0
+
+        for row in np.nonzero(lens <= warp_lim)[0]:
+            sort(cols, dst, offsets[row], offsets[row + 1])
+        if not n_long:
+            return 0
+        chunk = min(1 << int(np.ceil(np.log2(longest))), block_lim)
+        bufs = [(cols, dst), (_view(tmp_idx, np.int32, nnz if longest > block_lim else 0),
+                              _view(tmp_dist, np.float32, nnz if longest > block_lim else 0))]
+        at = {}  # each row's buffer: its chunks land where its own rounds end in idx/dist
+        for row in listed:
+            lo, hi = int(offsets[row]), int(offsets[row + 1])
+            at[row] = rounds(hi - lo, chunk) % 2
+            part = [(cols[a : min(a + chunk, hi)].copy(), dst[a : min(a + chunk, hi)].copy()) for a in range(lo, hi, chunk)]
+            for a, (c, v) in zip(range(lo, hi, chunk), part):
+                perm = np.argsort(c, kind="stable")
+                bufs[at[row]][0][a : a + len(c)], bufs[at[row]][1][a : a + len(c)] = c[perm], v[perm]
+        width = chunk
+        while width < longest:
+            for row in listed:
+                lo, hi = int(offsets[row]), int(offsets[row + 1])
+                if hi - lo <= width:
+                    continue
+                (s_c, s_v), (d_c, d_v) = bufs[at[row]], bufs[1 - at[row]]
+                for a in range(lo, hi, 2 * width):
+                    b, e = min(a + width, hi), min(a + 2 * width, hi)
+                    assert np.all(np.diff(s_c[a:b]) > 0) and np.all(np.diff(s_c[b:e]) > 0)  # merged runs are sorted
+                    perm = np.argsort(s_c[a:e], kind="stable")
+                    d_c[a:e], d_v[a:e] = s_c[a:e][perm], s_v[a:e][perm]
+                at[row] = 1 - at[row]
+            width *= 2
+        assert not any(at.values())  # every row ends in idx/dist
+        return 0
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels emulated"])
 @pytest.mark.parametrize("name,c,radius", _grid_cases(), ids=[case[0] for case in _grid_cases()])
-def test_kernel_path_around_an_emulated_kernel(name, c, radius, monkeypatch):
-    """The CUDA path's glue (grid, count pass, scan, fill pass, row order)
-    on the CPU, with the kernel's C interface emulated: the plain CSR."""
-    emulated = _EmulatedK6()
+def test_cell_grid_invariants(name, c, radius, kernels, monkeypatch):
+    """The grid holds every point once, in cell order: those with finite
+    gridded coordinates (every point if ``r2`` is inf) in at most 2m cells,
+    the others in the extra cell after them; ``candidate_pairs`` counts
+    each gridded point against its 3^3 cells' points. The same for the
+    plain binning and for K6's kernels (emulated), whose counting sort
+    leaves each cell's points in any order."""
+    r2 = float(radius_threshold(radius))
+    x = torch.from_numpy(c)
+    if kernels:
+        monkeypatch.setattr(_cuda, "library", lambda: _EmulatedK6())
+        monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
+        monkeypatch.setitem(_cuda.launches, "radius_pairs", 0)
+        stats: dict = {}
+        grid = trad._cell_grid_k6(x, r2, stats)
+        assert stats.get("host_syncs", 0) == (0 if trad._one_cell(r2, min(c.shape[1], 3)) else 1)
+    else:
+        grid = cell_grid(x, r2)
+    kept = np.ones(len(c), bool) if np.isinf(r2) else np.isfinite(c[:, : min(c.shape[1], 3)]).all(axis=1)
+    order = grid.order.numpy()
+    np.testing.assert_array_equal(np.sort(order), np.arange(len(c)))
+    np.testing.assert_array_equal(grid.pts.numpy(), c[order])
+    n_cells = int(np.prod(grid.dims))
+    assert grid.points == kept.sum() and n_cells <= max(2 * kept.sum(), 1)
+    start = grid.cell_start.numpy()
+    assert start.dtype == np.int32 and len(start) == n_cells + 2 and np.all(np.diff(start) >= 0)
+    assert start[-1] == len(c) and start[-2] == kept.sum()
+    cell = grid.cell.numpy()
+    np.testing.assert_array_equal(cell, np.repeat(np.arange(n_cells + 1), np.diff(start)))
+    np.testing.assert_array_equal(kept[order], cell < n_cells)
+    coords = np.stack([cell % grid.dims[0], cell // grid.dims[0] % grid.dims[1], cell // (grid.dims[0] * grid.dims[1])],
+                      axis=1)[: grid.points]
+    near = np.abs(coords[:, None, :] - coords[None, :, :]).max(axis=2) <= 1
+    assert candidate_pairs(grid) == int(near.sum()) - len(coords)
+    if kernels:
+        want = cell_grid(x, r2)
+        assert (grid.dims, grid.side) == (want.dims, want.side)
+        assert torch.equal(grid.cell_start, want.cell_start)
+        np.testing.assert_array_equal(np.sort(order[cell == 0]), np.sort(want.order.numpy()[want.cell.numpy() == 0]))
+
+
+# the tiers' limits lowered so every row-order tier runs at these sizes
+LOW_TIERS = (4, 8)
+
+
+@pytest.mark.parametrize("with_self", [False, True], ids=["self excluded", "with self"])
+@pytest.mark.parametrize("tiers", ["default tiers", "lowered tiers"])
+@pytest.mark.parametrize("name,c,radius", _grid_cases(), ids=[case[0] for case in _grid_cases()])
+def test_kernel_path_around_an_emulated_kernel(name, c, radius, tiers, with_self, monkeypatch):
+    """The CUDA path's glue (grid bounds and counting sort, count pass,
+    scan, fill pass, the row order's tiers) on the CPU, with the kernels' C
+    interface emulated: the plain CSR, bitwise, in two reads of the card."""
+    emulated = _EmulatedK6(seed=len(c))
     monkeypatch.setattr(_cuda, "library", lambda: emulated)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
     monkeypatch.setitem(_cuda.launches, "radius_pairs", 0)
+    if tiers == "lowered tiers":
+        monkeypatch.setattr(trad, "_ORDER_TIERS", LOW_TIERS)
     x = torch.from_numpy(c)
-    got = trad._radius_k6(x, float(radius_threshold(radius)), None)
-    for g, w in zip(got, radius_pairs(x, radius)):
+    r2 = float(radius_threshold(radius))
+    got = trad._radius_k6(x, r2, None, with_self)
+    for g, w in zip(got, radius_pairs(x, radius, with_self=with_self)):
         assert g.dtype == w.dtype and torch.equal(g, w), name
-    assert emulated.launches == [0, 1] and _cuda.launches["radius_pairs"] == 2
+    grid_calls = ["bin", "scatter"] if trad._one_cell(r2, min(c.shape[1], 3)) else ["bounds", "bin", "scatter"]
+    assert emulated.calls == grid_calls + ["count", "fill", "order"]
+    assert _cuda.launches["radius_pairs"] == len(emulated.calls)
+    lens = np.diff(got[0].numpy())
+    warp_lim, block_lim = trad._ORDER_TIERS
+    assert emulated.tiers == {"warp": int(np.sum((lens >= 2) & (lens <= warp_lim))),
+                              "block": int(np.sum((lens > warp_lim) & (lens <= block_lim))),
+                              "global": int(np.sum(lens > block_lim))}
+
+
+def test_lowered_tiers_reach_every_tier():
+    """At the lowered limits the fixtures send rows to all three tiers, and
+    through more than one merge round."""
+    cases = {case[0]: case[1:] for case in _grid_cases()}
+    pts, radius = cases["radius above the extent"]
+    lens = np.diff(radius_pairs(torch.from_numpy(pts), radius)[0].numpy())
+    assert lens.max() > 4 * LOW_TIERS[1]
+    pts, radius = cases["2d"]
+    lens = np.diff(radius_pairs(torch.from_numpy(pts), radius)[0].numpy())
+    assert all(np.any(sel) for sel in ((lens >= 2) & (lens <= 4), (lens > 4) & (lens <= 8), lens > 8))
+
+
+def test_tier_limits_are_checked_by_the_kernel_interface():
+    """The wrapper's own tier limits are within what ``sqt_radius_order``
+    takes: a warp's 64 entries, a power-of-two block of at most 16,384."""
+    warp_lim, block_lim = trad._ORDER_TIERS
+    assert 1 <= warp_lim <= 64 <= block_lim <= 16384 and block_lim & (block_lim - 1) == 0
+    assert 4 <= LOW_TIERS[1] and LOW_TIERS[1] & (LOW_TIERS[1] - 1) == 0
 
 
 def test_grid_side_and_cap():
@@ -381,9 +579,13 @@ def test_grid_side_and_cap():
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_card):
     for name, c, radius in _grid_cases():
-        want = radius_pairs(torch.from_numpy(c), radius)
-        stats: dict = {}
-        got = radius_pairs(torch.from_numpy(c).cuda(), radius, stats=stats)
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w), name
-        assert stats["pairs"] == int(want[0][-1])
+        for with_self in (False, True):
+            for tiers in (None, LOW_TIERS):
+                want = radius_pairs(torch.from_numpy(c), radius, with_self=with_self)
+                stats: dict = {}
+                got = radius_pairs(torch.from_numpy(c).cuda(), radius, with_self=with_self, stats=stats, _tiers=tiers)
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w), name
+                assert stats["host_syncs"] <= 2
+                if "pairs" in stats:
+                    assert stats["pairs"] == int(want[0][-1])

@@ -23,6 +23,20 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       permutations (K5a on each of the graph's degree buckets, K4
       positions, K5b); then ``spatial_neighbors_delaunay`` (host qhull) ->
       ``nhood_enrichment`` (K4, K3);
+   d. on the same 1M cells, 16 cell types drawn from a seed, the largest
+      holding 20% (200k cells, so its L curve takes the binned sweep) and
+      the others ~53k each: ``ripley`` L (K7 on the dense clusters and the
+      envelope, K1 with one class on the largest), G and F (K8; the
+      envelope in one launch), each at its defaults (100 simulations of
+      1000 points, 50 steps, 2 neighbours) under the CPU profiler, whose
+      ``[host]`` line splits the call (hull, observed curves, point-process
+      sampling, envelope, its ECDF rows, p-values); ``interaction_matrix``
+      on part a's kNN graph (counts: K3; weighted; normalised) and
+      ``centrality_scores`` (all three, with its ``[host]`` split; host
+      scipy, on the ~100k cells of a corner of the section and their kNN
+      edges, since its closeness sweep took ~17 s at 1M cells on the
+      8-core host of one H100); each
+      call's launches are read and the kernels it must run required;
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -72,10 +86,21 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    block tier, and the global merge with lowered limits), a cluster of
    20,000 coincident points (the global merge at the natural limits), NaN
    and inf rows (also at an infinite radius), and a radius that enlarges
-   the grid's side).
+   the grid's side); on part d's own inputs, K8 on one G-mode cluster
+   (its ~947k queries cut to 50,000, with ``torch.cdist`` + ``torch.topk``
+   as the yardstick, then all of them), on the F envelope (100 clouds of
+   1000 points, 1000 queries) and on the G envelope (the same clouds, all
+   1M cells as queries); K7 on one dense cluster and on
+   the L envelope (and, in the branches part d does not take, K7 in 3D and
+   5D and with one, no, and no staged shared histogram; K8 with ties, in
+   1D, 3D and 4D, and above its register list); K1's one-class call on the
+   largest cluster's plan (a
+   ``[diag]`` line with its planner's host time, items and tile pairs; the
+   plain version not warmed), and that cluster's L counts by the dense K7
+   against the binned K1, which must be equal.
    Integer kernels
-   (K1-K4), K6's CSR (offsets, columns and distances) and K5a's ``u = W x``
-   must agree bitwise; the float sums of K5a's
+   (K1-K4, K7), K6's CSR (offsets, columns and distances), K8's indices
+   and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
    relative tolerance would mean nothing);
@@ -91,7 +116,9 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    ``library_key`` and two threads, Delaunay, the grid with two rings and the
    facade's grid mode on a hexagonal lattice) give bitwise ``obsp`` and
    ``uns``, and nhood and autocorrelation on the radius graph agree as
-   above.
+   above; and at 3000 cells ``ripley`` L, G and F (tables and p-values),
+   ``interaction_matrix`` (counts and normalised rows bitwise, weighted
+   sums to rtol 1e-12) and ``centrality_scores`` (bitwise).
 
 Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -123,6 +150,11 @@ K6_BRANCH_CELLS = 100_000  # K6's branches; the plain version tests n^2 pairs
 K6_CLUSTER = 20_000  # coincident points whose rows pass K6's block tier (16,384 entries): the global merge
 K6_LOW_TIERS = (8, 16)  # K6's row-order tiers lowered: rows of ~20 through the block tier and the global merge
 K6_STEPS = ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms")  # K6's device steps, as its stats name them
+RIPLEY_CLS = 16  # part d's cell types
+RIPLEY_BIG_SHARE = 0.2  # the largest type's share: 200k cells, so its L curve takes the binned sweep (K1)
+RIPLEY_SIMS, RIPLEY_OBS, RIPLEY_STEPS, RIPLEY_NEIGH = 100, 1000, 50, 2  # `ripley`'s defaults
+K8_LIBRARY_QUERIES = 50_000  # K8 beside torch.cdist + torch.topk: the queries cut to fit the (m, n) distances
+CENTRALITY_CELLS = 100_000  # centrality_scores' host closeness sweep runs on a corner of this many cells
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; 32-bit integer ops are counted at it too
@@ -1493,6 +1525,303 @@ def graph_reference_check(n: int) -> None:
           f"1e-3 ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _skewed_labels(n: int, seed: int) -> np.ndarray:
+    """Part d's cell types: the largest holds ``RIPLEY_BIG_SHARE`` of the
+    cells, the other ``RIPLEY_CLS - 1`` share the rest evenly, drawn from a
+    seed."""
+    p = np.full(RIPLEY_CLS, (1.0 - RIPLEY_BIG_SHARE) / (RIPLEY_CLS - 1))
+    p[0] = RIPLEY_BIG_SHARE
+    return np.random.default_rng(seed).choice(RIPLEY_CLS, size=n, p=p).astype(np.int32)
+
+
+def _profiled(fn, prefix: str) -> tuple[object, float, dict[str, float]]:
+    """``fn()`` under the CPU profiler: its result, its wall seconds and the
+    host milliseconds of each of its ``prefix.*`` ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, wall = _sync_time(fn)
+    steps = {e.key.split(".", 1)[1]: e.cpu_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith(prefix + ".")}
+    if not steps:
+        raise AssertionError(f"the profile holds none of {prefix}'s ranges")
+    return out, wall, steps
+
+
+def _check_ripley(res: dict, mode: str, n_cls: int) -> None:
+    """What a ``ripley`` call returned: the tables' shapes, finite curves that
+    start at 0 and never fall (an ECDF ends at 1), p-values in [0, 0.5] on the
+    grid k / (S + 1)."""
+    obs, sims = res[f"{mode}_stat"], res["sims_stat"]
+    if obs.stats.shape != (RIPLEY_STEPS * n_cls,) or sims.stats.shape != (RIPLEY_STEPS * RIPLEY_SIMS,):
+        raise AssertionError(f"ripley {mode}: wrong table shapes")
+    if res["pvalues"].shape != (n_cls, RIPLEY_STEPS) or res["bins"].shape != (RIPLEY_STEPS,):
+        raise AssertionError(f"ripley {mode}: wrong p-value or bin shapes")
+    for table in (obs, sims):
+        curves = table.stats.reshape(-1, RIPLEY_STEPS)
+        if not (np.isfinite(curves).all() and (curves[:, 0] == 0).all() and (np.diff(curves, axis=1) >= 0).all()):
+            raise AssertionError(f"ripley {mode}: curves not finite, not starting at 0 or falling")
+        if mode != "L" and not np.all(curves[:, -1] == 1.0):
+            raise AssertionError(f"ripley {mode}: an ECDF does not end at 1")
+    k = res["pvalues"] * (RIPLEY_SIMS + 1)
+    if not (np.all(k >= 0) and np.all(k <= (RIPLEY_SIMS + 1) / 2) and np.allclose(k, np.round(k), rtol=0, atol=1e-9)):
+        raise AssertionError(f"ripley {mode}: p-values not in [0, 0.5] on the grid k / (S + 1)")
+
+
+def ripley_path(adata: StandIn) -> tuple[dict, dict, dict]:
+    """Part d: on the main path's 1M cells with skewed cell types (the largest
+    20%, so its L curve takes the binned sweep), ``ripley`` L, G and F at
+    their defaults, ``interaction_matrix`` on part a's kNN graph (counts,
+    weights, normalised) and ``centrality_scores`` (all three), each with
+    the counters reset before it and read after it, its wall and the
+    ``[host]`` split of its profiler ranges; then checks of what they
+    returned. ``centrality_scores`` runs on the ~100k cells of a corner of
+    the section. Returns the results, the launches and the seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+
+    n = adata.obsm["spatial"].shape[0]
+    codes = _skewed_labels(n, seed=11)
+    adata.obs["celltype"] = _Categorical(codes, RIPLEY_CLS)
+    results: dict = {}
+    launches: dict[str, dict] = {}
+    secs: dict[str, float] = {}
+    defaults = dict(n_simulations=RIPLEY_SIMS, n_observations=RIPLEY_OBS, n_steps=RIPLEY_STEPS, n_neigh=RIPLEY_NEIGH)
+    for mode in ("L", "G", "F"):
+        _cuda.reset_launches()
+        res, wall, steps = _profiled(lambda: sqt.gr.ripley(adata, "celltype", mode=mode, seed=0, copy=True,
+                                                            **defaults), "ripley")
+        launches[f"ripley_{mode}"] = dict(_cuda.launches)
+        secs[f"ripley_{mode}_s"] = wall
+        print(f"[host] ripley {mode} n={n}: wall={1e3 * wall:.1f}ms "
+              + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()), flush=True)
+        _check_ripley(res, mode, RIPLEY_CLS)
+        results[mode] = res
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    counts = sqt.gr.interaction_matrix(adata, "celltype", copy=True)
+    secs["interaction_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weighted = sqt.gr.interaction_matrix(adata, "celltype", weights=True, copy=True)
+    secs["interaction_weighted_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    normed = sqt.gr.interaction_matrix(adata, "celltype", normalized=True, copy=True)
+    secs["interaction_normalized_s"] = time.perf_counter() - t0
+    launches["interaction_matrix"] = dict(_cuda.launches)
+    # the kNN graph's connectivities are 1.0: the weighted sums are the counts
+    if counts.shape != (RIPLEY_CLS, RIPLEY_CLS) or int(counts.sum()) != n * N_NEIGHS:
+        raise AssertionError("interaction_matrix: wrong shape or edge total")
+    if not np.array_equal(weighted, counts):
+        raise AssertionError("interaction_matrix: weighted sums of 1.0 differ from the counts")
+    if not np.allclose(normed.sum(axis=1), 1.0, rtol=0, atol=1e-12) or not np.array_equal(
+            normed, counts / counts.sum(axis=1, keepdims=True)):
+        raise AssertionError("interaction_matrix: normalised rows are not the counts over their sums")
+
+    # the closeness sweep (one multi-source dijkstra a type) took ~17 s at
+    # 1M cells on the 8-core host of one H100, so the group centralities
+    # run on the cells of a corner tenth of the section with their kNN
+    # edges among themselves
+    xy = np.asarray(adata.obsm["spatial"])
+    corner = np.all(xy < xy.max(axis=0) * np.sqrt(CENTRALITY_CELLS / n), axis=1)
+    sub = StandIn(xy[corner], codes[corner], RIPLEY_CLS)
+    sub.obs["celltype"] = sub.obs.pop("cluster")
+    sub.obsp["spatial_connectivities"] = adata.obsp["spatial_connectivities"][corner][:, corner]
+    _cuda.reset_launches()
+    cent, wall, steps = _profiled(lambda: sqt.gr.centrality_scores(sub, "celltype", copy=True),
+                                  "centrality_scores")
+    launches["centrality_scores"] = dict(_cuda.launches)
+    secs["centrality_s"] = wall
+    print(f"[host] centrality_scores n={int(corner.sum())} (a corner of the section): wall={1e3 * wall:.1f}ms "
+          + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()), flush=True)
+    if list(cent.columns) != ["degree_centrality", "average_clustering", "closeness_centrality"]:
+        raise AssertionError("centrality_scores: wrong columns")
+    for name, col in cent.columns.items():
+        if col.shape != (RIPLEY_CLS,) or not (np.isfinite(col).all() and (col >= 0).all() and (col <= 1).all()):
+            raise AssertionError(f"centrality_scores[{name!r}] not finite in [0, 1]")
+    results["centrality"] = cent
+    return results, launches, secs
+
+
+def _ripley_inputs(adata: StandIn) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, object]:
+    """Part d's own inputs, as ``ripley`` builds them: float64 coordinates,
+    cell types, the support, the envelope's clouds and the observed F
+    reference points (seed 0)."""
+    from scipy.spatial import ConvexHull
+
+    from squidpy_torch.ops.ripley import ppp_sample
+
+    coords = np.asarray(adata.obsm["spatial"], dtype=np.float64)
+    codes = np.asarray(adata.obs["celltype"].cat.codes)
+    hull = ConvexHull(coords)
+    support = np.linspace(0.0, (hull.volume / 2) ** 0.5, RIPLEY_STEPS)
+    obs_rng, *sim_rngs = (np.random.default_rng(s) for s in np.random.SeedSequence(0).spawn(RIPLEY_SIMS + 1))
+    ref = None
+    for _ in range(RIPLEY_CLS):  # F draws one reference set a cluster from the shared stream; the last is kept
+        ref = ppp_sample(hull, 1, RIPLEY_OBS, rng=obs_rng)
+    clouds = np.stack([ppp_sample(hull, 1, RIPLEY_OBS, rng=r) for r in sim_rngs])
+    return coords, codes, support, clouds, ref
+
+
+def check_ripley_pairs(name: str, pts: np.ndarray, support: np.ndarray) -> dict:
+    """K7 on point sets (S, n, 2) and Ripley's squared support, against the
+    plain version, bitwise."""
+    import torch
+
+    from squidpy_torch.ops.ripley import _ripley_pairs_plain, ripley_pairs
+
+    p = torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32)).cuda()
+    thr = torch.from_numpy((np.asarray(support, np.float64) ** 2).astype(np.float32)).cuda()
+    n_sets, n, dim = p.shape
+    pairs = n_sets * n * (n - 1) / 2
+    # every pair: 3d - 1 flops of d2 and one compare with the largest
+    # threshold; the points and thresholds read once, the (S, L) int64 written
+    bound = _bound(p.numel() * 4 + thr.numel() * 4 + n_sets * thr.numel() * 8, pairs * (3 * dim - 1 + 1))
+    return _compare(f"ripley_pairs {name} S={n_sets} n={n} d={dim} L={thr.numel()} pairs={pairs:.3e}",
+                    lambda: ripley_pairs(p, thr), lambda: _ripley_pairs_plain(p, thr), repeats=3, bound=bound)
+
+
+def check_cross_knn(name: str, queries: np.ndarray, data: np.ndarray, k: int, library: bool = False) -> dict:
+    """K8 on queries (m, 2) against point sets (S, n, 2), against the plain
+    version: indices and distances bitwise (held as one tensor); given
+    ``library``, ``torch.cdist`` + ``torch.topk`` as the yardstick (S = 1)."""
+    import torch
+
+    from squidpy_torch.ops.knn import _nearest_plain, nearest_points
+
+    q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32)).cuda()
+    x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32)).cuda()
+    x = x[None] if x.ndim == 2 else x
+    n_sets, n, dim = x.shape
+    m = q.shape[0]
+
+    def pack(out):  # distances and indices side by side, compared at once (int32 indices are exact in float64)
+        return torch.cat([out[0].to(torch.float64), out[1].to(torch.float64)], dim=-1)
+
+    lib = None
+    if library:
+        def lib():
+            return torch.topk(torch.cdist(q, x[0]), k, dim=1, largest=False, sorted=True)
+
+    pairs = n_sets * m * n
+    bound = _bound((q.numel() + x.numel()) * 4 + n_sets * m * k * 8, pairs * (3 * dim - 1 + 1))
+    return _compare(f"cross_knn {name} S={n_sets} m={m} n={n} k={k} pairs={pairs:.3e}",
+                    lambda: pack(nearest_points(q, x, k)), lambda: pack(_nearest_plain(q, x, k)), repeats=3,
+                    bound=bound, library=lib)
+
+
+def ripley_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
+    """Part d's kernels on its own inputs: K8 on one G-mode cluster (first
+    with the queries cut, so that ``torch.cdist`` + ``torch.topk`` fit beside
+    it, then on all of them), on the F and on the G envelope (all clouds and
+    queries); K7 on one dense cluster and on the L envelope; K1's
+    one-class call on the 200k cluster's plan (planner time, items, tile
+    pairs; the plain version not warmed), and the dense K7 against the
+    binned K1 on that cluster."""
+    from squidpy_torch.ops.pairbins import sorted_plan
+    from squidpy_torch.ops.ripley import pair_counts_cumulative
+
+    coords, codes, support, clouds, ref = _ripley_inputs(adata)
+    dense = coords[codes == 1]
+    others = coords[codes != 1]
+    checks = {"cross_knn": [], "ripley_pairs": [], "binned_pairs": []}
+    checks["cross_knn"].append(check_cross_knn("G cluster 1, queries cut", others[:K8_LIBRARY_QUERIES], dense,
+                                               RIPLEY_NEIGH, library=True))
+    checks["cross_knn"].append(check_cross_knn("G cluster 1, all queries", others, dense, RIPLEY_NEIGH))
+    checks["cross_knn"].append(check_cross_knn("F envelope", ref, clouds, 1))
+    checks["cross_knn"].append(check_cross_knn("G envelope", coords, clouds, 1))
+    checks["ripley_pairs"].append(check_ripley_pairs("L cluster 1", dense[None], support))
+    checks["ripley_pairs"].append(check_ripley_pairs("L envelope", clouds, support))
+
+    big = coords[codes == 0]
+    t0 = time.perf_counter()
+    thr = (support.astype(np.float64) ** 2).astype(np.float32)
+    _, _, plan = sorted_plan(big.astype(np.float32), np.zeros(len(big), np.int32), thr, 1)
+    plan_s = time.perf_counter() - t0
+    print(f"[diag] binned_pairs ripley L largest cluster: planner {plan_s:.3f} s, n={plan.n} tile={plan.tile} "
+          f"items={plan.n_items} tile_pairs={plan.n_pairs_total}", flush=True)
+    checks["binned_pairs"].append(check_binned_pairs("ripley L, largest cluster", big.astype(np.float32),
+                                                     np.zeros(len(big), np.int32), thr, 1, plain_warm=False))
+    dense_k7, t_dense = _sync_time(lambda: pair_counts_cumulative(big, support, method="dense"))
+    binned_k1, t_binned = _sync_time(lambda: pair_counts_cumulative(big, support, method="binned"))
+    if not np.array_equal(dense_k7, binned_k1):
+        raise AssertionError("ripley L: the dense K7 and the binned K1 count the largest cluster differently")
+    print(f"[diag] ripley L largest cluster n={len(big)}: dense (K7) {t_dense:.4f} s, binned (planner + K1) {t_binned:.4f} s, "
+          f"equal counts (pairs at the last bin {dense_k7[-1]:.0f})", flush=True)
+    return checks
+
+
+def ripley_branch_checks() -> dict[str, list[dict]]:
+    """K7 and K8 in the branches part d does not take: K7 in 3D, at a runtime
+    dimension (5), with one shared histogram (8000 thresholds), with global
+    atomics (30,000) and with the thresholds read from global memory
+    (60,000); K8 with coincident points (ties), in 3D, at a runtime
+    dimension (4 and 1), and above its 32-key register list (k = 40, and k
+    = n = 64)."""
+    rng = np.random.default_rng(14)
+    k7 = [("3D", (2, 1500, 3), 9), ("5D", (1, 700, 5), 40), ("one shared histogram", (1, 1025, 2), 8000),
+          ("global atomics", (1, 1025, 2), 30_000), ("thresholds in global memory", (1, 600, 2), 60_000)]
+    checks = {"ripley_pairs": [check_ripley_pairs(name, rng.uniform(0, 100, shape), np.linspace(0, 80, n_thr))
+                               for name, shape, n_thr in k7]}
+    k8 = [("ties", 300, (1, 250, 3), 7), ("4D", 300, (1, 500, 4), 3), ("1D", 1000, (1, 33, 1), 33),
+          ("global list, ties", 200, (2, 150, 2), 40), ("global list, k = n", 130, (1, 32, 2), 64)]
+    checks["cross_knn"] = []
+    for name, m, (n_sets, half, dim), k in k8:
+        data = rng.uniform(0, 100, (n_sets, half, dim))
+        if "ties" in name or "k = n" in name:
+            data = np.repeat(data, 2, axis=1)  # every point twice
+        checks["cross_knn"].append(check_cross_knn(name, rng.uniform(0, 100, (m, dim)), data, k))
+    return checks
+
+
+def ripley_reference_check(n: int) -> None:
+    """Part d's public calls on the card and on the CPU (plain torch) must
+    agree: ``ripley`` L, G and F (bins, tables and p-values bitwise),
+    ``interaction_matrix`` (counts and normalised rows bitwise, weighted sums
+    within 1e-12 of their terms) and ``centrality_scores`` (bitwise)."""
+    import squidpy_torch as sqt
+
+    t0 = time.perf_counter()
+    graph = None
+    out = {}
+    for device in ("cuda", "cpu"):
+        with sqt.set_device(device):
+            adata = _dataset(n, seed=12)
+            adata.obs["celltype"] = _Categorical(_skewed_labels(n, seed=13), RIPLEY_CLS)
+            if graph is None:
+                sqt.gr.spatial_neighbors_knn(adata, n_neighs=N_NEIGHS)
+                graph = adata.obsp["spatial_connectivities"]
+            adata.obsp["spatial_connectivities"] = graph
+            w = graph.copy()
+            w.data = np.random.default_rng(0).uniform(0.5, 2.0, w.nnz)
+            adata.obsp["w_connectivities"] = w
+            res = {mode: sqt.gr.ripley(adata, "celltype", mode=mode, seed=1, n_simulations=20,
+                                       n_observations=300, copy=True) for mode in ("L", "G", "F")}
+            res["counts"] = sqt.gr.interaction_matrix(adata, "celltype", copy=True)
+            res["normalized"] = sqt.gr.interaction_matrix(adata, "celltype", normalized=True, copy=True)
+            res["weighted"] = sqt.gr.interaction_matrix(adata, "celltype", connectivity_key="w", weights=True,
+                                                        copy=True)
+            res["centrality"] = sqt.gr.centrality_scores(adata, "celltype", copy=True)
+            out[device] = res
+    gpu, cpu = out["cuda"], out["cpu"]
+    for mode in ("L", "G", "F"):
+        for key in (f"{mode}_stat", "sims_stat"):
+            for field in ("bins", "values", "categories", "stats"):
+                np.testing.assert_array_equal(getattr(gpu[mode][key], field), getattr(cpu[mode][key], field),
+                                              err_msg=f"ripley {mode} {key}.{field}")
+        for key in ("bins", "pvalues"):
+            np.testing.assert_array_equal(gpu[mode][key], cpu[mode][key], err_msg=f"ripley {mode} {key}")
+    for key in ("counts", "normalized"):
+        np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=f"interaction_matrix {key}")
+    np.testing.assert_allclose(gpu["weighted"], cpu["weighted"], rtol=1e-12, atol=0)  # positive weights
+    np.testing.assert_array_equal(gpu["centrality"].index, cpu["centrality"].index)
+    for name in cpu["centrality"].columns:
+        np.testing.assert_array_equal(gpu["centrality"].columns[name], cpu["centrality"].columns[name])
+    print(f"[reference] n={n} ripley L/G/F, interaction_matrix, centrality_scores: card and CPU agree (ripley "
+          f"tables and p-values, counts, normalised rows and centralities bitwise; weighted sums rtol 1e-12) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1562,6 +1891,21 @@ def main() -> int:
     finalize_split(adata)
     phases["finalize_split"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    _, launches_calls, secs_d = ripley_path(adata)
+    print(f"[main path d] n={N_CELLS} types={RIPLEY_CLS} sims={RIPLEY_SIMS} obs={RIPLEY_OBS} steps={RIPLEY_STEPS} "
+          + " ".join(f"{k}={v:.4f}" for k, v in secs_d.items()), flush=True)
+    launches_d = {k: sum(c[k] for c in launches_calls.values()) for k in launches}
+    for call, counts in launches_calls.items():
+        print(f"[launches d] {call}: {counts}", flush=True)
+    wanted = {"ripley_L": ("binned_pairs", "ripley_pairs"), "ripley_G": ("cross_knn",), "ripley_F": ("cross_knn",),
+              "interaction_matrix": ("pair_counts",)}
+    missing = [(call, k) for call, names in wanted.items() for k in names if launches_calls[call][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the main path's fourth part: {missing}")
+    launches = {k: launches[k] + launches_d[k] for k in launches}
+    phases["main_path_d"] = time.perf_counter() - t_phase
+
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take
     t_phase = time.perf_counter()
@@ -1570,6 +1914,8 @@ def main() -> int:
     for name, extra in new_graph_kernel_checks(adata).items():
         checks[name] += extra
     checks["radius_pairs"] = radius_kernel_checks(adata)
+    for name, extra in ripley_kernel_checks(adata).items():
+        checks[name] = checks.get(name, []) + extra
     del adata, results
     phases["kernels_main_path_inputs"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -1581,6 +1927,8 @@ def main() -> int:
                                random_binned_pairs(20_000, 2, 96), random_binned_pairs(20_000, 2, 200)]
     for name, extra in branch_checks().items():
         checks[name] += extra
+    for name, extra in ripley_branch_checks().items():
+        checks[name] += extra
     phases["kernels_other_shapes"] = time.perf_counter() - t_phase
 
     # card against CPU through the public API: small (brute-force kNN, sort
@@ -1589,6 +1937,7 @@ def main() -> int:
     reference_check(3000, 20)
     reference_check(100_000, np.linspace(0.0, 5.0 * secs["mean_knn_distance"], 9))
     graph_reference_check(3000)
+    ripley_reference_check(3000)
     phases["card_vs_cpu"] = time.perf_counter() - t_phase
     print("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()), flush=True)
 

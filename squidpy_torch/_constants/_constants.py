@@ -26,6 +26,20 @@ class SpatialAutocorr(ModeEnum):
     GEARY = "geary"
 
 
+@unique
+class Centrality(ModeEnum):
+    DEGREE = "degree_centrality"
+    CLUSTERING = "average_clustering"
+    CLOSENESS = "closeness_centrality"
+
+
+@unique
+class RipleyStat(ModeEnum):
+    F = "F"
+    G = "G"
+    L = "L"
+
+
 # From this many cells on, the permutation null of ``spatial_autocorr`` takes
 # its operands (z, u = W z and the row sums of W) in bf16, as the JAX package
 # does with x64 off (``squidpy_tpu/gr/_ppatterns.py:253``, ``gather_bf16``).

@@ -22,8 +22,20 @@ class Key:
             return f"{cluster}_nhood_enrichment"
 
         @classmethod
+        def centrality_scores(cls, cluster: str) -> str:
+            return f"{cluster}_centrality_scores"
+
+        @classmethod
+        def interaction_matrix(cls, cluster: str) -> str:
+            return f"{cluster}_interactions"
+
+        @classmethod
         def co_occurrence(cls, cluster: str) -> str:
             return f"{cluster}_co_occurrence"
+
+        @classmethod
+        def ripley(cls, cluster: str, mode: str) -> str:
+            return f"{cluster}_ripley_{mode}"
 
     class obsp:
         @staticmethod

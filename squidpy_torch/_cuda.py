@@ -48,6 +48,8 @@ KERNELS = {
     "ell_autocorr": ("squidpy_torch/csrc/ell_autocorr.cu", "squidpy_tpu/ops/autocorr.py:59"),
     "perm_autocorr": ("squidpy_torch/csrc/perm_autocorr.cu", "squidpy_tpu/ops/autocorr.py:272"),
     "radius_pairs": ("squidpy_torch/csrc/radius_pairs.cu", "squidpy_tpu/ops/knn.py:408"),
+    "ripley_pairs": ("squidpy_torch/csrc/ripley_pairs.cu", "squidpy_tpu/ops/ripley.py:30"),
+    "cross_knn": ("squidpy_torch/csrc/cross_knn.cu", "squidpy_tpu/ops/knn.py:364"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -74,6 +76,8 @@ _SIGNATURES = {
     "sqt_radius_pairs": [_P, _I, _P, _P, _P, ctypes.c_int64, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P,
                          _P, _I, _P],
     "sqt_radius_order": [_P, ctypes.c_int64, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P],
+    "sqt_ripley_pairs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sqt_cross_knn": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

@@ -7,5 +7,8 @@
 - :mod:`squidpy_torch.ops.autocorr` — K5a, ELL autocorrelation sums (``csrc/ell_autocorr.cu``), and
   K5b, permuted Moran/Geary numerators (``csrc/perm_autocorr.cu``);
 - :mod:`squidpy_torch.ops.radius` — K6, the radius search (``csrc/radius_pairs.cu``), behind
-  :func:`squidpy_torch.ops.knn.radius_neighbors` and :func:`squidpy_torch.ops.knn.radius_graph`.
+  :func:`squidpy_torch.ops.knn.radius_neighbors` and :func:`squidpy_torch.ops.knn.radius_graph`;
+- :mod:`squidpy_torch.ops.ripley` — K7, Ripley's cumulative pair counts (``csrc/ripley_pairs.cu``);
+- :mod:`squidpy_torch.ops.knn` — K8, the cross nearest-neighbour search (``csrc/cross_knn.cu``),
+  :func:`squidpy_torch.ops.knn.nearest_points`.
 """

@@ -182,11 +182,24 @@ def k3_packed_resident(label_dtype: torch.dtype = torch.uint8) -> int:
     return per_sm.value
 
 
-def cluster_pair_counts(indices: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor, n_cls: int) -> torch.Tensor:
-    """Directed cluster-pair edge counts ``(C, C)`` int32: ``counts[a, b]`` =
-    stored edges ``i -> j`` with ``labels[i] = a`` and ``labels[j] = b``."""
-    col = labels.to(torch.int32).reshape(-1, 1).contiguous()
-    return pair_counts_cols(indices, mask, col, col, n_cls)[0]
+def cluster_pair_counts(
+    indices: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor, n_cls: int, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Directed cluster-pair edge counts ``(C, C)``: ``counts[a, b]`` = stored
+    edges ``i -> j`` with ``labels[i] = a`` and ``labels[j] = b``, exact
+    int32 through K3; or, given the ELL ``weights``, their total weight in
+    float64 (plain torch: one ``index_add_``, float64 atomics on the card,
+    so the order of the sum varies from run to run)."""
+    if weights is None:
+        col = labels.to(torch.int32).reshape(-1, 1).contiguous()
+        return pair_counts_cols(indices, mask, col, col, n_cls)[0]
+    lab = labels.to(torch.int64)
+    src = lab[:, None].expand(indices.shape)
+    nbr = lab[indices.to(torch.int64)]
+    ok = mask & (src >= 0) & (src < n_cls) & (nbr >= 0) & (nbr < n_cls)
+    out = torch.zeros(n_cls * n_cls, dtype=torch.float64, device=indices.device)
+    out.index_add_(0, (src * n_cls + nbr)[ok], weights.to(torch.float64)[ok])
+    return out.view(n_cls, n_cls)
 
 
 def permuted_pair_counts_cols(

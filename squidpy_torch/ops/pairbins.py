@@ -22,6 +22,7 @@ from squidpy_torch.ops.binned_kernel import binned_pair_counts
 __all__ = [
     "BinnedPairPlan",
     "binned_cooccur_counts",
+    "binned_ordered_pair_counts",
     "morton_argsort",
     "plan_binned_pairs",
     "sorted_plan",
@@ -326,3 +327,19 @@ def binned_cooccur_counts(
     upper = upper + plan.full_cum
     ordered = upper + np.swapaxes(upper, 1, 2)  # (L, C, C)
     return np.transpose(ordered, (1, 2, 0))
+
+
+def binned_ordered_pair_counts(
+    points: np.ndarray,
+    support: np.ndarray,
+    *,
+    tile: int | None = None,
+    gsize: int = 8,
+) -> np.ndarray:
+    """#ordered pairs (i != j) with ``d <= support[r]``, Ripley L's pair
+    quantity, float64 ``(L,)``: the class-free (``C = 1``) binned sweep, K1
+    on the card."""
+    points = np.ascontiguousarray(points, dtype=np.float32)
+    thresholds = (np.asarray(support, dtype=np.float64) ** 2).astype(np.float32)
+    counts = binned_cooccur_counts(points, np.zeros(points.shape[0], np.int32), thresholds, 1, tile=tile, gsize=gsize)
+    return counts[0, 0, :].astype(np.float64)

@@ -67,6 +67,13 @@ _SLICE = textwrap.dedent(
         sqt.gr.spatial_neighbors(adata, delaunay=True, key_added="facade")
     assert adata.obsp["radius_connectivities"].nnz > 0 and adata.uns["delaunay_neighbors"]["params"]["coord_type"] == "generic"
     assert 0 < adata.obsp["mask_spatial_connectivities"].nnz < adata.obsp["spatial_connectivities"].nnz
+    for mode in ("F", "G", "L"):
+        sqt.gr.ripley(adata, "cl", mode=mode, n_simulations=5, n_observations=50, n_steps=10, seed=0)
+        assert adata.uns[f"cl_ripley_{mode}"]["pvalues"].shape == (5, 10)
+    sqt.gr.interaction_matrix(adata, "cl", weights=True)
+    sqt.gr.centrality_scores(adata, "cl")
+    assert adata.uns["cl_interactions"].shape == (5, 5)
+    assert list(adata.uns["cl_centrality_scores"].index) == [str(i) for i in range(5)]
     leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu") if sys.modules.get(m) is not None]
     assert not leaked, leaked
     print("SLICE OK")

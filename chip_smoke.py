@@ -88,12 +88,23 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    and inf rows (also at an infinite radius), and a radius that enlarges
    the grid's side); on part d's own inputs, K8 on one G-mode cluster
    (its ~947k queries cut to 50,000, with ``torch.cdist`` + ``torch.topk``
-   as the yardstick, then all of them), on the F envelope (100 clouds of
-   1000 points, 1000 queries) and on the G envelope (the same clouds, all
-   1M cells as queries); K7 on one dense cluster and on
+   as the yardstick, then all of them), on the largest cluster against its
+   ~800k queries, on one F-mode observed call (1000 reference points), on
+   the F envelope (100 clouds of 1000 points, 1000 queries) and on the G
+   envelope (the same clouds, all 1M cells as queries), each with a
+   ``[diag] cross_knn`` line (the route ``nearest_points`` takes and both
+   routes' times, the grid's side and cells, tests and rings a query,
+   queries that scanned every point, the grid's, the queries' sort's and
+   the search's device time, and the bound from the tests beside the
+   brute-force bound of every pair), and the other route held bitwise
+   against the one taken; K7 on one dense cluster and on
    the L envelope (and, in the branches part d does not take, K7 in 3D and
    5D and with one, no, and no staged shared histogram; K8 with ties, in
-   1D, 3D and 4D, and above its register list); K1's one-class call on the
+   1D, 3D and 4D, and above its register list, and its grid search forced
+   on inputs built to break it: ties across cell boundaries, also with no
+   ring-bound margin, coincident points, queries outside the box, far
+   clusters, NaN and infinite coordinates, overflowing d2, one point, k = n,
+   five sets); K1's one-class call on the
    largest cluster's plan (a
    ``[diag]`` line with its planner's host time, items and tile pairs; the
    plain version not warmed), and that cluster's L counts by the dense K7
@@ -243,6 +254,7 @@ def _compare(name: str, kernel, plain, repeats: int, bound: tuple[float, str], p
     if got.shape != want.shape:
         raise AssertionError(f"{name}: kernel shape {tuple(got.shape)} != plain {tuple(want.shape)}")
     diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    diff[(got == want) | (torch.isnan(got) & torch.isnan(want))] = 0.0  # inf, or NaN, on both sides agrees
     err = float(diff.max()) if got.numel() else 0.0
     line = f"[kernel] {name}: max_abs_err={err} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} " \
            f"bound_ms={bound[0]:.4f} ({bound[1]})"
@@ -1681,19 +1693,33 @@ def check_ripley_pairs(name: str, pts: np.ndarray, support: np.ndarray) -> dict:
                     lambda: ripley_pairs(p, thr), lambda: _ripley_pairs_plain(p, thr), repeats=3, bound=bound)
 
 
-def check_cross_knn(name: str, queries: np.ndarray, data: np.ndarray, k: int, library: bool = False) -> dict:
-    """K8 on queries (m, 2) against point sets (S, n, 2), against the plain
-    version: indices and distances bitwise (held as one tensor); given
-    ``library``, ``torch.cdist`` + ``torch.topk`` as the yardstick (S = 1)."""
+def check_cross_knn(name: str, queries: np.ndarray, data: np.ndarray, k: int, library: bool = False,
+                    route: str | None = None) -> dict:
+    """K8 on queries (m, d) against point sets (S, n, d): the route
+    ``nearest_points`` takes for the shape (``route`` forces ``grid`` or
+    ``scan``) against the plain version, indices and distances bitwise
+    (held as one tensor), and the other route bitwise against it; given
+    ``library``, ``torch.cdist`` + ``torch.topk`` as the yardstick (S = 1).
+    The bound counts what these inputs need: the queries, points and
+    outputs moved once, or the tests that the grid's exact stopping rule
+    makes at these inputs (the kernel's own count, from one call with
+    ``stats``), 3d operations each. Its ``[diag]`` line: the grid, the
+    tests and rings a query, the queries that scanned every point, the
+    device time of the grid, the queries' sort and the search, both routes'
+    times, and the brute-force bound (every pair) beside the new one."""
     import torch
 
-    from squidpy_torch.ops.knn import _nearest_plain, nearest_points
+    from squidpy_torch.ops.knn import _k8_route, _nearest_grid, _nearest_plain, _nearest_scan, nearest_points
 
     q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32)).cuda()
     x = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32)).cuda()
     x = x[None] if x.ndim == 2 else x
     n_sets, n, dim = x.shape
     m = q.shape[0]
+    pairs = n_sets * m * n
+    taken = route or _k8_route(n_sets, m, n, k)
+    routes = {"grid": _nearest_grid, "scan": _nearest_scan}
+    kernel = nearest_points if route is None else routes[route]
 
     def pack(out):  # distances and indices side by side, compared at once (int32 indices are exact in float64)
         return torch.cat([out[0].to(torch.float64), out[1].to(torch.float64)], dim=-1)
@@ -1703,11 +1729,31 @@ def check_cross_knn(name: str, queries: np.ndarray, data: np.ndarray, k: int, li
         def lib():
             return torch.topk(torch.cdist(q, x[0]), k, dim=1, largest=False, sorted=True)
 
-    pairs = n_sets * m * n
-    bound = _bound((q.numel() + x.numel()) * 4 + n_sets * m * k * 8, pairs * (3 * dim - 1 + 1))
-    return _compare(f"cross_knn {name} S={n_sets} m={m} n={n} k={k} pairs={pairs:.3e}",
-                    lambda: pack(nearest_points(q, x, k)), lambda: pack(_nearest_plain(q, x, k)), repeats=3,
-                    bound=bound, library=lib)
+    stats: dict = {}
+    _nearest_grid(q, x, k, stats)
+    if stats["host_syncs"] != 1:
+        raise AssertionError(f"cross_knn {name}: {stats['host_syncs']} host syncs, expected 1 (the grid's bounds)")
+    route_ms = {r: _time_ms(lambda: fn(q, x, k), 3)[1] for r, fn in routes.items()}
+    nbytes = (q.numel() + x.numel()) * 4 + n_sets * m * k * 8
+    bound = _bound(nbytes, stats["tests"] * 3 * dim)
+    brute = _bound(nbytes, pairs * (3 * dim - 1 + 1))
+    walked = max(stats["queries"] - stats["scanning"], 1)
+    print(f"[diag] cross_knn {name}: route={taken} grid_route_ms={route_ms['grid']:.4f} "
+          f"scan_route_ms={route_ms['scan']:.4f} side={stats['side']!r} dims={stats['dims']} "
+          f"cells={stats['cells']} (a set's) points={stats['points']} tests={stats['tests']} "
+          f"tests/query mean={stats['tests'] / stats['queries']:.2f} max={stats['most_tests']} "
+          f"rings/query mean={stats['rings'] / walked:.3f} max={stats['most_rings']} "
+          f"scanning queries={stats['scanning']} grid_ms={stats['grid_ms']:.4f} "
+          f"query_sort_ms={stats['query_sort_ms']:.4f} search_ms={stats['search_ms']:.4f} "
+          f"bound_ms={bound[0]:.4f} ({bound[1]}) brute_force_bound_ms={brute[0]:.4f} ({brute[1]}, every pair)",
+          flush=True)
+    result = _compare(f"cross_knn {name} ({taken}) S={n_sets} m={m} n={n} k={k} pairs={pairs:.3e} "
+                      f"tests={stats['tests']:.3e}", lambda: pack(kernel(q, x, k)),
+                      lambda: pack(_nearest_plain(q, x, k)), repeats=3, bound=bound, library=lib)
+    (got_d, got_i), (oth_d, oth_i) = (fn(q, x, k) for fn in (routes[taken], routes["scan" if taken == "grid" else "grid"]))
+    if not (torch.equal(got_i, oth_i) and torch.equal(got_d.view(torch.int32), oth_d.view(torch.int32))):
+        raise AssertionError(f"cross_knn {name}: the grid and the scan routes differ")
+    return result
 
 
 def ripley_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
@@ -1728,6 +1774,9 @@ def ripley_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
     checks["cross_knn"].append(check_cross_knn("G cluster 1, queries cut", others[:K8_LIBRARY_QUERIES], dense,
                                                RIPLEY_NEIGH, library=True))
     checks["cross_knn"].append(check_cross_knn("G cluster 1, all queries", others, dense, RIPLEY_NEIGH))
+    checks["cross_knn"].append(check_cross_knn("G largest cluster, all queries", coords[codes != 0],
+                                               coords[codes == 0], RIPLEY_NEIGH))
+    checks["cross_knn"].append(check_cross_knn("F cluster 1 (observed)", ref, dense, RIPLEY_NEIGH))
     checks["cross_knn"].append(check_cross_knn("F envelope", ref, clouds, 1))
     checks["cross_knn"].append(check_cross_knn("G envelope", coords, clouds, 1))
     checks["ripley_pairs"].append(check_ripley_pairs("L cluster 1", dense[None], support))
@@ -1756,8 +1805,8 @@ def ripley_branch_checks() -> dict[str, list[dict]]:
     dimension (5), with one shared histogram (8000 thresholds), with global
     atomics (30,000) and with the thresholds read from global memory
     (60,000); K8 with coincident points (ties), in 3D, at a runtime
-    dimension (4 and 1), and above its 32-key register list (k = 40, and k
-    = n = 64)."""
+    dimension (4 and 1), above its 32-key register list (k = 40, and k
+    = n = 64), and on the inputs of ``k8_adversarial_cases``."""
     rng = np.random.default_rng(14)
     k7 = [("3D", (2, 1500, 3), 9), ("5D", (1, 700, 5), 40), ("one shared histogram", (1, 1025, 2), 8000),
           ("global atomics", (1, 1025, 2), 30_000), ("thresholds in global memory", (1, 600, 2), 60_000)]
@@ -1771,7 +1820,90 @@ def ripley_branch_checks() -> dict[str, list[dict]]:
         if "ties" in name or "k = n" in name:
             data = np.repeat(data, 2, axis=1)  # every point twice
         checks["cross_knn"].append(check_cross_knn(name, rng.uniform(0, 100, (m, dim)), data, k))
+    from squidpy_torch.ops import knn
+
+    for name, queries, data, k in k8_adversarial_cases():  # small: the scan's side, so the grid is forced
+        if "no margin" in name:  # the ring bound can then equal a point's d2: the strict test must keep walking
+            margin, knn._GAP_MARGIN = knn._GAP_MARGIN, 0.0
+            try:
+                checks["cross_knn"].append(check_cross_knn(name, queries, data, k, route="grid"))
+            finally:
+                knn._GAP_MARGIN = margin
+        else:
+            checks["cross_knn"].append(check_cross_knn(name, queries, data, k, route="grid"))
     return checks
+
+
+def _boundary_ties(side_cells: int, rng) -> tuple[np.ndarray, np.ndarray]:
+    """``2 L^2`` points whose box is [0, L]^2 (L = ``side_cells``), so K8's
+    grid has a side of exactly 1: points on the cell boundaries x = 1..L-1
+    along the row y = L/2 + 1/2 and y = 1..L-1 along the column x = L/2 +
+    1/2, queries at the cells' centres between them (each has two nearest
+    points at exactly 0.5, one in its own cell and one on the next ring's
+    boundary), the rest of the points 2 or more from every query, the rows
+    shuffled."""
+    mid = side_cells / 2 + 0.5
+    n = 2 * side_cells**2
+    edges = [(x, mid) for x in range(1, side_cells)] + [(mid, y) for y in range(1, side_cells)]
+    corners = [(0.0, 0.0), (side_cells, 0.0), (0.0, side_cells), (side_cells, side_cells)]
+    fill = rng.uniform(0, side_cells, (4 * n, 2))
+    fill = fill[(np.abs(fill - mid) >= 2.5).all(axis=1)][: n - len(edges) - len(corners)]
+    data = np.concatenate([np.array(edges + corners, np.float64), fill])[rng.permutation(n)]
+    queries = [(x + 0.5, mid) for x in range(1, side_cells - 1)] + [(mid, y + 0.5) for y in range(1, side_cells - 1)]
+    return np.array(queries), data
+
+
+def k8_adversarial_cases() -> list[tuple[str, np.ndarray, np.ndarray, int]]:
+    """K8's grid search on inputs built to break it, at a few thousand
+    points: ties across cell boundaries with the lower index a ring out
+    (also with the ring bound's margin set to 0, so the bound meets a
+    point's d2 exactly), coincident points, every point at one place,
+    queries outside the points' box, clusters with empty space between
+    them, k above a 3 x 3 block's points and above the register list, 1D,
+    3D and 4D (a non-finite coordinate off the grid's axes), NaN and
+    infinite points and queries, coordinates near 1e19 whose d2 overflow,
+    one point, k = n, and five sets at once."""
+    rng = np.random.default_rng(15)
+    ties_q, ties = _boundary_ties(40, rng)
+    uniform = rng.uniform(0, 100, (3000, 2))
+    clusters = np.concatenate([rng.normal(0, 0.01, (1500, 2)), rng.normal(1000, 0.01, (1500, 2))])
+    nonfinite = rng.uniform(0, 50, (3000, 2))
+    nonfinite[rng.choice(3000, 30, replace=False)] = np.nan
+    nonfinite[rng.choice(3000, 20, replace=False), 1] = np.inf
+    nonfinite[rng.choice(3000, 20, replace=False), 0] = -np.inf
+    nan_queries = rng.uniform(-10, 60, (2000, 2))
+    nan_queries[rng.choice(2000, 20, replace=False)] = np.nan
+    nan_queries[rng.choice(2000, 10, replace=False), 1] = np.inf
+    four = rng.uniform(0, 20, (3000, 4))
+    four[rng.choice(3000, 20, replace=False), 3] = np.nan
+    four_q = rng.uniform(0, 20, (1000, 4))
+    four_q[rng.choice(1000, 10, replace=False), 3] = np.inf
+    huge = rng.uniform(-1e19, 1e19, (2000, 2))
+    huge[:50] = rng.uniform(0, 1, (50, 2))
+    sets = rng.uniform(0, 100, (5, 2000, 2))
+    sets[2, :7] = np.nan
+    return [
+        ("ties across cell boundaries", ties_q, ties, 1),
+        ("ties across cell boundaries, no margin", ties_q, ties, 1),
+        ("ties across cell boundaries, k = 3", ties_q, ties, 3),
+        ("coincident points", rng.uniform(0, 100, (2000, 2)), np.repeat(rng.uniform(0, 100, (1500, 2)), 2, 0), 3),
+        ("every point at one place", rng.uniform(0, 5, (500, 2)), np.full((2000, 2), 2.5), 4),
+        ("queries outside the box", rng.uniform(-300, 400, (2000, 2)), uniform, 2),
+        ("clusters far apart", rng.uniform(-100, 1100, (1000, 2)), clusters, 2),
+        ("k above the 3 x 3 block", rng.uniform(0, 100, (1000, 2)), uniform, 30),
+        ("k above the register list", rng.uniform(0, 100, (1000, 2)), uniform, 40),
+        ("1D", rng.uniform(-10, 210, (2000, 1)), rng.uniform(0, 200, (3000, 1)), 5),
+        ("3D", rng.uniform(0, 30, (2000, 3)), rng.uniform(0, 30, (4000, 3)), 7),
+        ("4D, non-finite off the grid", four_q, four, 3),
+        ("NaN and inf points", rng.uniform(-10, 60, (2000, 2)), nonfinite, 3),
+        ("NaN and inf queries", nan_queries, nonfinite, 2),
+        ("coordinates near 1e19", rng.uniform(-1e19, 1e19, (500, 2)), huge, 3),
+        ("coordinates near 1e19, the k-th d2 overflows", rng.uniform(-1e19, 1e19, (500, 2)),
+         rng.uniform(-1e19, 1e19, (30, 2)), 30),
+        ("one point", rng.uniform(0, 10, (500, 2)), np.array([[3.0, 4.0]]), 1),
+        ("k = n", rng.uniform(0, 10, (100, 2)), rng.uniform(0, 10, (500, 2)), 500),
+        ("five sets", rng.uniform(-5, 105, (2000, 2)), sets, 1),
+    ]
 
 
 def ripley_reference_check(n: int) -> None:

@@ -3,8 +3,10 @@
 Ported so far: the spatial graphs (``gr.spatial_neighbors`` and its kNN,
 radius, Delaunay, grid and builder variants, ``gr.mask_graph``),
 ``gr.nhood_enrichment``,
-``gr.co_occurrence`` (also with ``use_pallas=True``) and
-``gr.spatial_autocorr`` (Moran's I, Geary's C). It imports torch, numpy and scipy, never jax or
+``gr.co_occurrence`` (also with ``use_pallas=True``),
+``gr.spatial_autocorr`` (Moran's I, Geary's C), ``gr.ripley`` (F, G and L
+with their envelopes), ``gr.interaction_matrix`` and
+``gr.centrality_scores``. It imports torch, numpy and scipy, never jax or
 squidpy_tpu. The device is explicit: ``cuda`` by default, ``set_device("cpu")``
 (or ``with set_device("cpu"):``) for the CPU.
 """

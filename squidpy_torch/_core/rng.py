@@ -132,10 +132,9 @@ def permutation_columns(keys: np.ndarray, values: torch.Tensor, payload_dtype: t
     """Independent permutations of ``values``, one per COLUMN: ``(len(values), n_keys)``.
 
     Column ``p`` sorts ``values`` by the uint32 words ``random_bits(keys[p],
-    (n,))`` with a stable sort. The words are the JAX package's; equal words
-    (rare below 2^16 values) may order differently from its
-    ``lax.sort_key_val``, so this path agrees with it in distribution and in
-    every column's label multiset, not bitwise.
+    (n,))`` with a stable sort. The words are the JAX package's, and its
+    ``lax.sort_key_val`` is stable too, so equal words keep the values'
+    order in both and every column is bitwise the JAX package's.
     """
     if payload_dtype is not None:
         values = values.to(payload_dtype)

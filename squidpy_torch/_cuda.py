@@ -12,7 +12,9 @@ modules reach :func:`library` only for CUDA tensors.
 it with :func:`reset_launches` and reads it afterwards to show which kernels
 the path went through. A kernel whose C interface has several entry points
 (``radius_pairs``: bounds, bin, scatter, the two passes, the order) counts
-each call into that interface, which may start more than one CUDA kernel.
+each call into that interface, which may start more than one CUDA kernel;
+K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
+and those calls count as K6's.
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ _SIGNATURES = {
                          _P, _I, _P],
     "sqt_radius_order": [_P, ctypes.c_int64, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P],
     "sqt_ripley_pairs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
-    "sqt_cross_knn": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "sqt_cross_knn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _I, _I, _I, _D, _P, _P, _P, _P,
+                      _P],
+    "sqt_cross_knn_brute": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

@@ -8,12 +8,16 @@ code, not a Pallas kernel): expanded-form squared distances by
 distances for the winners. The radius search is kernel K6 on the card
 (:mod:`squidpy_torch.ops.radius`). The search of queries against other
 points (:func:`cross_knn`, and Ripley's batches of simulated clouds) is
-kernel K8 on the card (``csrc/cross_knn.cu``, :func:`nearest_points`).
+kernel K8 on the card (``csrc/cross_knn.cu``, :func:`nearest_points`): an
+exact search of a cell grid that K6's kernels build, on the card, or for
+small inputs a scan of every point.
 """
 
 from __future__ import annotations
 
+import math
 import threading
+from typing import Any
 
 import numpy as np
 import torch
@@ -21,7 +25,8 @@ from torch.profiler import record_function
 
 from squidpy_torch import _cuda
 from squidpy_torch._device import get_device, to_host
-from squidpy_torch.ops.radius import _sqrt_rn, radius_pairs
+from squidpy_torch.ops.radius import (_GAP_MARGIN, _bin_k6, _event, _grid_bounds_k6, _knn_grid_geometry,
+                                     _sqrt_rn, radius_pairs)
 
 __all__ = [
     "auto_knn",
@@ -41,6 +46,14 @@ _BRUTE_FORCE_MAX_N = 50_000
 # K8 keeps up to this many keys a query in registers; a larger k takes its
 # slower branch, a list in global memory
 _K8_REGISTER_K = 32
+# K8 scans every point of small sets (the envelopes' clouds) when the work in
+# all is small and k fits its register list: there the grid's fixed cost (a
+# read-back of the points' bounds, two counting sorts, ~0.3 ms on one H100)
+# outweighs its search. A large set's scan runs n tests a thread, which idles
+# the card when the queries are few, and the global list costs the scan O(k)
+# a candidate.
+_K8_SCAN_MAX_POINTS = 4096
+_K8_SCAN_MAX_PAIRS = 1 << 28
 _NAN_D2_BITS = 0x7FC00000  # the key bits of a NaN d2, after +inf
 _PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 26}  # (rows, n) temporaries of K8's plain version
 
@@ -127,7 +140,9 @@ def nearest_points(queries: torch.Tensor, data: torch.Tensor, k: int) -> tuple[t
     for a single set). Points rank by difference-form ``d2`` (each
     operation rounded), ties to the lowest index; distances are correctly
     rounded roots. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel, whose k above 32 takes a slower branch."""
+    launches the kernel: an exact search of a cell grid, or for small sets
+    and little work a scan of every point (:func:`_k8_route`). A k above 32
+    takes a slower branch."""
     if data.ndim == 2:
         data = data[None]
     if queries.ndim != 2 or data.ndim != 3 or queries.shape[1] != data.shape[2]:
@@ -143,19 +158,91 @@ def nearest_points(queries: torch.Tensor, data: torch.Tensor, k: int) -> tuple[t
     data = data.to(torch.float32).contiguous()
     _cuda.require(queries, "queries", torch.float32)
     _cuda.require(data, "data", torch.float32)
-    if max(m, n, n_sets * m * k) >= 2**31:
-        raise ValueError("K8 takes fewer than 2^31 queries, points and outputs a set.")
-    dist = torch.empty((n_sets, m, k), dtype=torch.float32, device=queries.device)
-    idx = torch.empty((n_sets, m, k), dtype=torch.int32, device=queries.device)
+    if dim == 0:
+        raise ValueError("K8 takes points of at least one dimension.")
+    if max(m, n_sets * n, n_sets * m * k) >= 2**31:
+        raise ValueError("K8 takes fewer than 2^31 queries, points and outputs.")
+    if _k8_route(n_sets, m, n, k) == "scan":
+        return _nearest_scan(queries, data, k)
+    return _nearest_grid(queries, data, k)
+
+
+def _k8_route(n_sets: int, m: int, n: int, k: int) -> str:
+    """``scan`` (every point) for small sets and little work with k in
+    registers, else ``grid``: both give the same neighbours."""
+    small = n <= _K8_SCAN_MAX_POINTS and n_sets * m * n < _K8_SCAN_MAX_PAIRS and k <= _K8_REGISTER_K
+    return "scan" if small else "grid"
+
+
+def _k8_outputs(n_sets: int, m: int, k: int, dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """K8's distances and indices (S, m, k), and for k above its register
+    list the global list's scratch, all ones (else None)."""
+    dist = torch.empty((n_sets, m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_sets, m, k), dtype=torch.int32, device=dev)
+    scratch = torch.full((n_sets, m, k), -1, dtype=torch.int64, device=dev) if k > _K8_REGISTER_K else None
+    return dist, idx, scratch
+
+
+def _nearest_scan(queries: torch.Tensor, data: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's scan of every point, on ``queries`` (m, d) and ``data`` (S, n, d) float32."""
+    n_sets, n, dim = data.shape
+    m = queries.shape[0]
+    dist, idx, scratch = _k8_outputs(n_sets, m, k, queries.device)
     if m == 0 or n_sets == 0:
         return dist, idx
-    scratch = torch.full((n_sets, m, k), -1, dtype=torch.int64, device=queries.device) if k > _K8_REGISTER_K else None
-    code = _cuda.library().sqt_cross_knn(
+    code = _cuda.library().sqt_cross_knn_brute(
         queries.data_ptr(), m, data.data_ptr(), n_sets, n, dim, k, None if scratch is None else scratch.data_ptr(),
         dist.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(),
     )
     _cuda.check(code, "cross_knn")
     _cuda.launches["cross_knn"] += 1
+    return dist, idx
+
+
+def _nearest_grid(queries: torch.Tensor, data: torch.Tensor, k: int, stats: dict[str, Any] | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's grid search on ``queries`` (m, d) and ``data`` (S, n, d) float32:
+    one grid for every set (K6's bounds, read back once, and its counting
+    sort, each set's cells after the last set's), the queries sorted into
+    the same cells by the same kernels, then the search. Given ``stats``, it
+    fills it with the grid, the kernel's counts of tests and rings and the
+    device milliseconds of its steps (timed by CUDA events; it then waits
+    for each step)."""
+    n_sets, n, dim = data.shape
+    m = queries.shape[0]
+    dev = queries.device
+    dist, idx, scratch = _k8_outputs(n_sets, m, k, dev)
+    if m == 0 or n_sets == 0:
+        return dist, idx
+    g = min(dim, 3)
+    ev = [_event()] if stats is not None else None
+    flat = data.view(n_sets * n, dim)
+    finite, lo, hi = _grid_bounds_k6(flat, g, stats)
+    dims, side = _knn_grid_geometry(g, n_sets, finite, lo, hi)
+    grid = _bin_k6(flat, g, lo, side, dims, finite, n_sets=n_sets)
+    if ev is not None:
+        ev.append(_event())
+    qgrid = _bin_k6(queries, g, lo, side, dims, m)
+    if ev is not None:
+        ev.append(_event())
+    counters = torch.zeros(5, dtype=torch.int64, device=dev) if stats is not None else None
+    low = (lo + [0.0, 0.0, 0.0])[:3]
+    code = _cuda.library().sqt_cross_knn(
+        qgrid.pts.data_ptr(), qgrid.order.data_ptr(), qgrid.cell.data_ptr(), m, grid.pts.data_ptr(),
+        grid.order.data_ptr(), grid.cell_start.data_ptr(), n_sets, n, dim, k, *low, side, *dims, _GAP_MARGIN,
+        None if scratch is None else scratch.data_ptr(), None if counters is None else counters.data_ptr(),
+        dist.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(),
+    )
+    _cuda.check(code, "cross_knn")
+    _cuda.launches["cross_knn"] += 1
+    if ev is not None:
+        ev.append(_event())
+        torch.cuda.synchronize()
+        stats.update({name: a.elapsed_time(b) for name, a, b in zip(("grid_ms", "query_sort_ms", "search_ms"),
+                                                                    ev[:-1], ev[1:])})
+        tests, most, rings, most_rings, scanning = (int(v) for v in counters.cpu())
+        stats.update(side=side, dims=dims, cells=math.prod(dims), points=finite, tests=tests, most_tests=most,
+                     rings=rings, most_rings=most_rings, scanning=scanning, queries=m * n_sets)
     return dist, idx
 
 

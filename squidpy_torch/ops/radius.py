@@ -53,6 +53,10 @@ _PLAIN_TILE_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 27}  # (rows, n) float32 tempo
 # second (a power of two) in a block's shared memory, longer ones in chunks of
 # it merged in global memory
 _ORDER_TIERS = (64, 16384)
+# K8's cells hold about this many of a set's points on average
+_KNN_CELL_POINTS = 2.0
+# K8's ring bound shrinks each float64 gap by this much of its terms' magnitudes
+_GAP_MARGIN = 2.0**-30
 
 
 def radius_threshold(radius: float) -> np.float32:
@@ -101,6 +105,83 @@ def _grid_geometry(r2: float, g: int, m: int, lo: list[float], hi: list[float]) 
     dims, side = _grid_dims(extent, side, max(min(_MAX_CELLS_PER_POINT * m, _MAX_CELLS), 1))
     dims3 = (dims + [1, 1, 1])[:3]
     return (dims3[0], dims3[1], dims3[2]), side
+
+
+def _knn_grid_geometry(g: int, n_sets: int, m: int, lo: list[float], hi: list[float]
+                       ) -> tuple[tuple[int, int, int], float]:
+    """K8's grid: the cells along each axis and the side of one uniform grid
+    for all ``n_sets`` sets, over the bounding box ``lo``-``hi`` of their
+    ``m`` finite points (float64 of the float32 extremes). The side gives a
+    set's mean share of those points about ``_KNN_CELL_POINTS`` a cell over
+    the box's axes of non-zero extent, enlarged while the cells exceed
+    ``2 m / n_sets`` a set (and 2^30 in all). Any side gives the same
+    neighbours; it sets only how many candidates a query tests."""
+    if m == 0 or g == 0:
+        return (1, 1, 1), 1.0
+    per_set = m / n_sets
+    extent = [h - low for low, h in zip(lo, hi)]
+    spread = [e for e in extent if e > 0]
+    if not spread:  # every finite point at one place
+        return (1, 1, 1), 1.0
+    side = (math.prod(spread) * _KNN_CELL_POINTS / per_set) ** (1.0 / len(spread))
+    cap = max(min(_MAX_CELLS_PER_POINT * math.ceil(per_set), _MAX_CELLS // n_sets - 1), 1)
+    dims, side = _grid_dims(extent, side, cap)
+    dims3 = (dims + [1, 1, 1])[:3]
+    return (dims3[0], dims3[1], dims3[2]), side
+
+
+def _square_below(gap: float) -> np.float32:
+    """A float64 gap rounded down to float32 (0 below 0) and squared in float32."""
+    with np.errstate(over="ignore"):
+        low = np.float32(max(gap, 0.0))
+        if float(low) > gap:  # round down (compared in float64: numpy would compare in float32)
+            low = np.nextafter(low, np.float32(-np.inf))
+        return low * low
+
+
+def _ring_bound(q: np.ndarray, lo: list[float], side: float, box_lo: list[int], box_hi: list[int],
+                dims: tuple[int, ...], margin: float = _GAP_MARGIN) -> np.float32 | None:
+    """K8's stopping rule, as its kernel computes it: a lower bound on the
+    float32 difference-form ``d2`` from the query ``q`` (float32, its first
+    ``g`` coordinates used) to every point binned into a cell outside the
+    box ``box_lo``-``box_hi`` (cell indices along each gridded axis,
+    inclusive) of the grid at ``lo`` with ``side`` and ``dims``; None when
+    the box holds every cell.
+
+    An unvisited point lies beyond the box on some axis ``a``, at least that
+    side's gap from ``q`` along ``a``, and inside the grid's extent
+    ``[lo, lo + dims * side]`` on every other axis, at least ``q``'s
+    distance to it there. Each gap is taken in float64, shrunk by ``margin``
+    times its terms' magnitudes (far above the float64 binning's and the
+    gap's own rounding, a few 2^-53), rounded down to float32 and squared,
+    and the squares are summed in axis order in float32: each subtraction,
+    multiply and add of ``d2`` rounds monotonically, and the axes past the
+    grid's add terms that are not negative, so the point's ``d2`` is at
+    least that sum. The bound is the least sum over the box's sides that
+    have cells beyond them."""
+    g = len(box_lo)
+    qa = [float(q[a]) - lo[a] for a in range(g)]
+    outside = []  # each axis's square of q's distance to the grid's extent
+    for a in range(g):
+        top = dims[a] * side
+        outside.append(_square_below(max(-qa[a] - margin * abs(qa[a]), (qa[a] - top) - margin * (abs(qa[a]) + top))))
+    best = None
+    for a in range(g):
+        gaps = []
+        if box_lo[a] > 0:
+            b = box_lo[a] * side
+            gaps.append((qa[a] - b) - margin * (abs(qa[a]) + abs(b)))
+        if box_hi[a] < dims[a] - 1:
+            b = (box_hi[a] + 1) * side
+            gaps.append((b - qa[a]) - margin * (abs(qa[a]) + abs(b)))
+        for gap in gaps:
+            terms = outside[:a] + [_square_below(gap)] + outside[a + 1 :]
+            total = terms[0]
+            with np.errstate(over="ignore"):
+                for t in terms[1:]:
+                    total = total + t
+            best = total if best is None else min(best, total)
+    return best
 
 
 def cell_grid(x: torch.Tensor, r2: float) -> CellGrid:
@@ -227,28 +308,42 @@ def _bound_floats(keys: np.ndarray) -> list[float]:
     return bits.view(np.float32).astype(np.float64).tolist()
 
 
-def _cell_grid_k6(x: torch.Tensor, r2: float, stats: dict[str, Any] | None) -> CellGrid:
-    """:func:`cell_grid` by K6's kernels on ``x`` (n, d) float32: the bounds
-    (read back once, unless every point goes to one cell), then the counting
-    sort."""
+def _grid_bounds_k6(x: torch.Tensor, g: int, stats: dict[str, Any] | None) -> tuple[int, list[float], list[float]]:
+    """K6's bounds kernel on ``x`` (n, d) float32, read back once: the rows
+    whose first ``g`` coordinates are finite, and those rows' per-axis
+    bounds (0.0 when there are none)."""
     n, d = x.shape
-    g = min(d, 3)
+    bounds = torch.empty(7, dtype=torch.int32, device=x.device)
+    _launch("sqt_radius_bounds", x.data_ptr(), n, d, g, bounds.data_ptr())
+    b = _read(bounds, stats)
+    m = int(b[6])
+    if m == 0:
+        return 0, [0.0] * g, [0.0] * g
+    return m, _bound_floats(b[:g]), _bound_floats(b[3 : 3 + g])
+
+
+def _bin_k6(x: torch.Tensor, g: int, lo: list[float], side: float, dims: tuple[int, int, int], points: int,
+            one_cell: bool = False, n_sets: int = 1) -> CellGrid:
+    """K6's counting sort of ``x`` (n, d) float32 into the grid at ``lo``
+    with ``side`` and ``dims`` (the bin kernel, a scan, the scatter). With
+    ``n_sets`` > 1, ``x`` holds that many sets of ``n / n_sets``
+    consecutive rows, each binned into its own copy of the grid: set
+    ``s``'s cells, then its cell of the points with none, take the ids
+    from ``s * (nx * ny * nz + 1)`` on."""
+    n, d = x.shape
     dev = x.device
-    if _one_cell(r2, g):
-        m, lo, hi = n, [0.0] * g, [0.0] * g
-    else:
-        bounds = torch.empty(7, dtype=torch.int32, device=dev)
-        _launch("sqt_radius_bounds", x.data_ptr(), n, d, g, bounds.data_ptr())
-        b = _read(bounds, stats)
-        m, lo, hi = int(b[6]), _bound_floats(b[:g]), _bound_floats(b[3 : 3 + g])
-    dims, side = _grid_geometry(r2, g, m, lo, hi)
     n_cells = math.prod(dims)
     cell = torch.empty(n, dtype=torch.int32, device=dev)
     count = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
     low = (lo + [0.0, 0.0, 0.0])[:3]
-    _launch("sqt_radius_bin", x.data_ptr(), n, d, g, low[0], low[1], low[2], side, *dims, int(_one_cell(r2, g)),
+    _launch("sqt_radius_bin", x.data_ptr(), n, d, g, low[0], low[1], low[2], side, *dims, int(one_cell),
             cell.data_ptr(), count.data_ptr())
-    cell_start = torch.zeros(n_cells + 2, dtype=torch.int32, device=dev)
+    if n_sets > 1:
+        offsets = torch.arange(n_sets, dtype=torch.int32, device=dev) * (n_cells + 1)
+        cell.view(n_sets, -1).add_(offsets[:, None])
+        count = torch.zeros(n_sets * (n_cells + 1), dtype=torch.int32, device=dev).index_add_(0, cell,
+                                                                                            torch.ones_like(cell))
+    cell_start = torch.zeros(count.numel() + 1, dtype=torch.int32, device=dev)
     cell_start[1:] = torch.cumsum(count, dim=0, dtype=torch.int32)
     cursor = cell_start[:-1].clone()
     pts = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -256,7 +351,22 @@ def _cell_grid_k6(x: torch.Tensor, r2: float, stats: dict[str, Any] | None) -> C
     cell_sorted = torch.empty(n, dtype=torch.int32, device=dev)
     _launch("sqt_radius_scatter", x.data_ptr(), n, d, cell.data_ptr(), cursor.data_ptr(), pts.data_ptr(),
             order.data_ptr(), cell_sorted.data_ptr())
-    return CellGrid(order=order, pts=pts, cell=cell_sorted, cell_start=cell_start, dims=dims, side=side, points=m)
+    return CellGrid(order=order, pts=pts, cell=cell_sorted, cell_start=cell_start, dims=dims, side=side,
+                    points=points)
+
+
+def _cell_grid_k6(x: torch.Tensor, r2: float, stats: dict[str, Any] | None) -> CellGrid:
+    """:func:`cell_grid` by K6's kernels on ``x`` (n, d) float32: the bounds
+    (read back once, unless every point goes to one cell), then the counting
+    sort."""
+    n, d = x.shape
+    g = min(d, 3)
+    if _one_cell(r2, g):
+        m, lo, hi = n, [0.0] * g, [0.0] * g
+    else:
+        m, lo, hi = _grid_bounds_k6(x, g, stats)
+    dims, side = _grid_geometry(r2, g, m, lo, hi)
+    return _bin_k6(x, g, lo, side, dims, m, _one_cell(r2, g))
 
 
 def radius_pairs(

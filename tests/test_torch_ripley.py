@@ -458,7 +458,7 @@ def test_k7_matches_plain_on_card(cuda_card):
 
 
 @pytest.mark.cuda
-def test_k8_matches_plain_on_card(cuda_card):
+def test_k8_matches_plain_on_card(cuda_card, monkeypatch):
     for n_sets, m, n, dim, k in [(1, 2000, 3000, 2, 2), (9, 500, 800, 2, 1), (1, 300, 500, 3, 7),
                                  (1, 300, 500, 4, 3), (2, 200, 300, 2, 40)]:
         rng = np.random.default_rng(m + k)
@@ -469,3 +469,15 @@ def test_k8_matches_plain_on_card(cuda_card):
         torch.cuda.synchronize()
         np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
         np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    # the grid search's adversarial inputs (test_torch_cross_knn.py), also with no ring-bound margin
+    from test_torch_cross_knn import _cases
+
+    for margin in (tknn._GAP_MARGIN, 0.0):
+        monkeypatch.setattr(tknn, "_GAP_MARGIN", margin)
+        for name, queries, data, k in _cases():
+            q, x = torch.from_numpy(queries), torch.from_numpy(data)
+            want = tknn.nearest_points(q, x, k)
+            got = tknn.nearest_points(q.cuda(), x.cuda(), k)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy(), err_msg=name)
+            np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy(), err_msg=name)

@@ -71,6 +71,23 @@ def test_permutation_columns_multisets_and_jax_columns():
             np.testing.assert_array_equal(got[:, p], want[:, p])
 
 
+def test_permutation_columns_bitwise_with_tied_words():
+    """At 65,000 values, just below the 65,536 where nhood_enrichment turns
+    to the cipher, a column holds two equal sort words with probability
+    ~0.39 (7 of these 24). JAX's ``lax.sort_key_val`` is stable, as the port's sort is, so
+    every column is bitwise JAX's, the tied ones included: the values are
+    distinct, so a tie taken in the other order would show."""
+    n, P = 65_000, 24
+    values = np.random.default_rng(1).permutation(n).astype(np.int32)
+    keys = trng.spawn_keys(23, P)
+    words = trng.random_bits(keys, (n,))
+    tied = [p for p in range(P) if len(np.unique(words[p])) < n]
+    assert len(tied) > 0
+    got = trng.permutation_columns(keys, torch.from_numpy(values)).numpy()
+    want = np.asarray(jrng.permutation_columns(jnp.asarray(keys), jnp.asarray(values)))
+    np.testing.assert_array_equal(got, want)
+
+
 def test_shuffle_group_columns_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trng.shuffle_group_columns(None, None, None)

@@ -24,9 +24,9 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       positions, K5b); then ``spatial_neighbors_delaunay`` (host qhull) ->
       ``nhood_enrichment`` (K4, K3);
    d. on the same 1M cells, 16 cell types drawn from a seed, the largest
-      holding 20% (200k cells, so its L curve takes the binned sweep) and
-      the others ~53k each: ``ripley`` L (K7 on the dense clusters and the
-      envelope, K1 with one class on the largest), G and F (K8; the
+      holding 20% (200k cells) and the others ~53k each: ``ripley`` L (K7
+      on every type, the largest too, and the envelope; a ``[route]`` line
+      gives the route ``auto`` takes for each type), G and F (K8; the
       envelope in one launch), each at its defaults (100 simulations of
       1000 points, 50 steps, 2 neighbours) under the CPU profiler, whose
       ``[host]`` line splits the call (hull, observed curves, point-process
@@ -97,9 +97,14 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    queries that scanned every point, the grid's, the queries' sort's and
    the search's device time, and the bound from the tests beside the
    brute-force bound of every pair), and the other route held bitwise
-   against the one taken; K7 on one dense cluster and on
-   the L envelope (and, in the branches part d does not take, K7 in 3D and
-   5D and with one, no, and no staged shared histogram; K8 with ties, in
+   against the one taken; K7 on one dense cluster (with its ``[diag]
+   ripley_pairs`` line: the kernel with d2 and the compare alone, with the
+   bucket table added, whole, and on the generic path of large L), on the
+   L envelope and on the largest cluster (and, in the branches part d does
+   not take, K7 with coincident points, at n = 1, 2, 511, 513, 1025 and
+   4097, with NaN coordinates, in 1D, 3D and 5D, on 100 random clouds, and
+   at 8000, 30,000 and 60,000 thresholds (one shared L-bin copy, the
+   thresholds in global memory, global atomics); K8 with ties, in
    1D, 3D and 4D, and above its register list, and its grid search forced
    on inputs built to break it: ties across cell boundaries, also with no
    ring-bound margin, coincident points, queries outside the box, far
@@ -108,7 +113,10 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    largest cluster's plan (a
    ``[diag]`` line with its planner's host time, items and tile pairs; the
    plain version not warmed), and that cluster's L counts by the dense K7
-   against the binned K1, which must be equal.
+   against the binned K1, which must be equal; then both routes of
+   ``pair_counts_cumulative`` timed on one type of 100k to 2M cells at
+   Ripley's default support and at 50 um (``[diag] k7_route`` lines, equal
+   counts asserted).
    Integer kernels
    (K1-K4, K7), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
@@ -162,7 +170,7 @@ K6_CLUSTER = 20_000  # coincident points whose rows pass K6's block tier (16,384
 K6_LOW_TIERS = (8, 16)  # K6's row-order tiers lowered: rows of ~20 through the block tier and the global merge
 K6_STEPS = ("grid_ms", "count_ms", "scan_ms", "fill_ms", "order_ms")  # K6's device steps, as its stats name them
 RIPLEY_CLS = 16  # part d's cell types
-RIPLEY_BIG_SHARE = 0.2  # the largest type's share: 200k cells, so its L curve takes the binned sweep (K1)
+RIPLEY_BIG_SHARE = 0.2  # the largest type's share: 200k cells (its L counts: K7 on the card, K1 on the CPU)
 RIPLEY_SIMS, RIPLEY_OBS, RIPLEY_STEPS, RIPLEY_NEIGH = 100, 1000, 50, 2  # `ripley`'s defaults
 K8_LIBRARY_QUERIES = 50_000  # K8 beside torch.cdist + torch.topk: the queries cut to fit the (m, n) distances
 CENTRALITY_CELLS = 100_000  # centrality_scores' host closeness sweep runs on a corner of this many cells
@@ -1580,9 +1588,26 @@ def _check_ripley(res: dict, mode: str, n_cls: int) -> None:
         raise AssertionError(f"ripley {mode}: p-values not in [0, 0.5] on the grid k / (S + 1)")
 
 
+def _print_ripley_routes(coords: np.ndarray, codes: np.ndarray) -> None:
+    """The route ``pair_counts_cumulative(method='auto')`` takes for each
+    cell type of ``ripley`` L at its default support."""
+    from scipy.spatial import ConvexHull
+
+    from squidpy_torch._device import get_device
+    from squidpy_torch.ops.ripley import _extent, _k7_route
+
+    coords = np.asarray(coords, dtype=np.float64)
+    support = np.linspace(0.0, (ConvexHull(coords).volume / 2) ** 0.5, RIPLEY_STEPS)
+    routes = []
+    for c in range(RIPLEY_CLS):
+        members = coords[codes == c]
+        routes.append(f"{c}:{len(members)}:{_k7_route(len(members), support, _extent(members), get_device())}")
+    print(f"[route] ripley L (type:cells:route) {' '.join(routes)}", flush=True)
+
+
 def ripley_path(adata: StandIn) -> tuple[dict, dict, dict]:
     """Part d: on the main path's 1M cells with skewed cell types (the largest
-    20%, so its L curve takes the binned sweep), ``ripley`` L, G and F at
+    20%), ``ripley`` L, G and F at
     their defaults, ``interaction_matrix`` on part a's kNN graph (counts,
     weights, normalised) and ``centrality_scores`` (all three), each with
     the counters reset before it and read after it, its wall and the
@@ -1599,6 +1624,7 @@ def ripley_path(adata: StandIn) -> tuple[dict, dict, dict]:
     launches: dict[str, dict] = {}
     secs: dict[str, float] = {}
     defaults = dict(n_simulations=RIPLEY_SIMS, n_observations=RIPLEY_OBS, n_steps=RIPLEY_STEPS, n_neigh=RIPLEY_NEIGH)
+    _print_ripley_routes(adata.obsm["spatial"], codes)
     for mode in ("L", "G", "F"):
         _cuda.reset_launches()
         res, wall, steps = _profiled(lambda: sqt.gr.ripley(adata, "celltype", mode=mode, seed=0, copy=True,
@@ -1675,22 +1701,93 @@ def _ripley_inputs(adata: StandIn) -> tuple[np.ndarray, np.ndarray, np.ndarray, 
     return coords, codes, support, clouds, ref
 
 
-def check_ripley_pairs(name: str, pts: np.ndarray, support: np.ndarray) -> dict:
-    """K7 on point sets (S, n, 2) and Ripley's squared support, against the
-    plain version, bitwise."""
+def check_ripley_pairs(name: str, pts: np.ndarray, support: np.ndarray, plain_warm: bool = True) -> dict:
+    """K7 on point sets (S, n, d) and Ripley's squared support, against the
+    plain version, bitwise: timed as ``ripley`` calls it (host thresholds,
+    their table built once a support), and the public ``ripley_pairs``
+    (thresholds on the card, read back once) held equal too."""
     import torch
 
-    from squidpy_torch.ops.ripley import _ripley_pairs_plain, ripley_pairs
+    from squidpy_torch.ops.ripley import _pairs_host_thresholds, _ripley_pairs_plain, ripley_pairs
 
     p = torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32)).cuda()
-    thr = torch.from_numpy((np.asarray(support, np.float64) ** 2).astype(np.float32)).cuda()
+    thr_host = (np.asarray(support, np.float64) ** 2).astype(np.float32)
+    thr = torch.from_numpy(thr_host).cuda()
     n_sets, n, dim = p.shape
     pairs = n_sets * n * (n - 1) / 2
     # every pair: 3d - 1 flops of d2 and one compare with the largest
     # threshold; the points and thresholds read once, the (S, L) int64 written
     bound = _bound(p.numel() * 4 + thr.numel() * 4 + n_sets * thr.numel() * 8, pairs * (3 * dim - 1 + 1))
-    return _compare(f"ripley_pairs {name} S={n_sets} n={n} d={dim} L={thr.numel()} pairs={pairs:.3e}",
-                    lambda: ripley_pairs(p, thr), lambda: _ripley_pairs_plain(p, thr), repeats=3, bound=bound)
+    result = _compare(f"ripley_pairs {name} S={n_sets} n={n} d={dim} L={thr.numel()} pairs={pairs:.3e}",
+                      lambda: _pairs_host_thresholds(p, thr_host), lambda: _ripley_pairs_plain(p, thr),
+                      repeats=3, bound=bound, plain_warm=plain_warm)
+    if not torch.equal(ripley_pairs(p, thr), _pairs_host_thresholds(p, thr_host)):
+        raise AssertionError(f"ripley_pairs {name}: the public call and the host-threshold path differ")
+    return result
+
+
+def ripley_pairs_split(pts: np.ndarray, support: np.ndarray) -> None:
+    """K7's ``[diag]`` line on one point set (d = 2): the kernel alone
+    (table prebuilt) with d2 and the compare with the largest threshold,
+    counted in a register (mode 1), with the bucket table and the slot
+    added (mode 2), and whole; whole again on the path that large L takes
+    (the table in global memory, shared L-bin copies a warp); the table's
+    build on the card and on the host; the launch's shape."""
+    import torch
+
+    from squidpy_torch.ops.ripley import (
+        _K7_COLS, K7Layout, _k7_layout, _k7_row_tile, _k7_table, _launch_k7, _ripley_pairs_plain,
+    )
+
+    p = torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32)).cuda()[None]
+    thr = torch.from_numpy((np.asarray(support, np.float64) ** 2).astype(np.float32)).cuda()
+    n = p.shape[1]
+    layout = _k7_layout(2, thr.numel())
+    row_tile = _k7_row_tile(1, n)
+    table = _k7_table(thr, layout.n_buckets)
+    ms = {m: _time_ms(lambda m=m: _launch_k7(p, thr, mode=m, table=table), 5)[1] for m in (1, 2, 0)}
+    generic = K7Layout("shared", 8, 2048, True)
+    generic_table = _k7_table(thr, generic.n_buckets)
+    got, generic_ms = _time_ms(lambda: _launch_k7(p, thr, layout=generic, table=generic_table), 5)
+    if not torch.equal(got, _ripley_pairs_plain(p, thr)):
+        raise AssertionError("ripley_pairs: the generic path differs from the plain version")
+    col_tiles = -(-n // _K7_COLS)
+    items = _K7_COLS // row_tile * col_tiles * (col_tiles + 1) // 2
+    table_ms = _time_ms(lambda: _k7_table(thr, layout.n_buckets), 5)[1]
+    thr_cpu = thr.cpu()
+    t0 = time.perf_counter()
+    _k7_table(thr_cpu, layout.n_buckets)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    walk = int(torch.isnan(table[: layout.n_buckets + 1].view(torch.float32)).sum())
+    print(f"[diag] ripley_pairs n={n} L={thr.numel()} pairs={n * (n - 1) / 2:.3e}: d2_compare_ms={ms[1]:.4f} "
+          f"d2_table_slot_ms={ms[2]:.4f} full_ms={ms[0]:.4f} generic_path_ms={generic_ms:.4f} "
+          f"table_build_card_ms={table_ms:.4f} table_build_host_ms={host_ms:.3f} layout={tuple(layout)} "
+          f"walk_buckets={walk} row_tile={row_tile} items={items}", flush=True)
+
+
+def ripley_route_diag() -> None:
+    """``pair_counts_cumulative``'s two routes for one type of n cells
+    spread over the main path's section (side 10,000 um), at Ripley's
+    default support and at 50 um: both times (host clock, second of two
+    calls each), equal counts asserted, and the route ``auto`` takes."""
+    from squidpy_torch._device import get_device
+    from squidpy_torch.ops.ripley import _extent, _k7_route, pair_counts_cumulative
+
+    rng = np.random.default_rng(15)
+    side = 10.0 * np.sqrt(N_CELLS)
+    for n in (100_000, 200_000, 400_000, 1_000_000, 2_000_000):
+        pts = rng.uniform(0.0, side, (n, 2))
+        for name, support in (("default", np.linspace(0.0, side / np.sqrt(2.0), RIPLEY_STEPS)),
+                              ("50um", np.linspace(0.0, 50.0, RIPLEY_STEPS))):
+            times, counts = {}, {}
+            for method in ("dense", "binned"):
+                _sync_time(lambda: pair_counts_cumulative(pts, support, method=method))
+                counts[method], times[method] = _sync_time(lambda: pair_counts_cumulative(pts, support, method=method))
+            if not np.array_equal(counts["dense"], counts["binned"]):
+                raise AssertionError(f"pair_counts_cumulative n={n} {name}: the two routes count differently")
+            print(f"[diag] k7_route n={n} support={name} (max {support[-1]:.1f}): dense (K7) {times['dense']:.4f} s, "
+                  f"binned (planner + K1) {times['binned']:.4f} s, equal counts, auto takes "
+                  f"{_k7_route(n, support, _extent(pts), get_device())}", flush=True)
 
 
 def check_cross_knn(name: str, queries: np.ndarray, data: np.ndarray, k: int, library: bool = False,
@@ -1760,7 +1857,8 @@ def ripley_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
     """Part d's kernels on its own inputs: K8 on one G-mode cluster (first
     with the queries cut, so that ``torch.cdist`` + ``torch.topk`` fit beside
     it, then on all of them), on the F and on the G envelope (all clouds and
-    queries); K7 on one dense cluster and on the L envelope; K1's
+    queries); K7 on one dense cluster (and its ``[diag]`` split), on the L
+    envelope and on the 200k cluster (the plain version not warmed); K1's
     one-class call on the 200k cluster's plan (planner time, items, tile
     pairs; the plain version not warmed), and the dense K7 against the
     binned K1 on that cluster."""
@@ -1780,7 +1878,10 @@ def ripley_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
     checks["cross_knn"].append(check_cross_knn("F envelope", ref, clouds, 1))
     checks["cross_knn"].append(check_cross_knn("G envelope", coords, clouds, 1))
     checks["ripley_pairs"].append(check_ripley_pairs("L cluster 1", dense[None], support))
+    ripley_pairs_split(dense, support)
     checks["ripley_pairs"].append(check_ripley_pairs("L envelope", clouds, support))
+    checks["ripley_pairs"].append(check_ripley_pairs("L largest cluster", coords[codes == 0][None], support,
+                                                     plain_warm=False))
 
     big = coords[codes == 0]
     t0 = time.perf_counter()
@@ -1801,17 +1902,30 @@ def ripley_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
 
 
 def ripley_branch_checks() -> dict[str, list[dict]]:
-    """K7 and K8 in the branches part d does not take: K7 in 3D, at a runtime
-    dimension (5), with one shared histogram (8000 thresholds), with global
-    atomics (30,000) and with the thresholds read from global memory
-    (60,000); K8 with coincident points (ties), in 3D, at a runtime
-    dimension (4 and 1), above its 32-key register list (k = 40, and k
-    = n = 64), and on the inputs of ``k8_adversarial_cases``."""
+    """K7 and K8 in the branches part d does not take: K7 with coincident
+    points (every pair in one slot, two sets, so the counters flush on the
+    change of set), at n = 1, 2, 511, 513, one past the 1024-point column
+    tile (1025) and past four (4097), with NaN coordinates, in 1D, 3D and
+    at a runtime dimension (5), on 100 random clouds of 1000 points, and
+    on the path of large L: one shared L-bin copy (8000 thresholds), the
+    thresholds in global memory too (30,000) and global atomics (60,000);
+    K8 with coincident points (ties), in 3D,
+    at a runtime dimension (4 and 1), above its 32-key register list
+    (k = 40, and k = n = 64), and on the inputs of
+    ``k8_adversarial_cases``."""
     rng = np.random.default_rng(14)
-    k7 = [("3D", (2, 1500, 3), 9), ("5D", (1, 700, 5), 40), ("one shared histogram", (1, 1025, 2), 8000),
-          ("global atomics", (1, 1025, 2), 30_000), ("thresholds in global memory", (1, 600, 2), 60_000)]
-    checks = {"ripley_pairs": [check_ripley_pairs(name, rng.uniform(0, 100, shape), np.linspace(0, 80, n_thr))
-                               for name, shape, n_thr in k7]}
+    coincident = np.repeat(rng.uniform(0, 100, (2, 1, 2)), 3000, axis=1)
+    nan = rng.uniform(0, 100, (1, 3000, 2))
+    nan[0, rng.integers(0, 3000, 40), rng.integers(0, 2, 40)] = np.nan
+    k7 = [("coincident", coincident, 50)] + [(f"n={n}", rng.uniform(0, 100, (1, n, 2)), 50)
+                                             for n in (1, 2, 511, 513, 1025, 4097)]
+    k7 += [("NaN coordinates", nan, 50), ("1D", rng.uniform(0, 100, (2, 1500, 1)), 9),
+           ("3D", rng.uniform(0, 100, (2, 1500, 3)), 9), ("5D", rng.uniform(0, 100, (1, 700, 5)), 40),
+           ("100 clouds", rng.uniform(0, 100, (100, 1000, 2)), 50),
+           ("one shared histogram", rng.uniform(0, 100, (1, 1025, 2)), 8000),
+           ("thresholds in global memory", rng.uniform(0, 100, (1, 1025, 2)), 30_000),
+           ("global atomics", rng.uniform(0, 100, (1, 600, 2)), 60_000)]
+    checks = {"ripley_pairs": [check_ripley_pairs(name, pts, np.linspace(0, 80, n_thr)) for name, pts, n_thr in k7]}
     k8 = [("ties", 300, (1, 250, 3), 7), ("4D", 300, (1, 500, 4), 3), ("1D", 1000, (1, 33, 1), 33),
           ("global list, ties", 200, (2, 150, 2), 40), ("global list, k = n", 130, (1, 32, 2), 64)]
     checks["cross_knn"] = []
@@ -2030,7 +2144,7 @@ def main() -> int:
     launches_d = {k: sum(c[k] for c in launches_calls.values()) for k in launches}
     for call, counts in launches_calls.items():
         print(f"[launches d] {call}: {counts}", flush=True)
-    wanted = {"ripley_L": ("binned_pairs", "ripley_pairs"), "ripley_G": ("cross_knn",), "ripley_F": ("cross_knn",),
+    wanted = {"ripley_L": ("ripley_pairs",), "ripley_G": ("cross_knn",), "ripley_F": ("cross_knn",),
               "interaction_matrix": ("pair_counts",)}
     missing = [(call, k) for call, names in wanted.items() for k in names if launches_calls[call][k] <= 0]
     if missing:
@@ -2061,6 +2175,7 @@ def main() -> int:
         checks[name] += extra
     for name, extra in ripley_branch_checks().items():
         checks[name] += extra
+    ripley_route_diag()
     phases["kernels_other_shapes"] = time.perf_counter() - t_phase
 
     # card against CPU through the public API: small (brute-force kNN, sort

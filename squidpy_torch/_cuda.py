@@ -78,7 +78,7 @@ _SIGNATURES = {
     "sqt_radius_pairs": [_P, _I, _P, _P, _P, ctypes.c_int64, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P,
                          _P, _I, _P],
     "sqt_radius_order": [_P, ctypes.c_int64, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P],
-    "sqt_ripley_pairs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sqt_ripley_pairs": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "sqt_cross_knn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _I, _I, _I, _D, _P, _P, _P, _P,
                       _P],
     "sqt_cross_knn_brute": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],

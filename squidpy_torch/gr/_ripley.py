@@ -145,8 +145,14 @@ def ripley(
     ref_pts: NDArrayA | None = None
     observed: list[NDArrayA] = []
     with record_function("ripley.observed"):
-        for code in present:
-            members = coords[codes == code]
+        # each cluster's rows in their original order, from one stable sort of
+        # the codes (the same arrays as `coords[codes == code]`, one pass over them)
+        order = np.argsort(codes, kind="stable")
+        sorted_codes = codes[order]
+        starts = np.searchsorted(sorted_codes, present, side="left")
+        ends = np.searchsorted(sorted_codes, present, side="right")
+        for code, start, end in zip(present, starts, ends):
+            members = coords[order[start:end]]
             if mode == RipleyStat.L:
                 curve = _l_transform(pair_counts_cumulative(members, support), len(coords), area)
             else:

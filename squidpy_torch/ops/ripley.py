@@ -3,16 +3,21 @@ sampling (counterpart of ``squidpy_tpu/ops/ripley.py``).
 
 Pair counts run as kernel K7 on the card (``csrc/ripley_pairs.cu``): every
 pair ``i < j`` of a point set, or of each set of a batch, its first
-threshold found by a search, counted into a histogram made cumulative;
-from 100,000 points on, one set goes to the binned sweep instead (K1 with
-one class, :func:`squidpy_torch.ops.pairbins.binned_ordered_pair_counts`),
-as in the JAX package. The nearest-neighbour batch of the envelope is
+threshold found through a bucket table built once a support
+(:func:`_k7_table`), counted into a histogram made cumulative. One large
+set may take the binned sweep instead (K1 with one class,
+:func:`squidpy_torch.ops.pairbins.binned_ordered_pair_counts`): on the CPU
+from 100,000 points, as in the JAX package, on the card only where it was
+measured faster (:func:`_k7_route`). The nearest-neighbour batch of the envelope is
 kernel K8 (:func:`squidpy_torch.ops.knn.nearest_points`). The point-process
 sampler is host numpy/scipy, copied from the JAX package, so its clouds are
 bitwise the same for the same generator.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,25 +35,117 @@ __all__ = [
     "ripley_pairs",
 ]
 
-# K7's launch: 256 threads, a tile of 512 points (rows staged for 1-3
-# dimensions), a bucket table, and L-bin uint32 histograms, one a warp where
-# they fit
+# K7's launch: 256 threads, each holding 4 column points; a row tile of at
+# most 256 points staged for 1-3 dimensions; the thresholds, the bucket
+# splits and the counters in shared memory where they fit
 _K7_SMEM_BYTES = 200 * 1024
-_K7_TILE = 512
+_K7_THREADS = 256
 _K7_WARPS = 8
-_K7_BUCKETS = 2048
+_K7_COLS = 1024  # a column tile: 4 points a thread
+_K7_ROW_TILE_MAX = 256
+_K7_MIN_BUCKETS = 2048
+_K7_SLOT_BUCKETS = 1024  # buckets of the slot layout: 2 counters a bucket a copy
+_K7_SLOT_COPIES = 4  # copies of the slot counters, each shared by two warps
+_K7_MIN_ITEMS = 512  # row tiles shrink (to 32 points) until a launch has this many work items
+_K7_DENSE_MAX_N = 1_000_000  # `auto` takes K7 on the card up to here (measured; see _k7_route)
+_K7_DENSE_MIN_REACH = 0.5  # and above, while the support reaches this share of the points' extent
+_K7_HIST_MODES = {"slots": 0, "shared": 1, "global": 2}
 _PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 26}  # (rows, n) temporaries of K7's plain version
 
 
-def _k7_layout(dim: int, n_thr: int) -> tuple[int, int]:
-    """(shared histogram copies, thresholds staged) of one K7 block: a copy a
-    warp, else one, else none (global atomics), with the thresholds staged
-    where they fit."""
-    base = (_K7_TILE * dim if dim <= 3 else 0) * 4 + _K7_BUCKETS * 4
+class K7Layout(NamedTuple):
+    hist: str  # "slots": slot counters (2 a bucket) and the splits in shared memory; "shared": L bins; "global"
+    copies: int  # shared copies of the counters (0 with "global")
+    n_buckets: int  # a power of two, at least 4L
+    thr_shared: bool
+
+
+def _k7_layout(dim: int, n_thr: int) -> K7Layout:
+    """K7's shared memory: for L <= ``_K7_SLOT_BUCKETS / 4``
+    ``_K7_SLOT_COPIES`` copies of the slot counters beside the splits and
+    the thresholds; else the
+    table in global memory and L-bin copies, a warp's, then one, then none
+    (global atomics), with the thresholds staged where they still fit."""
+    rows = _K7_ROW_TILE_MAX * dim * 4 if dim <= 3 else 0
+    thr = (n_thr + n_thr % 2) * 4
+
+    def fits(*parts: int) -> bool:
+        return rows + sum(parts) <= _K7_SMEM_BYTES
+
+    if 4 * n_thr <= _K7_SLOT_BUCKETS:
+        slots = 2 * (_K7_SLOT_BUCKETS + 1)
+        words = _K7_SLOT_COPIES * (slots + n_thr) + slots // 2 + 1 + 2 * n_thr  # counters, splits, sums
+        if fits(words * 4, thr):
+            return K7Layout("slots", _K7_SLOT_COPIES, _K7_SLOT_BUCKETS, True)
+    n_buckets = max(_K7_MIN_BUCKETS, 1 << (4 * n_thr - 1).bit_length())
     for copies in (_K7_WARPS, 1):
-        if base + (1 + copies) * n_thr * 4 <= _K7_SMEM_BYTES:
-            return copies, 1
-    return 0, int(base + n_thr * 4 <= _K7_SMEM_BYTES)
+        if fits(copies * n_thr * 4):
+            return K7Layout("shared", copies, n_buckets, fits(copies * n_thr * 4, thr))
+    return K7Layout("global", 0, n_buckets, fits(thr))
+
+
+def _k7_row_tile(n_sets: int, n: int) -> int:
+    """K7's row tile: the largest power of two up to ``_K7_ROW_TILE_MAX``
+    that leaves a launch ``_K7_MIN_ITEMS`` work items, 32 at least."""
+    col_tiles = -(-n // _K7_COLS)
+    row_tile = _K7_ROW_TILE_MAX
+    while row_tile > 32 and n_sets * (_K7_COLS // row_tile) * col_tiles * (col_tiles + 1) // 2 < _K7_MIN_ITEMS:
+        row_tile //= 2
+    return row_tile
+
+
+def _k7_table(thr: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """K7's bucket table for ``thr`` (L,) float32 ascending, on its device:
+    int32 ``(3 (n_buckets + 1) + 1,)``. A pair's bucket is
+    ``min(floor(float32(d2 * scale)), n_buckets)``, ``scale =
+    float32(n_buckets / thr[-1])`` (0 unless finite and positive); bucket
+    ``n_buckets`` also takes every d2 past ``thr[-1]`` and NaN. For each
+    bucket: a float32 split (as bits), then two slot bins. A d2 of the
+    bucket ``<= split`` takes the first, else the second (-1: counted
+    nowhere). The split is the bucket's largest d2 up to ``thr[-1]`` when
+    no threshold lies in ``[least, largest)`` of its d2 (then every d2 of
+    the bucket has one first threshold), and that threshold when one value
+    does (repeated or not) and the bucket ends below ``thr[-1]``; else it is
+    NaN and the kernel walks the thresholds from the first bin. The last
+    entry holds the scale's bits."""
+    dev = thr.device
+    n_thr = thr.numel()
+    scale = torch.full((1,), float(n_buckets), dtype=torch.float32, device=dev) / thr[-1:]
+    scale = torch.where((scale > 0) & torch.isfinite(scale), scale, torch.zeros_like(scale))
+    s64 = scale.to(torch.float64)
+    top = thr[-1:].view(torch.int32).to(torch.int64)  # d2 <= thr[-1]: non-negative floats order as their bits
+    b = torch.arange(1, n_buckets + 1, device=dev, dtype=torch.float64)
+    # the least x with float32(x * scale) >= b lies within a few ulps of b / scale;
+    # float32 x times float32 scale is exact in float64, so one rounding gives the kernel's product
+    x0 = (b / s64).to(torch.float32).view(torch.int32).to(torch.int64)
+    inf = 0x7F800000  # with scale 0 no d2 reaches bucket 1
+    cand = (x0[:, None] + torch.arange(-4, 5, device=dev)).clamp(0, inf)
+    prod = (cand.to(torch.int32).view(torch.float32).to(torch.float64) * s64).to(torch.float32)
+    ok = torch.cat([prod >= b[:, None].to(torch.float32), torch.ones_like(cand[:, :1], dtype=torch.bool)], dim=1)
+    cand = torch.cat([cand, torch.full_like(cand[:, :1], inf)], dim=1)
+    lo = torch.cat([torch.zeros_like(top), cand.gather(1, ok.to(torch.int8).argmax(dim=1, keepdim=True))[:, 0]])
+    end = torch.cat([lo[1:] - 1, torch.full_like(top, 2**31 - 1)])  # the bucket's largest d2, past thr[-1] or not
+    hi = torch.minimum(end, top)
+
+    def f32(bits: torch.Tensor) -> torch.Tensor:
+        return bits.to(torch.int32).view(torch.float32)
+
+    first = torch.searchsorted(thr, f32(lo))
+    last = torch.searchsorted(thr, f32(hi))
+    empty = lo > hi
+    inside = torch.where(empty, 0, last - first)
+    f = first.clamp(max=n_thr - 1)
+    one_value = thr[f] == thr[(last - 1).clamp(min=0)]
+    walk = empty | ((inside >= 1) & (~one_value | (end > top)))
+    split = torch.where(inside == 0, f32(hi), thr[f])
+    split = torch.where(walk, torch.full_like(split, float("nan")), split)
+    k0 = torch.where(empty, 0, f)
+    k1 = torch.where((inside >= 1) & ~walk, last, -1)
+    table = torch.empty(3 * (n_buckets + 1) + 1, dtype=torch.int32, device=dev)
+    table[: n_buckets + 1] = split.view(torch.int32)
+    table[n_buckets + 1 : -1] = torch.stack([k0, k1], dim=1).reshape(-1).to(torch.int32)
+    table[-1:] = scale.view(torch.int32)
+    return table
 
 
 def _ripley_pairs_plain(points: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -87,41 +184,94 @@ def ripley_pairs(points: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor
     n_sets, n, dim = points.shape
     thresholds = thresholds.to(torch.float32).reshape(-1)
     n_thr = thresholds.numel()
-    order = torch.argsort(thresholds, stable=True)  # the kernel takes them ascending
-    thr = thresholds[order].contiguous()
     if n < 2 or n_thr == 0 or n_sets == 0 or dim == 0:
         return torch.zeros((n_sets, n_thr), dtype=torch.int64, device=points.device)
-    if points.device.type == "cpu":
-        counts = _ripley_pairs_plain(points.to(torch.float32), thr)
-    else:
-        counts = _launch_k7(points.to(torch.float32).contiguous(), thr)
-    out = torch.empty_like(counts)
-    out[:, order] = counts
+    if points.device.type != "cpu":  # the thresholds read back once: K7's table is built on the host, once a support
+        return _pairs_host_thresholds(points, to_host(thresholds))
+    order = torch.argsort(thresholds, stable=True)  # counted ascending
+    out = torch.empty((n_sets, n_thr), dtype=torch.int64)
+    out[:, order] = _ripley_pairs_plain(points.to(torch.float32), thresholds[order].contiguous())
     return out
 
 
-def _launch_k7(points: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)
+def _k7_inputs(thr_bytes: bytes, dim: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ascending float32 thresholds (given as bytes) and K7's table for them,
+    built on the host and moved to ``device`` once a support: ``ripley`` L
+    counts every cell type and the envelope against the same support."""
+    thr = torch.frombuffer(bytearray(thr_bytes), dtype=torch.float32)
+    table = _k7_table(thr, _k7_layout(dim, thr.numel()).n_buckets)
+    return thr.to(device), table.to(device)
+
+
+def _pairs_host_thresholds(points: torch.Tensor, thr: np.ndarray) -> torch.Tensor:
+    """:func:`ripley_pairs` with float32 thresholds held on the host; on the
+    card the sorted thresholds and K7's table come from :func:`_k7_inputs`."""
+    if points.device.type == "cpu" or points.shape[1] < 2 or thr.size == 0:
+        return ripley_pairs(points, torch.from_numpy(thr))
+    ascending = bool(np.all(thr[1:] >= thr[:-1]))
+    order = np.arange(thr.size) if ascending else np.argsort(thr, kind="stable")
+    thr_dev, table = _k7_inputs(np.ascontiguousarray(thr[order]).tobytes(), points.shape[2], str(points.device))
+    counts = _launch_k7(points.to(torch.float32).contiguous(), thr_dev, table=table)
+    if ascending:
+        return counts
+    out = torch.empty_like(counts)
+    out[:, torch.from_numpy(order).to(points.device)] = counts
+    return out
+
+
+def _launch_k7(points: torch.Tensor, thr: torch.Tensor, row_tile: int | None = None,
+               layout: K7Layout | None = None, mode: int = 0, table: torch.Tensor | None = None) -> torch.Tensor:
+    """K7 on ``points`` (S, n, d) float32 and ascending ``thr`` (L,) float32,
+    with ``table`` from :func:`_k7_table` for the layout's bucket count
+    (built here when None). ``row_tile`` and ``layout`` override the
+    launch's shape; ``mode`` 1 or 2 (d = 2, the slot layout) runs only d2
+    and the compare with the largest threshold, or adds the bucket, its
+    split and the slot, and returns the kernel's register sums (a 1-element
+    tensor) instead of counts."""
     n_sets, n, dim = points.shape
     n_thr = thr.numel()
     _cuda.require(points, "points", torch.float32)
     _cuda.require(thr, "thresholds", torch.float32)
-    if n >= 2**31 or n_sets >= 2**31 or n_thr >= 2**31:
-        raise ValueError("K7 takes fewer than 2^31 points, sets and thresholds.")
-    copies, staged = _k7_layout(dim, n_thr)
+    if n >= 2**31 or n_sets >= 2**31 or n_thr >= 2**29:
+        raise ValueError("K7 takes fewer than 2^31 points and sets and 2^29 thresholds.")
+    layout = layout or _k7_layout(dim, n_thr)
+    row_tile = row_tile or _k7_row_tile(n_sets, n)
+    if table is None:
+        table = _k7_table(thr, layout.n_buckets)
+    _cuda.require(table, "table", torch.int32, (3 * (layout.n_buckets + 1) + 1,))
     hist = torch.zeros(n_sets * n_thr + 1, dtype=torch.int64, device=points.device)
     out = torch.empty((n_sets, n_thr), dtype=torch.int64, device=points.device)
     code = _cuda.library().sqt_ripley_pairs(
-        points.data_ptr(), n_sets, n, dim, thr.data_ptr(), n_thr, _K7_BUCKETS, copies, staged, hist.data_ptr(),
-        out.data_ptr(), _cuda.stream_ptr(),
+        points.data_ptr(), n_sets, n, dim, thr.data_ptr(), n_thr, table.data_ptr(), layout.n_buckets,
+        _K7_HIST_MODES[layout.hist], layout.copies, int(layout.thr_shared), row_tile,
+        mode, hist.data_ptr(), out.data_ptr(), _cuda.stream_ptr(),
     )
     _cuda.check(code, "ripley_pairs")
     _cuda.launches["ripley_pairs"] += 1
-    return out
+    return out if mode == 0 else hist[:1]
 
 
 def _support_sq(support: np.ndarray) -> np.ndarray:
     """``float32(float64(support) ** 2)``: the squared thresholds, as the JAX package builds them."""
     return (np.asarray(support, dtype=np.float64) ** 2).astype(np.float32)
+
+
+def _k7_route(n: int, support: np.ndarray, extent: float, device: torch.device) -> str:
+    """``pair_counts_cumulative(method='auto')``'s route for one set of ``n``
+    points whose box spans ``extent`` (its longest side): ``dense`` (K7)
+    or ``binned`` (the planner and K1). On the CPU the JAX package's cut:
+    binned from 100,000 points. On the card dense up to
+    ``_K7_DENSE_MAX_N`` points, where it was measured faster at Ripley's
+    default support and at a 50 um one, and above that while the support
+    reaches ``_K7_DENSE_MIN_REACH`` of the extent, where the sweep culls
+    little."""
+    if device.type != "cuda":
+        return "binned" if n >= 100_000 else "dense"
+    if n <= _K7_DENSE_MAX_N:
+        return "dense"
+    reach = float(np.max(support)) / extent if extent > 0 else np.inf
+    return "dense" if reach >= _K7_DENSE_MIN_REACH else "binned"
 
 
 def pair_counts_cumulative(
@@ -131,20 +281,31 @@ def pair_counts_cumulative(
     ``(L,)``: the KDTree ``two_point_correlation(...) - n`` quantity of the
     reference's L function.
 
-    ``method='auto'`` takes the binned sweep (K1 with one class) from 100,000
-    points on, the dense sweep (K7) below; ``'dense'`` and ``'binned'``
-    force one. ``row_tile`` is kept for the JAX package's signature and
-    changes nothing."""
+    ``method='auto'`` takes the route of :func:`_k7_route`: the dense sweep
+    (K7) or the binned sweep (K1 with one class); ``'dense'`` and
+    ``'binned'`` force one. Both count the same pairs. ``row_tile`` is kept
+    for the JAX package's signature and changes nothing."""
     if method not in ("auto", "dense", "binned"):
         raise ValueError(f"Unknown pair-count method `{method}`.")
-    if method == "binned" or (method == "auto" and points.shape[0] >= 100_000):
+    dev = get_device()
+    if method == "auto":  # the extent matters only past _K7_DENSE_MAX_N points on the card
+        n = points.shape[0]
+        extent = _extent(points) if dev.type == "cuda" and n > _K7_DENSE_MAX_N else 0.0
+        method = _k7_route(n, support, extent, dev)
+    if method == "binned":
         from squidpy_torch.ops.pairbins import binned_ordered_pair_counts
 
         return binned_ordered_pair_counts(points, support)
-    pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32)).to(get_device())
-    thr = torch.from_numpy(_support_sq(support)).to(pts.device)
+    pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32)).to(dev)
     # triangular counts doubled to ordered pairs (exact in float64 below 2^53)
-    return 2.0 * to_host(ripley_pairs(pts, thr)[0]).astype(np.float64)
+    return 2.0 * to_host(_pairs_host_thresholds(pts[None], _support_sq(support))[0]).astype(np.float64)
+
+
+def _extent(points: np.ndarray) -> float:
+    """The longest side of the finite points' box (0 with none)."""
+    pts = np.asarray(points, dtype=np.float64)
+    pts = pts[np.isfinite(pts).all(axis=1)]
+    return float(np.ptp(pts, axis=0).max()) if len(pts) else 0.0
 
 
 def batched_nn_distances(queries: np.ndarray, clouds: np.ndarray) -> np.ndarray:
@@ -164,8 +325,7 @@ def batched_pair_counts(clouds: np.ndarray, support: np.ndarray) -> np.ndarray:
     n = clouds.shape[1]
     if n > 65_000:
         raise ValueError(f"batched_pair_counts is exact only for n ≤ 65k per cloud, got {n}.")
-    dev = get_device()
-    tri = ripley_pairs(torch.from_numpy(clouds).to(dev), torch.from_numpy(_support_sq(support)).to(dev))
+    tri = _pairs_host_thresholds(torch.from_numpy(clouds).to(get_device()), _support_sq(support))
     return 2.0 * to_host(tri).astype(np.float64)
 
 

@@ -206,14 +206,159 @@ def test_batched_pair_counts_match_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_k7_layout():
-    """Shared histograms a warp while they fit, then one, then none (global
-    atomics, thresholds staged while they fit, else read from global memory)."""
-    assert trip._k7_layout(2, 50) == (8, 1)
-    assert trip._k7_layout(5, 50) == (8, 1)  # a runtime dim stages no rows
-    assert trip._k7_layout(2, 8000) == (1, 1)
-    assert trip._k7_layout(2, 30000) == (0, 1)
-    assert trip._k7_layout(2, 60000) == (0, 0)
+@pytest.mark.parametrize(("dim", "n_thr", "want"), [
+    (2, 50, trip.K7Layout("slots", trip._K7_SLOT_COPIES, 1024, True)),
+    (5, 50, trip.K7Layout("slots", trip._K7_SLOT_COPIES, 1024, True)),  # a runtime dim stages no rows
+    (2, 8000, trip.K7Layout("shared", 1, 32768, True)),
+    (2, 30000, trip.K7Layout("shared", 1, 131072, False)),
+    (2, 60000, trip.K7Layout("global", 0, 262144, False)),
+])
+def test_k7_layout(dim, n_thr, want):
+    """Slot counters beside the splits and the thresholds while L <= 256
+    (1024 buckets), then L-bin copies (a warp's, then one), then none (global
+    atomics), with the thresholds staged while they still fit; always a
+    power of two of at least 4L buckets."""
+    got = trip._k7_layout(dim, n_thr)
+    assert got == want
+    assert got.n_buckets >= 4 * n_thr and got.n_buckets & (got.n_buckets - 1) == 0
+    rows = trip._K7_ROW_TILE_MAX * dim * 4 if dim <= 3 else 0
+    thr = (n_thr + n_thr % 2) * got.thr_shared
+    if got.hist == "slots":
+        words = got.copies * (2 * (got.n_buckets + 1) + n_thr) + got.n_buckets + 2 + 2 * n_thr
+    else:
+        words = got.copies * n_thr
+    assert rows + 4 * (words + thr) <= trip._K7_SMEM_BYTES
+
+
+def _table_numpy(thr: np.ndarray, n_buckets: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.float32]:
+    """Each bucket's split and slot bins by a numpy search: its least d2
+    found by ``nextafter`` steps from ``b / scale`` until the float32
+    product with the scale crosses b, its largest one step below the next
+    bucket's least (the top bucket: every larger float); the thresholds in
+    ``[least, largest)`` up to ``thr[-1]`` decide the rest."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = np.float32(n_buckets) / thr[-1]
+    scale = scale if scale > 0 and np.isfinite(scale) else np.float32(0)
+    b = np.arange(n_buckets + 1, dtype=np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        x = np.where(b > 0, (b / scale).astype(np.float32) if scale > 0 else np.float32(np.inf), np.float32(0))
+    x = x.astype(np.float32)
+    while True:  # down while the step below is still in the bucket or above
+        prev = np.nextafter(x, np.float32(-np.inf))
+        down = (b > 0) & (prev >= 0) & (prev * scale >= b)
+        if not down.any():
+            break
+        x = np.where(down, prev, x)
+    while True:  # up while below the bucket
+        up = (b > 0) & (x * scale < b) & np.isfinite(x)
+        if not up.any():
+            break
+        x = np.where(up, np.nextafter(x, np.float32(np.inf)), x)
+    end = np.append(np.nextafter(x[1:], np.float32(-np.inf)), np.float32(np.inf))
+    hi = np.minimum(end, thr[-1])
+    empty = x > hi
+    first, last = np.searchsorted(thr, x, "left"), np.searchsorted(thr, hi, "left")
+    inside = np.where(empty, 0, last - first)  # thresholds in [least, largest) of the bucket
+    f = np.minimum(first, len(thr) - 1)
+    one_value = thr[f] == thr[np.maximum(last - 1, 0)]
+    walk = empty | ((inside >= 1) & (~one_value | (end > thr[-1])))
+    split = np.where(walk, np.float32(np.nan), np.where(inside == 0, hi, thr[f])).astype(np.float32)
+    return split, np.where(empty, 0, f), np.where((inside >= 1) & ~walk, last, -1), scale
+
+
+@pytest.mark.parametrize("n_thr", [50, 8000, 60000])
+@pytest.mark.parametrize("kind", ["linear", "random", "tiny"])
+def test_k7_table(n_thr, kind):
+    """K7's bucket table against a numpy search at each bucket's
+    boundaries: every bucket's split and two slot bins, and the scale;
+    Ripley's linear support, random thresholds with ties, and thresholds
+    near the bottom of float32's normal range."""
+    rng = np.random.default_rng(n_thr)
+    support = {"linear": np.linspace(0.0, 80.0, n_thr), "random": rng.uniform(0, 3e4, n_thr).round(-1),
+               "tiny": np.linspace(0.0, 1e-15, n_thr)}[kind]
+    thr = np.sort(_thresholds(support))
+    n_buckets = trip._k7_layout(2, n_thr).n_buckets
+    table = trip._k7_table(torch.from_numpy(thr), n_buckets).numpy()
+    split, k0, k1, scale = _table_numpy(thr, n_buckets)
+    assert table.shape == (3 * (n_buckets + 1) + 1,) and table[-1] == scale.view(np.int32)
+    np.testing.assert_array_equal(table[: n_buckets + 1].view(np.float32), split)
+    np.testing.assert_array_equal(table[n_buckets + 1 : -1 : 2], k0)
+    np.testing.assert_array_equal(table[n_buckets + 2 : -1 : 2], k1)
+    assert (~np.isnan(split)).mean() > 0.99  # nearly every bucket is decided by its split
+
+
+@pytest.mark.parametrize("n_thr", [1, 7, 37, 7000])
+def test_k7_table_gives_each_pairs_first_threshold(n_thr):
+    """Every d2 of a point set, beyond the last threshold, on and beside
+    each threshold, NaN and inf: the kernel's rule on the table (the
+    bucket by the float32 product's floor; its slot by the split, or the
+    walk from the first bin where the split is NaN) is
+    ``searchsorted(thr, d2)``, and no bin past the last threshold."""
+    pts = _points(500, 17).astype(np.float32)
+    thr = np.sort(_thresholds(np.linspace(0.0, 60.0, n_thr) if n_thr > 1 else np.r_[30.0]))
+    if n_thr == 7:
+        thr = np.sort(np.r_[thr, thr[3], thr[3]])  # repeated thresholds
+    n_buckets = trip._k7_layout(2, len(thr)).n_buckets
+    table = trip._k7_table(torch.from_numpy(thr), n_buckets).numpy()
+    split, slot_bin, scale = table[: n_buckets + 1].view(np.float32), table[n_buckets + 1 : -1], table[-1:].view(np.float32)[0]
+    d2 = np.concatenate([_upper(_d2_port(pts, pts)), thr, np.nextafter(thr, np.float32(np.inf)),
+                         np.nextafter(thr, np.float32(0)), np.float32([np.nan, np.inf, 0.0])]).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        y = d2 * scale
+    bucket = np.where(np.isfinite(y) & (y < n_buckets), np.floor(np.nan_to_num(y)), n_buckets).astype(np.int64)
+    sp = split[bucket]
+    with np.errstate(invalid="ignore"):
+        k = slot_bin[2 * bucket + ~(d2 <= sp)].astype(np.int64)
+    for i in np.flatnonzero(np.isnan(sp)):
+        k[i] = -1
+        if d2[i] <= thr[-1]:
+            k[i] = slot_bin[2 * bucket[i]]
+            while thr[k[i]] < d2[i]:
+                k[i] += 1
+    with np.errstate(invalid="ignore"):
+        want = np.where(d2 <= thr[-1], np.searchsorted(thr, d2, "left"), -1)
+    np.testing.assert_array_equal(k, want)
+
+
+@pytest.mark.parametrize(("n_sets", "n", "want"), [
+    (1, 52_735, 256), (100, 1000, 128), (1, 200_276, 256), (1, 1025, 32), (7, 5000, 128),
+])
+def test_k7_row_tile(n_sets, n, want):
+    """The largest row tile up to 256 that leaves every launch
+    ``_K7_MIN_ITEMS`` work items, 32 at least, dividing the column tile."""
+    row_tile = trip._k7_row_tile(n_sets, n)
+    assert row_tile == want and trip._K7_COLS % row_tile == 0
+    col_tiles = -(-n // trip._K7_COLS)
+    items = n_sets * trip._K7_COLS // row_tile * col_tiles * (col_tiles + 1) // 2
+    assert items >= trip._K7_MIN_ITEMS or row_tile == 32
+
+
+@pytest.mark.parametrize(("n", "max_support", "extent", "device", "want"), [
+    (99_999, 7071.0, 10_000.0, "cpu", "dense"),  # the CPU keeps the JAX package's 100k cut
+    (100_000, 7071.0, 10_000.0, "cpu", "binned"),
+    (100_000, 50.0, 10_000.0, "cpu", "binned"),
+    (100_000, 7071.0, 10_000.0, "cuda", "dense"),  # the card: dense where it was measured faster
+    (200_000, 50.0, 10_000.0, "cuda", "dense"),
+    (1_000_000, 7071.0, 10_000.0, "cuda", "dense"),
+    (1_000_000, 50.0, 10_000.0, "cuda", "dense"),
+    (2_000_000, 7071.0, 10_000.0, "cuda", "dense"),  # past 1M: dense while the support reaches far
+    (2_000_000, 50.0, 10_000.0, "cuda", "binned"),
+])
+def test_k7_route(n, max_support, extent, device, want):
+    support = np.linspace(0.0, max_support, 50)
+    assert trip._k7_route(n, support, extent, torch.device(device)) == want
+
+
+def test_pair_counts_auto_takes_the_route():
+    """``auto`` counts the same pairs by either route (CPU: the plain binned
+    sweep from 100,000 points, dense below)."""
+    pts = _points(2000, 44)
+    support = np.linspace(0.0, 20.0, 30)
+    extent = trip._extent(pts)
+    assert 99.0 < extent <= 100.0
+    assert trip._k7_route(len(pts), support, extent, torch.device("cpu")) == "dense"
+    np.testing.assert_array_equal(trip.pair_counts_cumulative(pts, support),
+                                  trip.pair_counts_cumulative(pts, support, method="binned"))
 
 
 def test_batched_pair_counts_cloud_limit():
@@ -445,16 +590,36 @@ def test_ecdf_rows_match_jax(dtype):
 # ------------------------------------------------------------------ the kernels on the card
 
 
+def _k7_card_cases() -> list[tuple[str, np.ndarray, np.ndarray]]:
+    """K7's shapes on the card: the slot layout (one set, batches, the
+    envelope's 100 clouds of 1000), coincident points (every pair in one
+    bin, two sets so the counters flush on the change of set), n = 1, 2,
+    511, 513 and one past the 1024-point column tile, NaN coordinates,
+    d = 1, 3, 5, repeated thresholds, and the generic path's layouts at
+    8000, 30,000 and 60,000 thresholds."""
+    rng = np.random.default_rng(12)
+    cases = [(f"S={s} n={n} d={d} L={L}", rng.uniform(0, 100, (s, n, d)), np.linspace(0.0, 80.0, L))
+             for s, n, d, L in [(1, 3000, 2, 50), (7, 1000, 2, 50), (100, 1000, 2, 50), (2, 1500, 3, 9),
+                                (1, 700, 5, 40), (2, 1500, 1, 9), (1, 1025, 2, 8000), (1, 1025, 2, 30000),
+                                (1, 600, 2, 60000)]]
+    cases += [(f"n={n}", rng.uniform(0, 100, (1, n, 2)), np.linspace(0.0, 80.0, 50)) for n in (1, 2, 511, 513, 1025)]
+    cases.append(("coincident", np.repeat(rng.uniform(0, 100, (2, 1, 2)), 3000, axis=1), np.linspace(0.0, 80.0, 50)))
+    nan = rng.uniform(0, 100, (1, 3000, 2))
+    nan[0, rng.integers(0, 3000, 40), rng.integers(0, 2, 40)] = np.nan
+    cases.append(("NaN coordinates", nan, np.linspace(0.0, 80.0, 50)))
+    cases.append(("repeated thresholds", rng.uniform(0, 100, (1, 2000, 2)), np.r_[0, 0, 10, 10, 10, 50, 200, 3]))
+    return cases
+
+
 @pytest.mark.cuda
 def test_k7_matches_plain_on_card(cuda_card):
-    for n_sets, n, dim, n_thr in [(1, 3000, 2, 50), (7, 1000, 2, 50), (2, 1500, 3, 9), (1, 700, 5, 40),
-                                  (1, 1025, 2, 8000), (1, 1025, 2, 30000), (1, 600, 2, 60000)]:
-        pts = torch.from_numpy(np.random.default_rng(n).uniform(0, 100, (n_sets, n, dim)).astype(np.float32))
-        thr = torch.from_numpy(_thresholds(np.linspace(0.0, 80.0, n_thr)))
-        want = trip.ripley_pairs(pts, thr)
-        got = trip.ripley_pairs(pts.cuda(), thr.cuda())
+    for name, pts, support in _k7_card_cases():
+        p = torch.from_numpy(pts.astype(np.float32))
+        thr = torch.from_numpy(_thresholds(support))
+        want = trip.ripley_pairs(p, thr)
+        got = trip.ripley_pairs(p.cuda(), thr.cuda())
         torch.cuda.synchronize()
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=name)
 
 
 @pytest.mark.cuda

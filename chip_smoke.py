@@ -37,6 +37,13 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       edges, since its closeness sweep took ~17 s at 1M cells on the
       8-core host of one H100); each
       call's launches are read and the kernels it must run required;
+   e. ``examples/ligrec_1m.py``'s workload: 1M cells x 380 genes of
+      Poisson(1.2) counts as uint8, 16 clusters, 1024 interactions (the
+      first 32 genes against the next 32), 1000 permutations, threshold
+      0.01: the device expression handle made first, then ``ligrec`` twice
+      (seeds 0 and 1), the second under the CPU profiler, whose ``[host]``
+      line splits it (prepare, observed means, permutations, counts,
+      p-values, container) (K10 words, K9 counts);
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -116,9 +123,17 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    against the binned K1, which must be equal; then both routes of
    ``pair_counts_cumulative`` timed on one type of 100k to 2M cells at
    Ripley's default support and at 50 um (``[diag] k7_route`` lines, equal
-   counts asserted).
+   counts asserted); on part e's own inputs, K9 on its first permutation
+   chunk (with the one-hot product of JAX's form, TF32 off, as the
+   yardstick of its sums, a ``[diag] k9_layout`` line of its block layouts
+   and a ``[diag] ligrec`` line of a chunk's device steps: words,
+   permutations, K9) and K10 on that chunk's words, then K9 in float64,
+   at 2 and 100 clusters, odd cell counts, a cluster with no cells, labels
+   outside the clusters, fractional data and permutation counts that are
+   not a multiple of a launch's, and K10 at n = 1, 1625, 1626, 65,537 and
+   1M, unflipped, and with more keys than the grid's rows.
    Integer kernels
-   (K1-K4, K7), K6's CSR (offsets, columns and distances), K8's indices
+   (K1-K4, K7, K9, K10), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
@@ -137,7 +152,10 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    ``uns``, and nhood and autocorrelation on the radius graph agree as
    above; and at 3000 cells ``ripley`` L, G and F (tables and p-values),
    ``interaction_matrix`` (counts and normalised rows bitwise, weighted
-   sums to rtol 1e-12) and ``centrality_scores`` (bitwise).
+   sums to rtol 1e-12) and ``centrality_scores`` (bitwise); and ``ligrec``
+   bitwise (means and p-values) at 3000 cells of fractional data (the
+   float64 route, FDR along the clusters) and 70,000 cells x 64 genes of
+   counts (the float32 route through the device expression handle).
 
 Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -174,6 +192,7 @@ RIPLEY_BIG_SHARE = 0.2  # the largest type's share: 200k cells (its L counts: K7
 RIPLEY_SIMS, RIPLEY_OBS, RIPLEY_STEPS, RIPLEY_NEIGH = 100, 1000, 50, 2  # `ripley`'s defaults
 K8_LIBRARY_QUERIES = 50_000  # K8 beside torch.cdist + torch.topk: the queries cut to fit the (m, n) distances
 CENTRALITY_CELLS = 100_000  # centrality_scores' host closeness sweep runs on a corner of this many cells
+LIGREC_CELLS, LIGREC_GENES, LIGREC_CLS, LIGREC_PERMS = 1_000_000, 380, 16, 1000  # examples/ligrec_1m.py
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; 32-bit integer ops are counted at it too
@@ -191,6 +210,16 @@ class _Categorical:
 class StandIn:
     """Numpy-only stand-in for an AnnData container: obs/obsm/obsp/uns
     mappings, and X with its var_names once expression is attached."""
+
+    raw = None
+
+    @property
+    def n_obs(self) -> int:
+        return self.obsm["spatial"].shape[0]
+
+    @property
+    def n_vars(self) -> int:
+        return len(self.var_names)
 
     def __init__(self, coords: np.ndarray, codes: np.ndarray, n_cls: int) -> None:
         self.obs = {"cluster": _Categorical(codes, n_cls)}
@@ -2068,6 +2097,320 @@ def ripley_reference_check(n: int) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _ligrec_dataset(n: int, n_genes: int, seed: int, integral: bool = True) -> StandIn:
+    """Part e's container: ``(n, n_genes)`` Poisson(1.2) counts as uint8,
+    drawn on the card from a seeded generator (or, not ``integral``, those
+    counts times lognormal float32 factors, as normalised data), and
+    ``LIGREC_CLS`` uniform clusters from the seed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.poisson(torch.full((n, n_genes), 1.2, device="cuda"), generator=gen).clamp_(max=255)
+    if integral:
+        x = x.to(torch.uint8)
+    else:
+        x = (x * torch.exp(0.5 * torch.randn(x.shape, device="cuda", generator=gen))).to(torch.float32)
+    codes = np.random.default_rng(seed).integers(0, LIGREC_CLS, size=n)
+    adata = StandIn(np.zeros((n, 2)), codes, LIGREC_CLS)
+    adata.X = x.cpu().numpy()
+    adata.var_names = [f"G{i}" for i in range(n_genes)]
+    return adata
+
+
+def _ligrec_interactions(adata: StandIn) -> list[tuple[str, str]]:
+    """``examples/ligrec_1m.py``'s interactions: the first 32 genes against the next 32."""
+    from itertools import product
+
+    genes = adata.var_names[:64]
+    return list(product(genes[:32], genes[32:64]))
+
+
+def _check_ligrec(res, n_inter: int, n_pairs: int, n_perms: int) -> None:
+    """What a ``ligrec`` call returned: the shapes, finite non-negative means,
+    p-values on the grid k / n_perms in [0, 1] and NaN exactly off the
+    entries with both means positive (the threshold mask is all true here)."""
+    means, pvalues = res.means.values, res.pvalues.values
+    if means.shape != (n_inter, n_pairs) or pvalues.shape != (n_inter, n_pairs):
+        raise AssertionError(f"ligrec: wrong shapes {means.shape}, {pvalues.shape}")
+    if len(res.means.index) != n_inter or len(res.means.columns) != n_pairs:
+        raise AssertionError("ligrec: wrong index or columns")
+    if not (np.isfinite(means).all() and (means >= 0).all()):
+        raise AssertionError("ligrec: means not finite and non-negative")
+    finite = np.isfinite(pvalues)
+    if not np.array_equal(finite, means > 0):
+        raise AssertionError("ligrec: NaN p-values off the zero means")
+    k = pvalues[finite] * n_perms
+    if not (np.all(k >= 0) and np.all(k <= n_perms) and np.array_equal(k, np.round(k))):
+        raise AssertionError("ligrec: p-values not on the grid k / n_perms in [0, 1]")
+
+
+def ligrec_path() -> tuple[StandIn, dict, dict]:
+    """Part e: ``examples/ligrec_1m.py``'s workload at full size. 1M cells x
+    380 genes of Poisson(1.2) counts (uint8), 16 clusters, 1024 interactions,
+    1000 permutations, threshold 0.01: the device expression handle made
+    first, then two ``ligrec`` calls (seeds 0 and 1), the second under the
+    CPU profiler (its ``[host]`` line splits the call by its ranges), with
+    the counters reset before them and read after; then checks of what they
+    returned. Returns the container, the launches and the seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+    from squidpy_torch._core.device_x import device_expression
+
+    t0 = time.perf_counter()
+    adata = _ligrec_dataset(LIGREC_CELLS, LIGREC_GENES, seed=21)
+    secs = {"setup_s": time.perf_counter() - t0}
+    interactions = _ligrec_interactions(adata)
+    _, secs["handle_s"] = _sync_time(lambda: device_expression(adata))
+    _cuda.reset_launches()
+    call = dict(interactions=interactions, n_perms=LIGREC_PERMS, use_raw=False, copy=True, threshold=0.01)
+    res, secs["ligrec_seed0_s"] = _sync_time(lambda: sqt.gr.ligrec(adata, "cluster", seed=0, **call))
+    res1, wall, steps = _profiled(lambda: sqt.gr.ligrec(adata, "cluster", seed=1, **call), "ligrec")
+    secs["ligrec_seed1_s"] = wall
+    launches = dict(_cuda.launches)
+    print(f"[host] ligrec n={LIGREC_CELLS} perms={LIGREC_PERMS}: wall={1e3 * wall:.1f}ms "
+          + " ".join(f"{k}={v:.1f}ms" for k, v in steps.items()), flush=True)
+    for r in (res, res1):
+        _check_ligrec(r, len(interactions), LIGREC_CLS**2, LIGREC_PERMS)
+    if not np.array_equal(res.means.values, res1.means.values):
+        raise AssertionError("ligrec: the observed means depend on the seed")
+    if np.array_equal(res.pvalues.values, res1.pvalues.values, equal_nan=True):
+        raise AssertionError("ligrec: two seeds gave the same p-values")
+    handle = device_expression(adata, create=False)
+    if handle is None or handle.ship_count != 1:
+        raise AssertionError("ligrec: the expression handle was not reused")
+    return adata, launches, secs
+
+
+def _ligrec_inputs(adata: StandIn, seed: int = 0):
+    """Part e's own device inputs as ``ligrec`` builds them for its first
+    permutation chunk: the float32 gene block, the codes, the interactions'
+    columns, the cluster pairs, the counts, ``m_sum``, the chunk's keys and
+    its shuffled labels."""
+    import torch
+
+    from squidpy_torch._core.device_x import device_expression
+    from squidpy_torch._core.rng import _keys_per_chunk, permutation_batch, spawn_keys
+    from squidpy_torch.ops.ligrec import cluster_means
+
+    x = device_expression(adata).dense_block(np.arange(64))
+    codes = np.asarray(adata.obs["cluster"].cat.codes, dtype=np.int64)
+    labels = torch.from_numpy(codes).cuda()
+    rec = torch.arange(32, device="cuda").repeat_interleave(32).to(torch.int32)
+    lig = (32 + torch.arange(32, device="cuda")).repeat(32).to(torch.int32)
+    pairs = torch.cartesian_prod(torch.arange(LIGREC_CLS), torch.arange(LIGREC_CLS)).cuda().to(torch.int32)
+    c1, c2 = pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
+    mean = cluster_means(x, labels, LIGREC_CLS).T.double()
+    m_sum = (mean[rec.long()][:, c1.long()] + mean[lig.long()][:, c2.long()]).float()
+    counts = torch.bincount(labels, minlength=LIGREC_CLS).float()
+    keys = spawn_keys(seed, LIGREC_PERMS)[: _keys_per_chunk(len(codes), torch.device("cuda"))]
+    shuffled = labels.to(torch.int32)[permutation_batch(keys, len(codes), torch.device("cuda"))]
+    return x, labels, (rec, lig, c1, c2), counts, m_sum, keys, shuffled
+
+
+def _ligrec_bound(n: int, n_genes: int, n_perms: int, n_inter: int, n_pairs: int, itemsize: int) -> tuple[float, str]:
+    # X read once and the (P, n) int32 labels once, the (I, J) int64 counts
+    # written once; an add a cell, gene and permutation and, a permutation,
+    # an (interaction, cluster pair)'s multiply, fma and compare
+    return _bound(n * n_genes * itemsize + 4.0 * n_perms * n + 8.0 * n_inter * n_pairs,
+                  float(n) * n_genes * n_perms + 3.0 * n_inter * n_pairs * n_perms)
+
+
+def check_ligrec_perms(name: str, x, shuffled, counts, idx, m_sum, n_cls: int, plain_warm: bool = True,
+                       library: bool = False, chunk_size: int | None = None) -> dict:
+    """K9 against its plain version on the same card tensors, bitwise; with
+    ``library`` also JAX's form of the sums, the one-hot product over the
+    chunk with TF32 off, as the yardstick."""
+    import torch
+
+    from squidpy_torch.ops.ligrec import ligrec_perm_counts, ligrec_perm_counts_plain
+
+    rec, lig, c1, c2 = idx
+    lib = None
+    if library:
+        onehot = torch.zeros((x.shape[0], shuffled.shape[0] * n_cls), dtype=x.dtype, device=x.device)
+        cols = shuffled.long().T + n_cls * torch.arange(shuffled.shape[0], device=x.device)[None, :]
+        onehot.scatter_(1, cols, 1.0)
+
+        def lib():
+            return onehot.T @ x
+    out = _compare(
+        name,
+        lambda: ligrec_perm_counts(x, shuffled, counts, rec, lig, c1, c2, m_sum, n_cls, chunk_size=chunk_size),
+        lambda: ligrec_perm_counts_plain(x, shuffled, counts, rec, lig, c1, c2, m_sum, n_cls),
+        3, _ligrec_bound(x.shape[0], x.shape[1], shuffled.shape[0], len(rec), len(c1), x.element_size()),
+        plain_warm=plain_warm, library=lib,
+    )
+    return out
+
+
+def _threefry_bound(n_keys: int, n: int) -> tuple[float, str]:
+    # 4 bytes written a word; ~90 32-bit operations a word (the key schedule,
+    # 20 rounds of add, rotate, xor, five key injections, the final xors)
+    return _bound(4.0 * n_keys * n + 8.0 * n_keys, 90.0 * n_keys * n)
+
+
+def check_threefry(name: str, keys, n: int, flip: bool = True, repeats: int = 3) -> dict:
+    """K10 against its plain version on the same card keys, bitwise."""
+    import torch
+
+    from squidpy_torch._core.rng import _threefry_plain, threefry_bits
+
+    keys_t = torch.from_numpy(np.ascontiguousarray(np.asarray(keys, np.uint32).reshape(-1, 2)).view(np.int32)).cuda()
+    return _compare(name, lambda: threefry_bits(keys_t, n, flip=flip), lambda: _threefry_plain(keys_t, n, flip),
+                    repeats, _threefry_bound(keys_t.shape[0], n))
+
+
+def ligrec_split(x, labels, idx, counts, m_sum, keys) -> None:
+    """``[diag] ligrec``: the device time of one permutation chunk's steps
+    (CUDA events): K10's words of both rounds, the stable sorts and gathers
+    of the running permutation and the labels' gather, and K9."""
+    import torch
+
+    from squidpy_torch._core.rng import permutation_batch, random_bits_device, split_keys
+    from squidpy_torch.ops.ligrec import ligrec_perm_counts
+
+    n = labels.shape[0]
+    key, sub1 = np.moveaxis(split_keys(keys), -2, 0)
+    _, sub2 = np.moveaxis(split_keys(key), -2, 0)
+    _, words_ms = _time_ms(lambda: (random_bits_device(sub1, n, labels.device, sort_keys=True),
+                                    random_bits_device(sub2, n, labels.device, sort_keys=True)), 3)
+    shuffled, perm_ms = _time_ms(lambda: labels.to(torch.int32)[permutation_batch(keys, n, labels.device)], 3)
+    _, k9_ms = _time_ms(lambda: ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS), 3)
+    chunks = -(-LIGREC_PERMS // len(keys))
+    print(f"[diag] ligrec n={n} chunk={len(keys)} keys ({chunks} chunks a call): words_ms={words_ms:.3f} "
+          f"permutation_ms={perm_ms:.3f} (words, sorts, gathers) k9_ms={k9_ms:.3f}; "
+          f"a call's device time ~{chunks * (perm_ms + k9_ms):.1f} ms", flush=True)
+
+
+def k9_layout_diag(x, shuffled, counts, idx, m_sum) -> None:
+    """``[diag] k9_layout``: K9 on part e's chunk with each block layout
+    (warps, permutations a warp), the one the wrapper picks first, each
+    bitwise equal to it."""
+    import torch
+
+    from squidpy_torch.ops import ligrec as ops
+
+    own = ops._k9_layout
+    picked = own(LIGREC_CLS, x.element_size())
+    want, times = None, []
+    try:
+        for layout in (picked, (4, 1), (8, 1), (4, 2), (8, 4), (4, 8)):
+            ops._k9_layout = lambda n_cls, itemsize, layout=layout: layout
+            got, ms = _time_ms(lambda: ops.ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS), 3)
+            want = got if want is None else want
+            if not torch.equal(got, want):
+                raise AssertionError(f"K9 layout {layout} disagrees with {picked}")
+            times.append(f"{layout[0]}x{layout[1]}={ms:.3f}ms")
+    finally:
+        ops._k9_layout = own
+    print(f"[diag] k9_layout (warps x permutations a warp; picked {picked[0]}x{picked[1]}): " + " ".join(times),
+          flush=True)
+
+
+def ligrec_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
+    """K9 on part e's first permutation chunk (with the one-hot product as
+    the yardstick of its sums) and K10 on that chunk's words (the first
+    round's subkeys, as ``permutation_batch`` draws them), each against its
+    plain version; then the ``[diag] ligrec`` split."""
+    from squidpy_torch._core.rng import split_keys
+
+    x, labels, idx, counts, m_sum, keys, shuffled = _ligrec_inputs(adata)
+    checks = {"ligrec_perms": [check_ligrec_perms(f"ligrec_perms part e ({len(keys)} permutations)", x, shuffled,
+                                                  counts, idx, m_sum, LIGREC_CLS, library=True)]}
+    _, sub = np.moveaxis(split_keys(keys), -2, 0)
+    checks["threefry_bits"] = [check_threefry(f"threefry_bits part e ({len(keys)} keys x {labels.shape[0]})", sub,
+                                              labels.shape[0])]
+    k9_layout_diag(x, shuffled, counts, idx, m_sum)
+    ligrec_split(x, labels, idx, counts, m_sum, keys)
+    return checks
+
+
+def ligrec_branch_checks() -> dict[str, list[dict]]:
+    """K9 and K10 in the branches part e does not take, each bitwise against
+    its plain version: float64, 2 and 100 clusters, an odd cell count, a
+    cluster with no cells, labels outside [0, C), fractional data, a
+    permutation count that is not a multiple of the launch's chunk, cells
+    not a multiple of the slab; K10 at n = 1, 1625, 1626 (two rounds from
+    here), 65,537, without the sign flip, and with more keys than the
+    grid's 65,535 rows."""
+    import torch
+
+    rng = np.random.default_rng(31)
+    out: dict[str, list[dict]] = {"ligrec_perms": [], "threefry_bits": []}
+
+    def case(name, n, g, n_cls, n_perms, dtype=torch.float32, frac=False, empty=False, outside=False,
+             chunk_size=None, n_inter=40):
+        x = rng.poisson(1.2, (n, g)).astype(np.float64)
+        if frac:
+            x = x * rng.lognormal(0.0, 0.5, x.shape)
+        lab = rng.integers(0, n_cls - 1 if empty else n_cls, n)
+        sh = np.stack([rng.permutation(lab) for _ in range(n_perms)]).astype(np.int32)
+        if outside:
+            sh[:, ::7] = rng.choice([-1, n_cls, n_cls + 5], size=sh[:, ::7].shape)
+        rec, lig = rng.integers(0, g, n_inter), rng.integers(0, g, n_inter)
+        pairs = rng.integers(0, n_cls, (min(n_cls * n_cls, 64), 2))
+        counts = np.bincount(lab, minlength=n_cls).astype(np.float64)
+        mean = (x.T @ np.eye(n_cls)[lab]) / np.maximum(counts, 1)
+        m_sum = mean[rec[:, None], pairs[None, :, 0]] + mean[lig[:, None], pairs[None, :, 1]]
+        t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).cuda().to(dt)  # noqa: E731
+        idx = tuple(t(a, torch.int32) for a in (rec, lig, pairs[:, 0], pairs[:, 1]))
+        out["ligrec_perms"].append(check_ligrec_perms(
+            f"ligrec_perms {name}", t(x, dtype), t(sh, torch.int32), t(counts, dtype), idx, t(m_sum, dtype), n_cls,
+            chunk_size=chunk_size))
+
+    case("float64, 5000 cells x 24 genes, C=6, P=17", 5000, 24, 6, 17, dtype=torch.float64)
+    case("C=2, 4097 cells x 40 genes, P=9", 4097, 40, 2, 9)
+    case("C=100, 20,001 cells x 33 genes, P=10", 20_001, 33, 100, 10)
+    case("C=100 float64, 3001 cells x 7 genes, P=5", 3001, 7, 100, 5, dtype=torch.float64)
+    case("a cluster without cells, 3333 cells x 64 genes, C=8, P=12", 3333, 64, 8, 12, empty=True)
+    case("labels outside [0, C), 2500 cells, C=5, P=6", 2500, 16, 5, 6, outside=True)
+    case("fractional float32, 10,000 cells x 48 genes, C=16, P=24", 10_000, 48, 16, 24, frac=True)
+    case("fractional float64, 6000 cells x 20 genes, C=7, P=11", 6000, 20, 7, 11, dtype=torch.float64, frac=True)
+    case("P=19 in launches of 4, 2049 cells x 65 genes, C=16", 2049, 65, 16, 19, chunk_size=4)
+    case("1626 cells x 3 genes, C=3, P=8", 1626, 3, 3, 8)
+    keys = rng.integers(0, 2**32, (64, 2), dtype=np.uint64).astype(np.uint32)
+    for n in (1, 1625, 1626, 65_537, 1_000_003):
+        out["threefry_bits"].append(check_threefry(f"threefry_bits 64 keys x {n}", keys, n))
+    out["threefry_bits"].append(check_threefry("threefry_bits 64 keys x 4097, words unflipped", keys, 4097,
+                                               flip=False))
+    many = rng.integers(0, 2**32, (70_000, 2), dtype=np.uint64).astype(np.uint32)
+    out["threefry_bits"].append(check_threefry("threefry_bits 70,000 keys x 5 (keys past the grid's rows)", many, 5))
+    return out
+
+
+def ligrec_reference_check() -> None:
+    """``ligrec`` through the public API on the card and on the CPU (plain
+    torch) must agree bitwise (means, p-values, index, columns, metadata):
+    at 3000 cells x 50 genes of fractional data (the float64 host route; K9
+    and its plain version add in one order) with FDR along the clusters, and
+    at 70,000 cells x 64 genes of integral counts (the float32 route through
+    the device expression handle)."""
+    import squidpy_torch as sqt
+
+    t0 = time.perf_counter()
+    for n, g, integral, kw in ((3000, 50, False, dict(corr_method="fdr_bh", corr_axis="clusters")),
+                               (70_000, 64, True, {})):
+        src = _ligrec_dataset(n, g, seed=41 + n, integral=integral)
+        interactions = _ligrec_interactions(src)
+        out = {}
+        for device in ("cuda", "cpu"):
+            with sqt.set_device(device):
+                adata = StandIn(np.zeros((n, 2)), src.obs["cluster"].cat.codes, LIGREC_CLS)
+                adata.X, adata.var_names = src.X, src.var_names
+                out[device] = sqt.gr.ligrec(adata, "cluster", interactions=interactions, n_perms=200, seed=3,
+                                            use_raw=False, copy=True, **kw)
+        gpu, cpu = out["cuda"], out["cpu"]
+        for frame in ("means", "pvalues"):
+            a, b = getattr(gpu, frame), getattr(cpu, frame)
+            if a.index != b.index or a.columns != b.columns:
+                raise AssertionError(f"ligrec {frame}: index or columns differ between card and CPU")
+            np.testing.assert_array_equal(a.values, b.values, err_msg=f"ligrec {frame} n={n}")
+        if not np.isfinite(gpu.pvalues.values).any():
+            raise AssertionError(f"ligrec n={n}: no finite p-value")
+    print(f"[reference] ligrec at 3000 cells (float64, fractional) and 70,000 (float32, integral): card and CPU "
+          f"agree bitwise ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2495,17 @@ def main() -> int:
     launches = {k: launches[k] + launches_d[k] for k in launches}
     phases["main_path_d"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    adata_e, launches_e, secs_e = ligrec_path()
+    print(f"[main path e] n={LIGREC_CELLS} genes={LIGREC_GENES} clusters={LIGREC_CLS} perms={LIGREC_PERMS} "
+          + " ".join(f"{k}={v:.4f}" for k, v in secs_e.items()), flush=True)
+    print(f"[launches e] {launches_e}", flush=True)
+    missing = [k for k in ("ligrec_perms", "threefry_bits") if launches_e[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the main path's fifth part: {missing}")
+    launches = {k: launches[k] + launches_e[k] for k in launches}
+    phases["main_path_e"] = time.perf_counter() - t_phase
+
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take
     t_phase = time.perf_counter()
@@ -2163,6 +2517,10 @@ def main() -> int:
     for name, extra in ripley_kernel_checks(adata).items():
         checks[name] = checks.get(name, []) + extra
     del adata, results
+    torch.cuda.empty_cache()
+    checks.update(ligrec_kernel_checks(adata_e))
+    del adata_e
+    torch.cuda.empty_cache()
     phases["kernels_main_path_inputs"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     checks["index_cipher"] += [random_index_cipher(N_CELLS, 64, N_CLS), random_index_cipher(N_CELLS + 3, 33, N_CLS)]
@@ -2175,6 +2533,8 @@ def main() -> int:
         checks[name] += extra
     for name, extra in ripley_branch_checks().items():
         checks[name] += extra
+    for name, extra in ligrec_branch_checks().items():
+        checks[name] += extra
     ripley_route_diag()
     phases["kernels_other_shapes"] = time.perf_counter() - t_phase
 
@@ -2185,6 +2545,7 @@ def main() -> int:
     reference_check(100_000, np.linspace(0.0, 5.0 * secs["mean_knn_distance"], 9))
     graph_reference_check(3000)
     ripley_reference_check(3000)
+    ligrec_reference_check()
     phases["card_vs_cpu"] = time.perf_counter() - t_phase
     print("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()), flush=True)
 

@@ -5,10 +5,11 @@ radius, Delaunay, grid and builder variants, ``gr.mask_graph``),
 ``gr.nhood_enrichment``,
 ``gr.co_occurrence`` (also with ``use_pallas=True``),
 ``gr.spatial_autocorr`` (Moran's I, Geary's C), ``gr.ripley`` (F, G and L
-with their envelopes), ``gr.interaction_matrix`` and
-``gr.centrality_scores``. It imports torch, numpy and scipy, never jax or
-squidpy_tpu. The device is explicit: ``cuda`` by default, ``set_device("cpu")``
-(or ``with set_device("cpu"):``) for the CPU.
+with their envelopes), ``gr.interaction_matrix``,
+``gr.centrality_scores`` and ``gr.ligrec`` with ``gr.PermutationTest``. It
+imports torch, numpy and scipy, never jax or squidpy_tpu. The device is
+explicit: ``cuda`` by default, ``set_device("cpu")`` (or
+``with set_device("cpu"):``) for the CPU.
 """
 
 from __future__ import annotations

@@ -8,6 +8,18 @@ from enum import unique
 from squidpy_torch._constants._utils import ModeEnum
 
 
+@unique
+class CorrAxis(ModeEnum):
+    INTERACTIONS = "interactions"
+    CLUSTERS = "clusters"
+
+
+@unique
+class ComplexPolicy(ModeEnum):
+    MIN = "min"
+    ALL = "all"
+
+
 class Transform(ModeEnum):
     SPECTRAL = "spectral"
     COSINE = "cosine"

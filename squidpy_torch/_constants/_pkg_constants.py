@@ -18,6 +18,10 @@ class Key:
             return f"{Key.obsm.spatial}_neighbors" if value is None else f"{value}_neighbors"
 
         @classmethod
+        def ligrec(cls, cluster: str, value: str | None = None) -> str:
+            return f"{cluster}_ligrec" if value is None else value
+
+        @classmethod
         def nhood_enrichment(cls, cluster: str) -> str:
             return f"{cluster}_nhood_enrichment"
 

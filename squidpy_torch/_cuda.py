@@ -52,6 +52,8 @@ KERNELS = {
     "radius_pairs": ("squidpy_torch/csrc/radius_pairs.cu", "squidpy_tpu/ops/knn.py:408"),
     "ripley_pairs": ("squidpy_torch/csrc/ripley_pairs.cu", "squidpy_tpu/ops/ripley.py:30"),
     "cross_knn": ("squidpy_torch/csrc/cross_knn.cu", "squidpy_tpu/ops/knn.py:364"),
+    "ligrec_perms": ("squidpy_torch/csrc/ligrec_perms.cu", "squidpy_tpu/ops/ligrec.py:50"),
+    "threefry_bits": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:38"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -82,6 +84,9 @@ _SIGNATURES = {
     "sqt_cross_knn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _I, _I, _I, _D, _P, _P, _P, _P,
                       _P],
     "sqt_cross_knn_brute": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "sqt_ligrec_perms": [_P, ctypes.c_int64, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
+                         _I, _P],
+    "sqt_threefry_bits": [_P, ctypes.c_int64, ctypes.c_int64, _I, _P, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

@@ -1,6 +1,6 @@
 """The graph module of the port: spatial graphs (kNN, radius, Delaunay, grid, a custom builder, polygon
 masking), neighbourhood enrichment, interaction matrix, group centralities, co-occurrence, spatial
-autocorrelation and Ripley's statistics."""
+autocorrelation, Ripley's statistics and the receptor-ligand permutation test."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from squidpy_torch.gr._build import (
     spatial_neighbors_knn,
     spatial_neighbors_radius,
 )
+from squidpy_torch.gr._ligrec import LigrecFrame, LigrecResult, PermutationTest, PermutationTestABC, ligrec
 from squidpy_torch.gr._nhood import (
     CentralityResult,
     NhoodEnrichmentResult,
@@ -28,12 +29,17 @@ from squidpy_torch.gr._ripley import RipleyTable, ripley
 __all__ = [
     "AutocorrResult",
     "CentralityResult",
+    "LigrecFrame",
+    "LigrecResult",
     "NhoodEnrichmentResult",
+    "PermutationTest",
+    "PermutationTestABC",
     "RipleyTable",
     "SpatialNeighborsResult",
     "centrality_scores",
     "co_occurrence",
     "interaction_matrix",
+    "ligrec",
     "mask_graph",
     "neighbors",
     "nhood_enrichment",

@@ -7,6 +7,8 @@ Containers are duck-typed as in the JAX package: ``.obs``, ``.obsm``,
 
 from __future__ import annotations
 
+from collections.abc import Iterator
+from contextlib import contextmanager
 from typing import Any
 
 import numpy as np
@@ -16,6 +18,7 @@ __all__ = [
     "_assert_connectivity_key",
     "_assert_spatial_basis",
     "_categorical_codes",
+    "_genesymbols",
     "_save_data",
     "extract_adata_if_sdata",
 ]
@@ -70,3 +73,22 @@ def _assert_spatial_basis(adata: Any, key: str) -> None:
 def _save_data(adata: Any, *, attr: str, key: str, data: Any) -> None:
     """Write a result under a conventional key."""
     getattr(adata, attr)[key] = data
+
+
+@contextmanager
+def _genesymbols(adata: Any, *, key: str | None = None, use_raw: bool = False) -> Iterator[Any]:
+    """Temporarily rename ``var_names`` to the gene symbols in ``adata.var[key]``
+    (of ``adata.raw`` with ``use_raw``). The renamed index is built with the
+    var index's own type, so no pandas is imported here."""
+    if key is None:
+        yield adata
+        return
+    obj = adata.raw if use_raw and getattr(adata, "raw", None) is not None else adata
+    if key not in obj.var:
+        raise KeyError(f"Unable to find gene symbols in `adata.var[{key!r}]`.")
+    original = obj.var.index.copy()
+    try:
+        obj.var.index = type(original)([str(v) for v in obj.var[key]])
+        yield adata
+    finally:
+        obj.var.index = original

@@ -10,5 +10,7 @@
   :func:`squidpy_torch.ops.knn.radius_neighbors` and :func:`squidpy_torch.ops.knn.radius_graph`;
 - :mod:`squidpy_torch.ops.ripley` — K7, Ripley's cumulative pair counts (``csrc/ripley_pairs.cu``);
 - :mod:`squidpy_torch.ops.knn` — K8, the cross nearest-neighbour search (``csrc/cross_knn.cu``),
-  :func:`squidpy_torch.ops.knn.nearest_points`.
+  :func:`squidpy_torch.ops.knn.nearest_points`;
+- :mod:`squidpy_torch.ops.ligrec` — K9, ligrec's permutation counts (``csrc/ligrec_perms.cu``);
+- :mod:`squidpy_torch._core.rng` — K10, threefry sort words (``csrc/threefry.cu``).
 """

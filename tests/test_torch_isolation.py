@@ -33,9 +33,12 @@ _SLICE = textwrap.dedent(
             self.cat = SimpleNamespace(codes=codes, categories=[str(i) for i in range(k)])
 
     class StandIn:
+        raw = None
+
         def __init__(self, coords, codes, k, x):
             self.obs, self.obsm, self.obsp, self.uns = {"cl": Cat(codes, k)}, {"spatial": coords}, {}, {}
             self.X, self.var_names = x, [f"g{i}" for i in range(x.shape[1])]
+            self.n_obs, self.n_vars = x.shape
 
     sqt.set_device("cpu")
     rng = np.random.default_rng(0)
@@ -74,6 +77,9 @@ _SLICE = textwrap.dedent(
     sqt.gr.centrality_scores(adata, "cl")
     assert adata.uns["cl_interactions"].shape == (5, 5)
     assert list(adata.uns["cl_centrality_scores"].index) == [str(i) for i in range(5)]
+    sqt.gr.ligrec(adata, "cl", interactions=[("g0", "g3"), ("g1", "g4"), ("g2", "g5")], n_perms=20, seed=0,
+                  use_raw=False, complex_policy="all", corr_method="fdr_bh")
+    assert adata.uns["cl_ligrec"].pvalues.values.shape == (3, 25)
     leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu") if sys.modules.get(m) is not None]
     assert not leaked, leaked
     print("SLICE OK")

@@ -1,7 +1,8 @@
 """squidpy_torch keys against jax.random (``_core/rng.py``).
 
 Tolerance: bitwise. The port computes JAX's threefry keys on the host in
-numpy, so every word must be equal.
+numpy and the sort words on the device (K10, or its plain torch version on
+the CPU), so every word must be equal.
 """
 
 from __future__ import annotations
@@ -86,6 +87,75 @@ def test_permutation_columns_bitwise_with_tied_words():
     got = trng.permutation_columns(keys, torch.from_numpy(values)).numpy()
     want = np.asarray(jrng.permutation_columns(jnp.asarray(keys), jnp.asarray(values)))
     np.testing.assert_array_equal(got, want)
+
+
+_DEVICE_N = [1, 1625, 1626, 65_537]
+
+
+@pytest.mark.parametrize("n", _DEVICE_N)
+def test_device_words_match_random_bits_and_jax(n):
+    """K10's plain version: the words of ``random_bits`` and of
+    ``jax.random.bits``, bitwise, at the sizes where JAX's shuffle goes from
+    one round to two (1626) and past 2^16."""
+    keys = trng.spawn_keys(n % 97, 6)
+    want = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (n,), jnp.uint32))(jnp.asarray(keys)))
+    np.testing.assert_array_equal(trng.random_bits(keys, (n,)), want)
+    got = trng.random_bits_device(keys, n, torch.device("cpu"))
+    assert got.dtype == torch.int32 and got.shape == (6, n)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("n", _DEVICE_N)
+def test_sort_keys_order_as_unsigned_words(n):
+    """The flipped words sort, signed and stably, as the words sort unsigned,
+    ties included (drawn here by forcing equal words)."""
+    keys = trng.spawn_keys(3, 4)
+    words = trng.random_bits(keys, (n,))
+    flipped = trng.random_bits_device(keys, n, torch.device("cpu"), sort_keys=True).numpy()
+    np.testing.assert_array_equal(flipped.view(np.uint32), words ^ np.uint32(0x80000000))
+    tied_words = words // np.uint32(1 << 28)  # 16 distinct values: many ties
+    tied = (tied_words ^ np.uint32(0x80000000)).view(np.int32)
+    np.testing.assert_array_equal(np.argsort(tied, axis=1, kind="stable"), np.argsort(tied_words, axis=1, kind="stable"))
+    t = torch.sort(torch.from_numpy(tied), dim=1, stable=True).indices.numpy()
+    np.testing.assert_array_equal(t, np.argsort(tied_words, axis=1, kind="stable"))
+
+
+@pytest.mark.parametrize("n", _DEVICE_N)
+def test_permutation_batch_matches_jax(n):
+    keys = trng.spawn_keys(n % 89, 5)
+    want = np.asarray(jrng.permutation_batch(jnp.asarray(keys), jnp.arange(n, dtype=jnp.int32)))
+    got = trng.permutation_batch(keys, n, torch.device("cpu"))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_permutation_batch_chunks_change_nothing(monkeypatch):
+    keys = trng.spawn_keys(2, 9)
+    whole = trng.permutation_batch(keys, 3000, torch.device("cpu"))
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 2)
+    np.testing.assert_array_equal(trng.permutation_batch(keys, 3000, torch.device("cpu")).numpy(), whole.numpy())
+
+
+def test_threefry_plain_keys_with_the_top_bit():
+    """Key words at and above 2^31 (negative as int32) against numpy's threefry."""
+    keys = np.array([[0xFFFFFFFF, 0x80000001], [0, 0xDEADBEEF], [0x80000000, 0x7FFFFFFF]], dtype=np.uint32)
+    got = trng._threefry_plain(torch.from_numpy(keys.view(np.int32)), 5).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, trng.random_bits(keys, (5,)))
+
+
+@pytest.mark.cuda
+def test_k10_matches_plain_on_card(cuda_card):
+    keys = trng.spawn_keys(7, 70_000)
+    kt = torch.from_numpy(keys.view(np.int32)).cuda()
+    for n, flip in ((1, True), (1626, False), (65_537, True)):
+        got = trng.threefry_bits(kt[: 64 if n > 1 else 70_000], n, flip=flip)
+        assert torch.equal(got, trng._threefry_plain(kt[: got.shape[0]], n, flip))
+
+
+@pytest.fixture()
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
 def test_shuffle_group_columns_not_ported():

@@ -43,7 +43,8 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       0.01: the device expression handle made first, then ``ligrec`` twice
       (seeds 0 and 1), the second under the CPU profiler, whose ``[host]``
       line splits it (prepare, observed means, permutations, counts,
-      p-values, container) (K10 words, K9 counts);
+      p-values, container) (K10 shuffles, K9 counts on its integral
+      route);
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -123,15 +124,28 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    against the binned K1, which must be equal; then both routes of
    ``pair_counts_cumulative`` timed on one type of 100k to 2M cells at
    Ripley's default support and at 50 um (``[diag] k7_route`` lines, equal
-   counts asserted); on part e's own inputs, K9 on its first permutation
-   chunk (with the one-hot product of JAX's form, TF32 off, as the
-   yardstick of its sums, a ``[diag] k9_layout`` line of its block layouts
-   and a ``[diag] ligrec`` line of a chunk's device steps: words,
-   permutations, K9) and K10 on that chunk's words, then K9 in float64,
-   at 2 and 100 clusters, odd cell counts, a cluster with no cells, labels
-   outside the clusters, fractional data and permutation counts that are
-   not a multiple of a launch's, and K10 at n = 1, 1625, 1626, 65,537 and
-   1M, unflipped, and with more keys than the grid's rows.
+   counts asserted); on part e's own inputs (its first permutation chunk,
+   ~357 keys on an 80 GB card): K9 by the integral route the route rule
+   takes on its counts (with the one-hot product of JAX's form, TF32 off,
+   as the yardstick of its sums), and by the float route on fractional
+   data made from them; K10's shuffle of the chunk
+   (two rounds, uint8 labels; K10's words, stable sorts and gathers as
+   its yardstick) and its words alone; a ``[diag] k9_layout`` line of both
+   routes' block layouts, a ``[diag] shuffle`` line of K10's steps
+   (histogram, scan, scatter, sort with its fused epilogue, a round each),
+   its buckets, largest bucket and overflowing buckets, its bound and its
+   design's floor, and a ``[diag] ligrec`` line of a chunk's device steps
+   (K10, the words-and-sorts path, K9 by each route, the route rule and
+   the uint8 copy); then K9 in float64, at 2, 20 and 100 clusters, odd cell counts,
+   several slabs and gene tiles, a cluster with no cells, labels outside
+   the clusters, fractional data and permutation counts that are not a
+   multiple of a launch's, each by the rule's route and, on counts, by the
+   float route; K10's shuffle at n = 1, 1625, 1626, 65,537 (64 keys) and
+   2.7M (4 keys, three rounds), as positions and as uint8 labels, one
+   ``permutation_columns`` round of 500 keys, words with ties (4096 and 2
+   distinct words), and every word equal or the capacity lowered (the
+   overflow path); K10's words at n = 1, 1625, 1626, 65,537 and 1M,
+   unflipped, and with more keys than the grid's rows.
    Integer kernels
    (K1-K4, K7, K9, K10), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
@@ -2185,12 +2199,12 @@ def _ligrec_inputs(adata: StandIn, seed: int = 0):
     """Part e's own device inputs as ``ligrec`` builds them for its first
     permutation chunk: the float32 gene block, the codes, the interactions'
     columns, the cluster pairs, the counts, ``m_sum``, the chunk's keys and
-    its shuffled labels."""
+    its shuffled uint8 labels (K10's rows, padded to ``label_stride``)."""
     import torch
 
     from squidpy_torch._core.device_x import device_expression
     from squidpy_torch._core.rng import _keys_per_chunk, permutation_batch, spawn_keys
-    from squidpy_torch.ops.ligrec import cluster_means
+    from squidpy_torch.ops.ligrec import cluster_means, label_stride
 
     x = device_expression(adata).dense_block(np.arange(64))
     codes = np.asarray(adata.obs["cluster"].cat.codes, dtype=np.int64)
@@ -2202,55 +2216,77 @@ def _ligrec_inputs(adata: StandIn, seed: int = 0):
     mean = cluster_means(x, labels, LIGREC_CLS).T.double()
     m_sum = (mean[rec.long()][:, c1.long()] + mean[lig.long()][:, c2.long()]).float()
     counts = torch.bincount(labels, minlength=LIGREC_CLS).float()
-    keys = spawn_keys(seed, LIGREC_PERMS)[: _keys_per_chunk(len(codes), torch.device("cuda"))]
-    shuffled = labels.to(torch.int32)[permutation_batch(keys, len(codes), torch.device("cuda"))]
+    n = len(codes)
+    keys = spawn_keys(seed, LIGREC_PERMS)[: _keys_per_chunk(n, torch.device("cuda"))]
+    out = torch.full((len(keys), label_stride(n)), 255, dtype=torch.uint8, device="cuda")
+    shuffled = permutation_batch(keys, n, torch.device("cuda"), payload=labels.to(torch.uint8), out=out)
     return x, labels, (rec, lig, c1, c2), counts, m_sum, keys, shuffled
 
 
-def _ligrec_bound(n: int, n_genes: int, n_perms: int, n_inter: int, n_pairs: int, itemsize: int) -> tuple[float, str]:
-    # X read once and the (P, n) int32 labels once, the (I, J) int64 counts
-    # written once; an add a cell, gene and permutation and, a permutation,
-    # an (interaction, cluster pair)'s multiply, fma and compare
-    return _bound(n * n_genes * itemsize + 4.0 * n_perms * n + 8.0 * n_inter * n_pairs,
-                  float(n) * n_genes * n_perms + 3.0 * n_inter * n_pairs * n_perms)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core operations
+
+
+def _ligrec_bound(n: int, n_genes: int, n_perms: int, n_inter: int, n_pairs: int, itemsize: int, n_cls: int,
+                  integral: bool) -> tuple[float, str]:
+    # X read once (uint8 on the integral route) and the (P, n) uint8 labels
+    # once, the (I, J) int64 counts written once; a permutation's (I, J)
+    # multiply, fma and compare; the sums: an add a cell, gene and
+    # permutation (float route) or the one-hot product's int8 operations on
+    # the tensor cores, 2 n G P 16 ceil(C / 16) (integral route)
+    nbytes = n * n_genes * (1 if integral else itemsize) + float(n_perms) * n + 8.0 * n_inter * n_pairs
+    compare = 3.0 * n_inter * n_pairs * n_perms / F32_OPS_PER_S
+    sums = (2.0 * n * n_genes * n_perms * 16 * -(-n_cls // 16) / INT8_OPS_PER_S if integral
+            else float(n) * n_genes * n_perms / F32_OPS_PER_S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, sums + compare
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_ligrec_perms(name: str, x, shuffled, counts, idx, m_sum, n_cls: int, plain_warm: bool = True,
-                       library: bool = False, chunk_size: int | None = None) -> dict:
-    """K9 against its plain version on the same card tensors, bitwise; with
-    ``library`` also JAX's form of the sums, the one-hot product over the
-    chunk with TF32 off, as the yardstick."""
+                       library: bool = False, chunk_size: int | None = None, route: str | None = None) -> dict:
+    """K9 against its plain version on the same card tensors, bitwise, by
+    ``route`` (the route rule's when None, printed); with ``library`` also
+    JAX's form of the sums, the one-hot product over the chunk with TF32
+    off, as the yardstick."""
     import torch
 
-    from squidpy_torch.ops.ligrec import ligrec_perm_counts, ligrec_perm_counts_plain
+    from squidpy_torch.ops.ligrec import _k9_route, ligrec_perm_counts, ligrec_perm_counts_plain
+
+    from squidpy_torch.ops.ligrec import counts_operand
 
     rec, lig, c1, c2 = idx
+    n = x.shape[0]
+    route = route or _k9_route(x, n_cls)
+    xt = counts_operand(x) if route == "integral" else None  # once a call, as `ligrec` makes it
     lib = None
     if library:
-        onehot = torch.zeros((x.shape[0], shuffled.shape[0] * n_cls), dtype=x.dtype, device=x.device)
-        cols = shuffled.long().T + n_cls * torch.arange(shuffled.shape[0], device=x.device)[None, :]
+        onehot = torch.zeros((n, shuffled.shape[0] * n_cls), dtype=x.dtype, device=x.device)
+        cols = shuffled[:, :n].long().T + n_cls * torch.arange(shuffled.shape[0], device=x.device)[None, :]
         onehot.scatter_(1, cols, 1.0)
 
         def lib():
             return onehot.T @ x
-    out = _compare(
-        name,
-        lambda: ligrec_perm_counts(x, shuffled, counts, rec, lig, c1, c2, m_sum, n_cls, chunk_size=chunk_size),
-        lambda: ligrec_perm_counts_plain(x, shuffled, counts, rec, lig, c1, c2, m_sum, n_cls),
-        3, _ligrec_bound(x.shape[0], x.shape[1], shuffled.shape[0], len(rec), len(c1), x.element_size()),
+    return _compare(
+        f"{name} [{route} route]",
+        lambda: ligrec_perm_counts(x, shuffled, counts, rec, lig, c1, c2, m_sum, n_cls, chunk_size=chunk_size,
+                                   route=route, xt=xt),
+        lambda: ligrec_perm_counts_plain(x, shuffled, counts, rec, lig, c1, c2, m_sum, n_cls, route=route),
+        3, _ligrec_bound(n, x.shape[1], shuffled.shape[0], len(rec), len(c1), x.element_size(), n_cls,
+                         route == "integral"),
         plain_warm=plain_warm, library=lib,
     )
-    return out
+
+
+WORD_OPS = 90.0  # 32-bit operations a threefry word
 
 
 def _threefry_bound(n_keys: int, n: int) -> tuple[float, str]:
     # 4 bytes written a word; ~90 32-bit operations a word (the key schedule,
     # 20 rounds of add, rotate, xor, five key injections, the final xors)
-    return _bound(4.0 * n_keys * n + 8.0 * n_keys, 90.0 * n_keys * n)
+    return _bound(4.0 * n_keys * n + 8.0 * n_keys, WORD_OPS * n_keys * n)
 
 
 def check_threefry(name: str, keys, n: int, flip: bool = True, repeats: int = 3) -> dict:
-    """K10 against its plain version on the same card keys, bitwise."""
+    """K10's word entry against its plain version on the same card keys, bitwise."""
     import torch
 
     from squidpy_torch._core.rng import _threefry_plain, threefry_bits
@@ -2260,68 +2296,196 @@ def check_threefry(name: str, keys, n: int, flip: bool = True, repeats: int = 3)
                     repeats, _threefry_bound(keys_t.shape[0], n))
 
 
-def ligrec_split(x, labels, idx, counts, m_sum, keys) -> None:
-    """``[diag] ligrec``: the device time of one permutation chunk's steps
-    (CUDA events): K10's words of both rounds, the stable sorts and gathers
-    of the running permutation and the labels' gather, and K9."""
+def _shuffle_bound(rows: int, n: int, rounds: int, out_bytes: int, payload_bytes: int) -> tuple[float, str]:
+    # the function's least work: one word an item a round; the output
+    # written once, the payload read once
+    return _bound(float(rows) * n * out_bytes + n * payload_bytes + 8.0 * rows * rounds, WORD_OPS * rows * n * rounds)
+
+
+def _shuffle_floor(rows: int, n: int, rounds: int, out_bytes: int) -> tuple[float, str]:
+    # this design's own floor: two words an item a round (histogram and
+    # scatter), the scatter's 8-byte keys written and read back, each
+    # round's output written once and gathered by the next
+    nbytes = float(rows) * n * (16.0 * rounds + out_bytes * (2.0 * rounds - 1))
+    return _bound(nbytes, 2 * WORD_OPS * rows * n * rounds)
+
+
+def _library_shuffle(subs, n: int, payload):
+    """The words-and-sorts path: K10's word entry, ``torch.sort(stable=True)``
+    and gathers (the yardstick of the shuffle)."""
     import torch
 
-    from squidpy_torch._core.rng import permutation_batch, random_bits_device, split_keys
-    from squidpy_torch.ops.ligrec import ligrec_perm_counts
+    from squidpy_torch._core.rng import random_bits_device
+
+    perm = None
+    for sub in subs:
+        order = torch.sort(random_bits_device(sub, n, torch.device("cuda"), sort_keys=True), dim=1, stable=True).indices
+        perm = order if perm is None else torch.gather(perm, 1, order)
+    return payload[perm] if payload is not None else perm.to(torch.int32)
+
+
+def check_shuffle(name: str, keys, n: int, payload=None, mask: int | None = None, library: bool = False,
+                  repeats: int = 3, plain_warm: bool = True) -> dict:
+    """K10's shuffle (``_core/rng.py`` ``_shuffle``: JAX's rounds for n, or
+    one round of the keys themselves when ``keys`` is a list of subkeys)
+    against its plain version on the card (words, ``torch.sort``, gathers),
+    bitwise; with ``library``, the words-and-sorts path (K10's words, ``torch.sort``,
+    gathers) as the yardstick."""
+    import torch
+
+    from squidpy_torch._core import rng
+
+    subs = keys if isinstance(keys, list) else rng._round_keys(np.asarray(keys, np.uint32), rng._rounds(n))
+    rows = len(keys) if not isinstance(keys, list) else subs[0].shape[0]
+    dtype = payload.dtype if payload is not None else torch.int32
+    mask = rng._FULL_MASK if mask is None else mask
+    out_k = torch.empty((rows, n), dtype=dtype, device="cuda")
+    out_p = torch.empty((rows, n), dtype=dtype, device="cuda")
+    lib = (lambda: _library_shuffle(subs, n, payload)) if library else None
+    out_bytes = out_k.element_size()
+    return _compare(name, lambda: rng._shuffle(subs, n, torch.device("cuda"), payload, out_k, mask=mask),
+                    lambda: rng._shuffle_plain(subs, n, payload, out_p, mask), repeats,
+                    _shuffle_bound(rows, n, len(subs), out_bytes, payload.element_size() if payload is not None else 0),
+                    plain_warm=plain_warm, library=lib)
+
+
+def shuffle_split(labels, keys) -> None:
+    """``[diag] shuffle``: one K10 chunk of part e (two rounds, uint8
+    labels) with each step timed by CUDA events: histogram, scan, scatter,
+    sort (its epilogue fused: round 1 writes int32 positions, round 2 the
+    labels through round 1's), the buckets, the largest bucket and the
+    overflowing buckets a round; the function's bound and this design's
+    floor."""
+    import torch
+
+    from squidpy_torch._core import rng
+    from squidpy_torch.ops.ligrec import label_stride
 
     n = labels.shape[0]
-    key, sub1 = np.moveaxis(split_keys(keys), -2, 0)
-    _, sub2 = np.moveaxis(split_keys(key), -2, 0)
-    _, words_ms = _time_ms(lambda: (random_bits_device(sub1, n, labels.device, sort_keys=True),
-                                    random_bits_device(sub2, n, labels.device, sort_keys=True)), 3)
-    shuffled, perm_ms = _time_ms(lambda: labels.to(torch.int32)[permutation_batch(keys, n, labels.device)], 3)
-    _, k9_ms = _time_ms(lambda: ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS), 3)
+    subs = rng._round_keys(np.asarray(keys, np.uint32), rng._rounds(n))
+    out = torch.full((len(keys), label_stride(n)), 255, dtype=torch.uint8, device="cuda")
+    payload = labels.to(torch.uint8)
+    rng._shuffle(subs, n, torch.device("cuda"), payload, out)  # warm
+    stats: dict = {}
+    rng._shuffle(subs, n, torch.device("cuda"), payload, out, stats=stats)
+    bound = _shuffle_bound(len(keys), n, len(subs), 1, 1)
+    floor = _shuffle_floor(len(keys), n, len(subs), 1)
+    steps = " ".join(f"{k}={'/'.join(f'{v:.3f}' for v in stats[k])}" for k in ("hist_ms", "scan_ms", "scatter_ms",
+                                                                                "sort_ms"))
+    print(f"[diag] shuffle n={n} keys={len(keys)} rounds={len(subs)} buckets={stats['buckets']} "
+          f"(~{n / stats['buckets']:.0f} items a bucket) largest_bucket={stats['largest_bucket']} "
+          f"overflow={stats['overflow']} (a round each) {steps}; bound_ms={bound[0]:.4f} ({bound[1]}: one word an "
+          f"item a round) design_floor_ms={floor[0]:.4f} ({floor[1]}: two words, 8-byte keys)", flush=True)
+    if any(stats["overflow"]):
+        raise AssertionError("K10: threefry words overflowed a bucket of part e's chunk")
+
+
+def ligrec_split(x, labels, idx, counts, m_sum, keys, shuffled) -> None:
+    """``[diag] ligrec``: the device time of one permutation chunk's steps
+    (CUDA events): K10's shuffle (words, bucket sort, the labels), the
+    words-and-sorts path for the same labels (K10's words, stable sorts,
+    gathers), K9 by
+    its integral route and by its float route, and the one-hot product."""
+    import torch
+
+    from squidpy_torch._core import rng
+    from squidpy_torch.ops.ligrec import _k9_route, counts_operand, ligrec_perm_counts
+
+    n = labels.shape[0]
+    payload = labels.to(torch.uint8)
+    _, perm_ms = _time_ms(lambda: rng.permutation_batch(keys, n, torch.device("cuda"), payload=payload, out=shuffled),
+                          3)
+    subs = rng._round_keys(np.asarray(keys, np.uint32), rng._rounds(n))
+    _, lib_ms = _time_ms(lambda: _library_shuffle(subs, n, payload), 1)
+    route = _k9_route(x, LIGREC_CLS)
+    xt = counts_operand(x)
+    _, xt_ms = _time_ms(lambda: counts_operand(x), 3)
+    _, route_ms = _time_ms(lambda: _k9_route(x, LIGREC_CLS), 3)
+    _, int_ms = _time_ms(lambda: ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS, route="integral",
+                                                    xt=xt), 3)
+    _, float_ms = _time_ms(lambda: ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS, route="float"), 3)
+    b_int = _ligrec_bound(n, x.shape[1], len(keys), len(idx[0]), len(idx[2]), 4, LIGREC_CLS, True)
+    b_float = _ligrec_bound(n, x.shape[1], len(keys), len(idx[0]), len(idx[2]), 4, LIGREC_CLS, False)
     chunks = -(-LIGREC_PERMS // len(keys))
-    print(f"[diag] ligrec n={n} chunk={len(keys)} keys ({chunks} chunks a call): words_ms={words_ms:.3f} "
-          f"permutation_ms={perm_ms:.3f} (words, sorts, gathers) k9_ms={k9_ms:.3f}; "
+    k9_ms = int_ms if route == "integral" else float_ms
+    print(f"[diag] ligrec n={n} chunk={len(keys)} keys ({chunks} chunks a call): permutation_ms={perm_ms:.3f} (K10) "
+          f"sort_path_ms={lib_ms:.3f} (words, torch.sort, gathers) route={route} (rule {route_ms:.3f} ms, uint8 "
+          f"copy {xt_ms:.3f} ms, once a call) k9_integral_ms={int_ms:.3f} (bound {b_int[0]:.4f}, {b_int[1]}) "
+          f"k9_float_ms={float_ms:.3f} (bound {b_float[0]:.4f}, {b_float[1]}); "
           f"a call's device time ~{chunks * (perm_ms + k9_ms):.1f} ms", flush=True)
 
 
 def k9_layout_diag(x, shuffled, counts, idx, m_sum) -> None:
-    """``[diag] k9_layout``: K9 on part e's chunk with each block layout
-    (warps, permutations a warp), the one the wrapper picks first, each
-    bitwise equal to it."""
+    """``[diag] k9_layout``: K9 on part e's chunk with each block layout of
+    each route (warps, permutations a warp), the one the wrapper picks
+    first, each bitwise equal to it."""
     import torch
 
     from squidpy_torch.ops import ligrec as ops
 
-    own = ops._k9_layout
-    picked = own(LIGREC_CLS, x.element_size())
-    want, times = None, []
+    own, own_mma = ops._k9_layout, ops._K9_MMA_LAYOUT
+    xt = ops.counts_operand(x)
+    want, lines = None, []
     try:
+        picked = own(LIGREC_CLS, x.element_size())
+        times = []
         for layout in (picked, (4, 1), (8, 1), (4, 2), (8, 4), (4, 8)):
             ops._k9_layout = lambda n_cls, itemsize, layout=layout: layout
-            got, ms = _time_ms(lambda: ops.ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS), 3)
+            got, ms = _time_ms(lambda: ops.ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS,
+                                                              route="float"), 3)
             want = got if want is None else want
             if not torch.equal(got, want):
-                raise AssertionError(f"K9 layout {layout} disagrees with {picked}")
+                raise AssertionError(f"K9 float layout {layout} disagrees with {picked}")
             times.append(f"{layout[0]}x{layout[1]}={ms:.3f}ms")
+        lines.append(f"float (picked {picked[0]}x{picked[1]}): " + " ".join(times))
+        times = []
+        for layout in (own_mma, (4, 1), (4, 4), (8, 2), (2, 4), (8, 1)):
+            ops._K9_MMA_LAYOUT = layout
+            got, ms = _time_ms(lambda: ops.ligrec_perm_counts(x, shuffled, counts, *idx, m_sum, LIGREC_CLS,
+                                                              route="integral", xt=xt), 3)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K9 integral layout {layout} disagrees with the float route")
+            times.append(f"{layout[0]}x{layout[1]}={ms:.3f}ms")
+        lines.append(f"integral (picked {own_mma[0]}x{own_mma[1]}): " + " ".join(times))
     finally:
-        ops._k9_layout = own
-    print(f"[diag] k9_layout (warps x permutations a warp; picked {picked[0]}x{picked[1]}): " + " ".join(times),
-          flush=True)
+        ops._k9_layout, ops._K9_MMA_LAYOUT = own, own_mma
+    print("[diag] k9_layout (warps x permutations a warp) " + "; ".join(lines), flush=True)
 
 
 def ligrec_kernel_checks(adata: StandIn) -> dict[str, list[dict]]:
-    """K9 on part e's first permutation chunk (with the one-hot product as
-    the yardstick of its sums) and K10 on that chunk's words (the first
-    round's subkeys, as ``permutation_batch`` draws them), each against its
-    plain version; then the ``[diag] ligrec`` split."""
+    """K9 on part e's first permutation chunk by the integral route the
+    route rule takes (with the one-hot product as the yardstick of its
+    sums; ``[diag] k9_layout`` holds the float route's layouts to it), and
+    by the float route on fractional data made from it; K10's shuffle of
+    that chunk (with the words-and-sorts path as the yardstick) and its
+    words alone; each against its plain version; then the ``[diag] k9_layout``, ``[diag] shuffle`` and
+    ``[diag] ligrec`` lines."""
+    import torch
+
     from squidpy_torch._core.rng import split_keys
+    from squidpy_torch.ops.ligrec import _k9_route
 
     x, labels, idx, counts, m_sum, keys, shuffled = _ligrec_inputs(adata)
-    checks = {"ligrec_perms": [check_ligrec_perms(f"ligrec_perms part e ({len(keys)} permutations)", x, shuffled,
-                                                  counts, idx, m_sum, LIGREC_CLS, library=True)]}
+    n_keys = len(keys)
+    if _k9_route(x, LIGREC_CLS) != "integral":
+        raise AssertionError("K9: part e's counts do not take the integral route")
+    checks = {"ligrec_perms": [check_ligrec_perms(f"ligrec_perms part e ({n_keys} permutations)", x, shuffled,
+                                                  counts, idx, m_sum, LIGREC_CLS, plain_warm=False, library=True)]}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frac = x * torch.exp(0.5 * torch.randn(x.shape, device="cuda", generator=gen))
+    checks["ligrec_perms"].append(check_ligrec_perms(
+        f"ligrec_perms part e fractional ({n_keys} permutations)", frac, shuffled, counts, idx, m_sum, LIGREC_CLS,
+        plain_warm=False))
+    del frac
+    checks["threefry_shuffle"] = [check_shuffle(f"threefry_shuffle part e ({n_keys} keys x {labels.shape[0]}, "
+                                                f"uint8 labels)", keys, labels.shape[0],
+                                                payload=labels.to(torch.uint8), library=True, plain_warm=False)]
     _, sub = np.moveaxis(split_keys(keys), -2, 0)
-    checks["threefry_bits"] = [check_threefry(f"threefry_bits part e ({len(keys)} keys x {labels.shape[0]})", sub,
-                                              labels.shape[0])]
+    checks["threefry_shuffle"].append(check_threefry(f"threefry_bits part e ({n_keys} keys x {labels.shape[0]})", sub,
+                                                     labels.shape[0]))
     k9_layout_diag(x, shuffled, counts, idx, m_sum)
-    ligrec_split(x, labels, idx, counts, m_sum, keys)
+    shuffle_split(labels, keys)
+    ligrec_split(x, labels, idx, counts, m_sum, keys, shuffled)
     return checks
 
 
@@ -2330,13 +2494,20 @@ def ligrec_branch_checks() -> dict[str, list[dict]]:
     its plain version: float64, 2 and 100 clusters, an odd cell count, a
     cluster with no cells, labels outside [0, C), fractional data, a
     permutation count that is not a multiple of the launch's chunk, cells
-    not a multiple of the slab; K10 at n = 1, 1625, 1626 (two rounds from
-    here), 65,537, without the sign flip, and with more keys than the
-    grid's 65,535 rows."""
+    not a multiple of the slab, each by the route the rule takes and, on
+    counts, by the float route too; K10's shuffle at n = 1, 1625, 1626 (two
+    rounds from here), 65,537, and ~2.7M cells with 4 keys (three rounds),
+    as int32 positions and as a payload; one round of 500 keys as
+    ``permutation_columns`` draws it (uint8 values); ties (4096 and 2
+    distinct words) and every word equal with the local sort's capacity
+    lowered (the overflow path); K10's words at n = 1, 1625, 1626, 65,537
+    and 1M, unflipped, and with more keys than the grid's rows."""
     import torch
 
+    from squidpy_torch._core import rng as trng
+
     rng = np.random.default_rng(31)
-    out: dict[str, list[dict]] = {"ligrec_perms": [], "threefry_bits": []}
+    out: dict[str, list[dict]] = {"ligrec_perms": [], "threefry_shuffle": []}
 
     def case(name, n, g, n_cls, n_perms, dtype=torch.float32, frac=False, empty=False, outside=False,
              chunk_size=None, n_inter=40):
@@ -2354,27 +2525,52 @@ def ligrec_branch_checks() -> dict[str, list[dict]]:
         m_sum = mean[rec[:, None], pairs[None, :, 0]] + mean[lig[:, None], pairs[None, :, 1]]
         t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).cuda().to(dt)  # noqa: E731
         idx = tuple(t(a, torch.int32) for a in (rec, lig, pairs[:, 0], pairs[:, 1]))
-        out["ligrec_perms"].append(check_ligrec_perms(
-            f"ligrec_perms {name}", t(x, dtype), t(sh, torch.int32), t(counts, dtype), idx, t(m_sum, dtype), n_cls,
-            chunk_size=chunk_size))
+        args = (t(x, dtype), t(sh, torch.int32), t(counts, dtype), idx, t(m_sum, dtype), n_cls)
+        out["ligrec_perms"].append(check_ligrec_perms(f"ligrec_perms {name}", *args, plain_warm=False,
+                                                      chunk_size=chunk_size))
+        if not frac:
+            out["ligrec_perms"].append(check_ligrec_perms(f"ligrec_perms {name}", *args, plain_warm=False,
+                                                          chunk_size=chunk_size, route="float"))
 
     case("float64, 5000 cells x 24 genes, C=6, P=17", 5000, 24, 6, 17, dtype=torch.float64)
     case("C=2, 4097 cells x 40 genes, P=9", 4097, 40, 2, 9)
     case("C=100, 20,001 cells x 33 genes, P=10", 20_001, 33, 100, 10)
     case("C=100 float64, 3001 cells x 7 genes, P=5", 3001, 7, 100, 5, dtype=torch.float64)
+    case("C=20, 40,000 cells (3 slabs) x 70 genes (2 gene tiles), P=13", 40_000, 70, 20, 13)
     case("a cluster without cells, 3333 cells x 64 genes, C=8, P=12", 3333, 64, 8, 12, empty=True)
     case("labels outside [0, C), 2500 cells, C=5, P=6", 2500, 16, 5, 6, outside=True)
     case("fractional float32, 10,000 cells x 48 genes, C=16, P=24", 10_000, 48, 16, 24, frac=True)
     case("fractional float64, 6000 cells x 20 genes, C=7, P=11", 6000, 20, 7, 11, dtype=torch.float64, frac=True)
     case("P=19 in launches of 4, 2049 cells x 65 genes, C=16", 2049, 65, 16, 19, chunk_size=4)
     case("1626 cells x 3 genes, C=3, P=8", 1626, 3, 3, 8)
+    labels = torch.from_numpy(rng.integers(0, 16, 2_700_000).astype(np.uint8)).cuda()
+    for n, n_keys in ((1, 64), (1625, 64), (1626, 64), (65_537, 64), (2_700_000, 4)):
+        keys = trng.spawn_keys(n, n_keys)
+        out["threefry_shuffle"].append(check_shuffle(f"threefry_shuffle {n_keys} keys x {n} ({trng._rounds(n)} "
+                                                     f"rounds)", keys, n))
+        out["threefry_shuffle"].append(check_shuffle(f"threefry_shuffle {n_keys} keys x {n}, uint8 labels", keys, n,
+                                                     payload=labels[:n]))
+    cols = [trng.spawn_keys(77, 500)]
+    out["threefry_shuffle"].append(check_shuffle("threefry_shuffle permutation_columns round, 500 keys x 60,000",
+                                                 cols, 60_000, payload=labels[:60_000]))
+    for mask, cap, n in ((0xFFF00000, None, 1_000_000), (0x80000000, None, 60_000), (0, 4096, 40_000),
+                         (0, 64, 10_000), (trng._FULL_MASK, 512, 1_000_000)):
+        own = trng._SORT_CAP
+        trng._SORT_CAP = cap or own
+        try:
+            out["threefry_shuffle"].append(check_shuffle(
+                f"threefry_shuffle 8 keys x {n}, words & {mask:#010x}, capacity {trng._SORT_CAP}", trng.spawn_keys(n, 8),
+                n, mask=mask, repeats=1))
+        finally:
+            trng._SORT_CAP = own
     keys = rng.integers(0, 2**32, (64, 2), dtype=np.uint64).astype(np.uint32)
     for n in (1, 1625, 1626, 65_537, 1_000_003):
-        out["threefry_bits"].append(check_threefry(f"threefry_bits 64 keys x {n}", keys, n))
-    out["threefry_bits"].append(check_threefry("threefry_bits 64 keys x 4097, words unflipped", keys, 4097,
-                                               flip=False))
+        out["threefry_shuffle"].append(check_threefry(f"threefry_bits 64 keys x {n}", keys, n))
+    out["threefry_shuffle"].append(check_threefry("threefry_bits 64 keys x 4097, words unflipped", keys, 4097,
+                                                  flip=False))
     many = rng.integers(0, 2**32, (70_000, 2), dtype=np.uint64).astype(np.uint32)
-    out["threefry_bits"].append(check_threefry("threefry_bits 70,000 keys x 5 (keys past the grid's rows)", many, 5))
+    out["threefry_shuffle"].append(check_threefry("threefry_bits 70,000 keys x 5 (keys past the grid's rows)", many,
+                                                  5))
     return out
 
 
@@ -2500,7 +2696,7 @@ def main() -> int:
     print(f"[main path e] n={LIGREC_CELLS} genes={LIGREC_GENES} clusters={LIGREC_CLS} perms={LIGREC_PERMS} "
           + " ".join(f"{k}={v:.4f}" for k, v in secs_e.items()), flush=True)
     print(f"[launches e] {launches_e}", flush=True)
-    missing = [k for k in ("ligrec_perms", "threefry_bits") if launches_e[k] <= 0]
+    missing = [k for k in ("ligrec_perms", "threefry_shuffle") if launches_e[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path's fifth part: {missing}")
     launches = {k: launches[k] + launches_e[k] for k in launches}

@@ -11,8 +11,10 @@ modules reach :func:`library` only for CUDA tensors.
 ``launches`` counts, per kernel, the launches its wrapper made; a run resets
 it with :func:`reset_launches` and reads it afterwards to show which kernels
 the path went through. A kernel whose C interface has several entry points
-(``radius_pairs``: bounds, bin, scatter, the two passes, the order) counts
-each call into that interface, which may start more than one CUDA kernel;
+(``radius_pairs``: bounds, bin, scatter, the two passes, the order;
+``threefry_shuffle``: the words, and a round's histogram, scan, scatter and
+sort; ``ligrec_perms``: its float and integral routes) counts each call into
+that interface, which may start more than one CUDA kernel;
 K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
 and those calls count as K6's.
 """
@@ -53,7 +55,7 @@ KERNELS = {
     "ripley_pairs": ("squidpy_torch/csrc/ripley_pairs.cu", "squidpy_tpu/ops/ripley.py:30"),
     "cross_knn": ("squidpy_torch/csrc/cross_knn.cu", "squidpy_tpu/ops/knn.py:364"),
     "ligrec_perms": ("squidpy_torch/csrc/ligrec_perms.cu", "squidpy_tpu/ops/ligrec.py:50"),
-    "threefry_bits": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:38"),
+    "threefry_shuffle": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:38"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -65,6 +67,8 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_int64
+_U = ctypes.c_uint32
 _SIGNATURES = {
     "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
                          ctypes.c_uint64, _I, _P, _I, _P, _I, _P],
@@ -84,9 +88,15 @@ _SIGNATURES = {
     "sqt_cross_knn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _I, _I, _I, _D, _P, _P, _P, _P,
                       _P],
     "sqt_cross_knn_brute": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "sqt_ligrec_perms": [_P, ctypes.c_int64, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
-                         _I, _P],
-    "sqt_threefry_bits": [_P, ctypes.c_int64, ctypes.c_int64, _I, _P, _P],
+    "sqt_ligrec_perms": [_P, _L, _I, _P, _I, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I,
+                         _P],
+    "sqt_ligrec_perms_int": [_P, _L, _L, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
+                             _I, _P],
+    "sqt_threefry_bits": [_P, _L, _L, _I, _P, _P],
+    "sqt_shuffle_hist": [_P, _L, _L, _U, _I, _P, _P, _P],
+    "sqt_shuffle_scan": [_L, _L, _I, _I, _P, _P, _P, _P, _P],
+    "sqt_shuffle_scatter": [_P, _L, _L, _U, _I, _P, _L, _P, _P, _P],
+    "sqt_shuffle_sort": [_P, _P, _P, _P, _L, _L, _I, _I, _P, _L, _P, _I, _I, _P, _L, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

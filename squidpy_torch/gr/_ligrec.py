@@ -8,8 +8,8 @@ FDR along clusters or interactions) are host code copied from the JAX
 package, with pandas' semantics written out: the interactions are a table of
 named columns in row order, and the results a :class:`LigrecResult`. The
 observed means run on the host or, for the device expression handle, as a
-one-hot product on the device; the permutations' sort words are drawn on the
-device (kernel K10) and their counts run as kernel K9
+one-hot product on the device; the permutations' shuffled labels are drawn
+on the device (kernel K10) and their counts run as kernel K9
 (:mod:`squidpy_torch.ops.ligrec`). Precision follows the JAX package as its
 test suite runs it (x64 on): float64 up to :data:`_EXACT_SIZE_LIMIT`
 elements of the filtered matrix, float32 above.
@@ -34,7 +34,7 @@ from squidpy_torch._core.device_x import _narrowest_container, device_expression
 from squidpy_torch._core.rng import _keys_per_chunk, permutation_batch, spawn_keys
 from squidpy_torch._device import NDArrayA, assert_positive, get_device, to_host
 from squidpy_torch.gr._utils import _assert_categorical_obs, _genesymbols, _save_data, extract_adata_if_sdata
-from squidpy_torch.ops.ligrec import cluster_means, ligrec_perm_counts
+from squidpy_torch.ops.ligrec import _k9_route, cluster_means, counts_operand, label_stride, ligrec_perm_counts
 from squidpy_torch.utils import check_tuple_needles, multipletests
 
 __all__ = ["LigrecFrame", "LigrecResult", "PermutationTest", "PermutationTestABC", "ligrec"]
@@ -498,20 +498,30 @@ def _perm_counts(x_dev: torch.Tensor, clustering: NDArrayA, keys: NDArrayA, coun
                  lig: NDArrayA, c1: NDArrayA, c2: NDArrayA, m_sum: NDArrayA, n_cls: int) -> NDArrayA:
     """Exceedance counts ``(I, J)`` over the permutations of ``keys``, drawn
     and counted a chunk of keys at a time (at 1M cells and 1000 permutations
-    the shuffled labels alone would take 4 GB)."""
+    the shuffled labels alone would take 1 GB). K10 writes each chunk's
+    shuffled labels (uint8 up to 255 clusters) straight into the buffer K9
+    reads; K9's route, and its uint8 copy of X, are found once a call."""
     device = x_dev.device
     n = len(clustering)
-    labels = torch.from_numpy(np.asarray(clustering, dtype=np.int32)).to(device)
+    narrow = n_cls <= 255
+    labels = torch.from_numpy(np.asarray(clustering, dtype=np.uint8 if narrow else np.int32)).to(device)
     args = [torch.from_numpy(np.asarray(a, dtype=np.int32)).to(device) for a in (rec, lig, c1, c2)]
     counts_t = torch.from_numpy(np.asarray(counts)).to(device=device, dtype=x_dev.dtype)
     m_sum_t = torch.from_numpy(np.ascontiguousarray(m_sum)).to(device=device, dtype=x_dev.dtype)
     total = torch.zeros((len(rec), len(c1)), dtype=torch.int64, device=device)
+    with record_function("ligrec.route"):
+        route = _k9_route(x_dev, n_cls)
+        xt = counts_operand(x_dev) if route == "integral" and device.type == "cuda" else None
     step = _keys_per_chunk(n, device)
+    rows = min(step, keys.shape[0])
+    buf = (torch.full((rows, label_stride(n)), 255, dtype=torch.uint8, device=device) if narrow
+           else torch.empty((rows, n), dtype=torch.int32, device=device))
     for c0 in range(0, keys.shape[0], step):
+        kc = keys[c0 : c0 + step]
         with record_function("ligrec.permutations"):
-            shuffled = labels[permutation_batch(keys[c0 : c0 + step], n, device)]
+            shuffled = permutation_batch(kc, n, device, payload=labels, out=buf[: len(kc)])
         with record_function("ligrec.counts"):
-            total += ligrec_perm_counts(x_dev, shuffled, counts_t, *args, m_sum_t, n_cls)
+            total += ligrec_perm_counts(x_dev, shuffled, counts_t, *args, m_sum_t, n_cls, route=route, xt=xt)
     return to_host(total)
 
 

@@ -12,5 +12,5 @@
 - :mod:`squidpy_torch.ops.knn` — K8, the cross nearest-neighbour search (``csrc/cross_knn.cu``),
   :func:`squidpy_torch.ops.knn.nearest_points`;
 - :mod:`squidpy_torch.ops.ligrec` — K9, ligrec's permutation counts (``csrc/ligrec_perms.cu``);
-- :mod:`squidpy_torch._core.rng` — K10, threefry sort words (``csrc/threefry.cu``).
+- :mod:`squidpy_torch._core.rng` — K10, the threefry shuffles (``csrc/threefry.cu``).
 """

@@ -5,10 +5,19 @@
 permutation of the labels, the cluster sums of X, scaled by each cluster's
 float reciprocal size, and the count of ``g[c1, rec] + g[c2, lig] > m_sum``
 over the permutations. On a CUDA tensor it runs kernel K9
-(``csrc/ligrec_perms.cu``), which adds each cell into its cluster's sum once
-(no one-hot product); on the CPU it runs :func:`ligrec_perm_counts_plain`,
-which adds in the kernel's order: within a slab of :data:`SLAB` cells by
-cell, then across slabs by slab. Both return exact int64 counts.
+(``csrc/ligrec_perms.cu``) by one of two routes, picked once a call by
+:func:`_k9_route`: on count data (integral X in [0, 255] whose column totals
+stay below 2^24 in float32, 2^53 in float64) the integral route sums the
+one-hot product exactly on the tensor cores, in int8 from a gene-major
+uint8 copy of X (:func:`counts_operand`); otherwise the float route adds
+each cell into its cluster's sum once. On the CPU it runs
+:func:`ligrec_perm_counts_plain`: the integral route's exact int64 sums
+(``index_add_``), rounded once, or the float route's order: within a slab of
+:data:`SLAB` cells by cell, then across slabs by slab. Where the integral
+route applies every order gives the same sums, so the two routes agree bit
+for bit. Both return exact int64 counts. The shuffled labels are uint8
+(rows padded to :func:`label_stride` columns; 255, or any value past the
+clusters, adds nothing) or, past 255 clusters, int32.
 
 The left side of the compare rounds as the JAX package's does on the CPU,
 where XLA fuses the receptor's scaling into the add:
@@ -22,10 +31,19 @@ import torch
 
 from squidpy_torch import _cuda
 
-__all__ = ["SLAB", "cluster_means", "fma_plain", "ligrec_perm_counts", "ligrec_perm_counts_plain"]
+__all__ = ["SLAB", "cluster_means", "counts_operand", "fma_plain", "label_stride", "ligrec_perm_counts",
+           "ligrec_perm_counts_plain"]
 
 # cells a slab: K9 sums a slab's cells in order, then the slabs in order
 SLAB = 2048
+# cells a slab of the integral route: its int32 partials stay exact (at most 2^23 x 255)
+INT_SLAB = 16384
+# columns of K9's uint8 labels and of the uint8 copy of X: rows padded to a multiple
+_LABEL_ALIGN = 128
+# sums below these are exact in any order (integral data)
+_EXACT_BELOW = {torch.float32: 2.0**24, torch.float64: 2.0**53}
+# the integral route's block: (warps, permutations a warp)
+_K9_MMA_LAYOUT = (4, 2)
 
 _SMEM_BYTES = 227 * 1024  # shared memory a block may hold on the H100
 _SMEM_TARGET = 100 * 1024  # K9's tables a block: two blocks an SM
@@ -61,6 +79,7 @@ def _cluster_sums_plain(x: torch.Tensor, labels: torch.Tensor, n_cls: int) -> to
     ``[0, n_cls)`` go to a spare cluster that is dropped."""
     n, n_genes = x.shape
     n_perms = labels.shape[0]
+    labels = labels[:, :n]
     n_slabs = -(-n // SLAB)
     width = min(SLAB, n)
     pad = n_slabs * width - n
@@ -77,6 +96,61 @@ def _cluster_sums_plain(x: torch.Tensor, labels: torch.Tensor, n_cls: int) -> to
     for s in range(1, n_slabs):
         tot += acc[s]
     return tot[:, :n_cls]
+
+
+def _cluster_sums_int(x: torch.Tensor, labels: torch.Tensor, n_cls: int) -> torch.Tensor:
+    """``(P, n_cls, G)`` cluster sums of integral ``x`` (the integral
+    route): exact int64 sums (``index_add_``), rounded once to x's dtype.
+    Labels outside ``[0, n_cls)`` go to a spare cluster that is dropped."""
+    n, n_genes = x.shape
+    xi = x.to(torch.int64)
+    lab = labels[:, :n].to(torch.int64)
+    lab = torch.where((lab >= 0) & (lab < n_cls), lab, n_cls)
+    acc = torch.zeros((labels.shape[0], n_cls + 1, n_genes), dtype=torch.int64, device=x.device)
+    for p in range(labels.shape[0]):
+        acc[p].index_add_(0, lab[p], xi)
+    return acc[:, :n_cls].to(x.dtype)
+
+
+def _k9_route(x: torch.Tensor, n_cls: int) -> str:
+    """K9's route for ``x``: ``"integral"`` where X is integral, in [0, 255],
+    and every gene's column total, which bounds every cluster sum, is below
+    2^24 (float32) or 2^53 (float64), with at most 255 clusters (uint8
+    labels); else ``"float"``. One read of the device."""
+    if n_cls > 255 or x.numel() == 0 or x.dtype not in _EXACT_BELOW:
+        return "float"
+    ok = torch.stack([(x == torch.floor(x)).all(), (x >= 0).all(), (x <= 255).all(),
+                      (x.sum(dim=0, dtype=torch.float64) < _EXACT_BELOW[x.dtype]).all()]).all()
+    return "integral" if bool(ok) else "float"
+
+
+def label_stride(n: int) -> int:
+    """Columns a row of K9's uint8 labels (and of the uint8 copy of X)
+    takes: n rounded up to a multiple of 128."""
+    return -(-max(n, 1) // _LABEL_ALIGN) * _LABEL_ALIGN
+
+
+def counts_operand(x: torch.Tensor) -> torch.Tensor:
+    """The integral route's operand: x transposed to ``(G, label_stride(n))``
+    uint8, zero past column n. Exact where :func:`_k9_route` says
+    ``"integral"``."""
+    n, n_genes = x.shape
+    xt = torch.zeros((n_genes, label_stride(n)), dtype=torch.uint8, device=x.device)
+    xt[:, :n] = x.T.to(torch.uint8)
+    return xt
+
+
+def _labels_u8(labels: torch.Tensor, n: int, n_cls: int) -> torch.Tensor:
+    """``(P, label_stride(n))`` uint8 labels: the input itself when it is
+    uint8 with rows of that many columns, else a copy with every label
+    outside ``[0, n_cls)`` as 255 and 255 past column n."""
+    ld = label_stride(n)
+    if labels.dtype == torch.uint8 and labels.shape[1] == ld and labels.is_contiguous():
+        return labels
+    lab = labels[:, :n].to(torch.int64)
+    out = torch.full((labels.shape[0], ld), 255, dtype=torch.uint8, device=labels.device)
+    out[:, :n] = torch.where((lab >= 0) & (lab < n_cls), lab, 255).to(torch.uint8)
+    return out
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -124,8 +198,8 @@ def fma_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor
     return torch.where(torch.isfinite(out), out, a * b + c)
 
 
-def _perm_chunk_plain(x, labels, inv_counts, rec, lig, c1, c2, m_sum, n_cls) -> torch.Tensor:
-    sums = _cluster_sums_plain(x, labels, n_cls)
+def _perm_chunk_plain(x, labels, inv_counts, rec, lig, c1, c2, m_sum, n_cls, route) -> torch.Tensor:
+    sums = (_cluster_sums_int if route == "integral" else _cluster_sums_plain)(x, labels, n_cls)
     s_rec = sums[:, c1[None, :], rec[:, None]]  # (P, I, J)
     g_lig = sums[:, c2[None, :], lig[:, None]] * inv_counts[c2][None, None, :]
     left = fma_plain(s_rec, inv_counts[c1][None, None, :].expand_as(s_rec), g_lig)
@@ -144,15 +218,18 @@ def ligrec_perm_counts_plain(
     n_cls: int,
     *,
     chunk_size: int | None = None,
+    route: str | None = None,
 ) -> torch.Tensor:
     """Plain torch version of K9 (see :func:`ligrec_perm_counts`), in
-    permutation chunks of ``chunk_size`` (by default 64)."""
+    permutation chunks of ``chunk_size`` (by default 64), by ``route`` (by
+    default :func:`_k9_route`'s)."""
+    route = route or _k9_route(x, n_cls)
     inv = _inv_counts(counts_per_cluster, x.dtype)
     rec, lig, c1, c2 = (t.to(torch.int64) for t in (rec, lig, c1, c2))
     out = torch.zeros((rec.shape[0], c1.shape[0]), dtype=torch.int64, device=x.device)
     step = max(1, min(int(chunk_size or 64), shuffled_labels.shape[0]))
     for p0 in range(0, shuffled_labels.shape[0], step):
-        out += _perm_chunk_plain(x, shuffled_labels[p0 : p0 + step], inv, rec, lig, c1, c2, m_sum, n_cls)
+        out += _perm_chunk_plain(x, shuffled_labels[p0 : p0 + step], inv, rec, lig, c1, c2, m_sum, n_cls, route)
     return out
 
 
@@ -182,22 +259,28 @@ def ligrec_perm_counts(
     n_cls: int,
     *,
     chunk_size: int | None = None,
+    route: str | None = None,
+    xt: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Σ over permutations of ``groups[c1, rec] + groups[c2, lig] > m_sum``.
 
     ``x`` ``(n_cells, n_genes)`` float32 or float64; ``shuffled_labels``
-    ``(n_perms, n_cells)``; ``counts_per_cluster`` ``(n_cls,)``; ``rec``/``lig``
-    ``(I,)`` gene columns; ``c1``/``c2`` ``(J,)`` clusters; ``m_sum`` ``(I, J)``
-    in x's dtype. ``groups`` are each permutation's cluster sums scaled by
-    the float reciprocal of the cluster's size, the receptor's product fused
-    into the add (see the module). Returns the ``(I, J)`` int64
-    exceedance counts. A CPU tensor runs :func:`ligrec_perm_counts_plain`; a
-    CUDA tensor launches kernel K9, ``chunk_size`` permutations a launch (by
-    default as many as 1 GiB of per-slab partial sums holds).
+    ``(n_perms, >= n_cells)``, any integer type (columns past n_cells are
+    not read); ``counts_per_cluster`` ``(n_cls,)``; ``rec``/``lig`` ``(I,)``
+    gene columns; ``c1``/``c2`` ``(J,)`` clusters; ``m_sum`` ``(I, J)`` in
+    x's dtype. ``groups`` are each permutation's cluster sums scaled by the
+    float reciprocal of the cluster's size, the receptor's product fused
+    into the add (see the module). Returns the ``(I, J)`` int64 exceedance
+    counts. ``route`` is :func:`_k9_route`'s (found here when not given) and
+    ``xt`` the integral route's :func:`counts_operand` (made here when not
+    given): a caller with several chunks finds both once. A CPU tensor runs
+    :func:`ligrec_perm_counts_plain`; a CUDA tensor launches kernel K9,
+    ``chunk_size`` permutations a launch (by default as many as 1 GiB of
+    per-slab partial sums holds).
     """
     if x.device.type == "cpu":
         return ligrec_perm_counts_plain(x, shuffled_labels, counts_per_cluster, rec, lig, c1, c2, m_sum, n_cls,
-                                        chunk_size=chunk_size)
+                                        chunk_size=chunk_size, route=route)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K9 takes float32 or float64 expression, found {x.dtype}.")
     n, n_genes = x.shape
@@ -205,40 +288,62 @@ def ligrec_perm_counts(
     n_inter, n_pairs = rec.shape[0], c1.shape[0]
     if n == 0:
         raise ValueError("K9 needs at least one cell.")
+    if shuffled_labels.ndim != 2 or shuffled_labels.shape[1] < n:
+        raise ValueError(f"`shuffled_labels` must have shape ({n_perms}, >= {n}), found {tuple(shuffled_labels.shape)}.")
+    route = route or _k9_route(x, n_cls)
+    integral = route == "integral"
     itemsize = x.element_size()
-    warps, per_warp = _k9_layout(n_cls, itemsize)
+    warps, per_warp = _K9_MMA_LAYOUT if integral else _k9_layout(n_cls, itemsize)
     if warps < 1:
         raise ValueError(f"K9 holds at most {_SMEM_BYTES // (32 * itemsize)} clusters of {x.dtype} sums in shared "
                          f"memory, found {n_cls}.")
     x = x.contiguous()
-    labels = shuffled_labels.to(torch.int32).contiguous()
+    if n_cls <= 255:
+        labels = _labels_u8(shuffled_labels, n, n_cls)
+    elif integral:
+        raise ValueError("K9's integral route takes uint8 labels: at most 255 clusters.")
+    else:
+        labels = shuffled_labels[:, :n].to(torch.int32).contiguous()
     idx = [t.to(device=x.device, dtype=torch.int32).contiguous() for t in (rec, lig, c1, c2)]
     inv = _inv_counts(counts_per_cluster.to(x.device), x.dtype).contiguous()
     m_sum = m_sum.to(device=x.device, dtype=x.dtype).contiguous()
-    for name, t, shape in (("x", x, (n, n_genes)), ("shuffled_labels", labels, (n_perms, n)),
-                           ("m_sum", m_sum, (n_inter, n_pairs)), ("counts_per_cluster", inv, (n_cls,))):
-        _cuda.require(t, name, x.dtype if name != "shuffled_labels" else torch.int32, shape)
+    for name, t, dtype, shape in (("x", x, x.dtype, (n, n_genes)), ("shuffled_labels", labels, labels.dtype, None),
+                                  ("m_sum", m_sum, x.dtype, (n_inter, n_pairs)),
+                                  ("counts_per_cluster", inv, x.dtype, (n_cls,))):
+        _cuda.require(t, name, dtype, shape)
+    if integral:
+        xt = counts_operand(x) if xt is None else xt
+        _cuda.require(xt, "xt", torch.uint8, (n_genes, label_stride(n)))
     if n_inter and n_pairs:  # the kernel reads the sums at these columns and clusters
         lo_rec, lo_lig, lo_c1, lo_c2, hi_rec, hi_lig, hi_c1, hi_c2 = torch.stack(
             [t.min() for t in idx] + [t.max() for t in idx]).tolist()
         if min(lo_rec, lo_lig, lo_c1, lo_c2) < 0 or max(hi_rec, hi_lig) >= n_genes or max(hi_c1, hi_c2) >= n_cls:
             raise ValueError(f"`rec`/`lig` must lie in [0, {n_genes}) and `c1`/`c2` in [0, {n_cls}).")
-    n_slabs = -(-n // SLAB)
+    slab = INT_SLAB if integral else SLAB
+    n_slabs = -(-n // slab)
+    part_item = 4 if integral else itemsize
     if chunk_size is None:
-        chunk_size = max(1, _PARTIALS_BYTES // (n_slabs * n_cls * n_genes * itemsize))
+        chunk_size = max(1, _PARTIALS_BYTES // (n_slabs * n_cls * n_genes * part_item))
     step = max(1, min(int(chunk_size), n_perms))
-    partials = torch.empty((n_slabs, step, n_cls, n_genes), dtype=x.dtype, device=x.device)
+    partials = torch.empty((n_slabs, step, n_cls, n_genes), dtype=torch.int32 if integral else x.dtype,
+                           device=x.device)
     sums = torch.empty((step, n_cls, n_genes), dtype=x.dtype, device=x.device)
     counts = torch.zeros((n_inter, n_pairs), dtype=torch.int64, device=x.device)
     lib = _cuda.library()
+    ld = labels.stride(0)
+    dtype_code = 0 if x.dtype == torch.float32 else 1
+    tail = (inv.data_ptr(), idx[0].data_ptr(), idx[1].data_ptr(), n_inter, idx[2].data_ptr(), idx[3].data_ptr(),
+            n_pairs, m_sum.data_ptr(), slab, partials.data_ptr(), sums.data_ptr(), counts.data_ptr(), dtype_code,
+            _cuda.stream_ptr())
     for p0 in range(0, n_perms, step):
         pc = min(step, n_perms - p0)
-        code = lib.sqt_ligrec_perms(
-            x.data_ptr(), n, n_genes, labels[p0:].data_ptr(), pc, n_cls, warps, per_warp, inv.data_ptr(),
-            idx[0].data_ptr(), idx[1].data_ptr(), n_inter, idx[2].data_ptr(), idx[3].data_ptr(), n_pairs,
-            m_sum.data_ptr(), SLAB, partials.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-            0 if x.dtype == torch.float32 else 1, _cuda.stream_ptr(),
-        )
+        lab = labels[p0:].data_ptr()
+        if integral:
+            code = lib.sqt_ligrec_perms_int(xt.data_ptr(), xt.stride(0), n, n_genes, lab, ld, pc, n_cls, warps,
+                                            per_warp, *tail)
+        else:
+            code = lib.sqt_ligrec_perms(x.data_ptr(), n, n_genes, lab, labels.element_size(), ld, pc, n_cls, warps,
+                                        per_warp, *tail)
         _cuda.check(code, "ligrec_perms")
         _cuda.launches["ligrec_perms"] += 1
     return counts

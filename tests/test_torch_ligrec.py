@@ -238,6 +238,113 @@ def test_labels_outside_the_clusters_add_nothing():
     np.testing.assert_array_equal(sums, want)
 
 
+def _route_input(case: str, dtype) -> tuple[np.ndarray, int]:
+    rng = np.random.default_rng(3)
+    x = rng.poisson(1.0, (500, 6)).astype(np.float64)
+    n_cls = 4
+    if case == "fractional":
+        x[7, 2] = 0.5
+    elif case == "negative":
+        x[3, 1] = -1.0
+    elif case == "above 255":
+        x[9, 0] = 256.0
+    elif case == "at 255":
+        x[9, 0] = 255.0
+    elif case == "nan":
+        x[0, 0] = np.nan
+    elif case == "infinite":
+        x[0, 0] = np.inf
+    elif case in ("column total 2^24", "column total 2^24 - 1"):
+        x = np.zeros((65_794, 2))
+        x[:65_793, 1] = 255.0  # 2^24 - 1
+        x[65_793, 1] = 1.0 if case == "column total 2^24" else 0.0
+    elif case == "256 clusters":
+        n_cls = 256
+    return x.astype(dtype), n_cls
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["integral", "at 255", "fractional", "negative", "above 255", "nan", "infinite",
+                                  "column total 2^24", "column total 2^24 - 1", "256 clusters"])
+def test_k9_route(case, dtype):
+    """The integral route takes integral X in [0, 255] whose every column
+    total is below 2^24 (float32) or 2^53 (float64), with at most 255
+    clusters; everything else the float route."""
+    x, n_cls = _route_input(case, dtype)
+    integral = case in ("integral", "at 255", "column total 2^24 - 1") or (
+        case == "column total 2^24" and dtype == np.float64)
+    assert tops._k9_route(torch.from_numpy(x), n_cls) == ("integral" if integral else "float")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,n_cls,outside", [(300, 3, False), (5000, 16, True), (2 * tops.SLAB + 77, 7, True),
+                                             (65_794, 2, False)])
+def test_integral_sums_equal_the_float_order(n, n_cls, outside, dtype):
+    """Under the route rule the integral route's exact sums, rounded once,
+    are bitwise the float route's slab-order sums: every partial sum is an
+    integer below 2^24, so no order rounds. At 65,794 cells a column sums to
+    2^24 - 1 (the largest the rule lets through in float32)."""
+    rng = np.random.default_rng(n)
+    if n == 65_794:
+        x = np.zeros((n, 3))
+        x[: n - 1, 1] = 255.0
+        x[:, 2] = rng.integers(0, 256, n)
+        x[:, 2] *= x[:, 2].sum() < 2**24
+    else:
+        x = rng.poisson(3.0, (n, 5)).astype(np.float64)
+        x[::11, 0] = 255.0
+    x = torch.from_numpy(x.astype(dtype))
+    sh = torch.from_numpy(np.stack([rng.permutation(rng.integers(0, n_cls, n)) for _ in range(4)]).astype(np.int32))
+    if outside:
+        sh[:, ::5] = -1
+        sh[:, 1::7] = n_cls + 2
+    assert tops._k9_route(x, n_cls) == "integral"
+    assert torch.equal(tops._cluster_sums_int(x, sh, n_cls), tops._cluster_sums_plain(x, sh, n_cls))
+
+
+def test_labels_u8_and_counts_operand():
+    """K9's operands: uint8 labels, rows padded to 128 columns with 255,
+    labels outside the clusters as 255, and padded uint8 labels taken as
+    they are; X transposed to uint8, zero past n."""
+    lab = torch.tensor([[0, 3, -1, 4, 2], [1, 1, 255, 0, 3]], dtype=torch.int32)
+    u8 = tops._labels_u8(lab, 5, 4)
+    assert u8.dtype == torch.uint8 and u8.shape == (2, 128)
+    assert u8[:, :5].tolist() == [[0, 3, 255, 255, 2], [1, 1, 255, 0, 3]] and bool((u8[:, 5:] == 255).all())
+    assert tops._labels_u8(u8, 5, 4) is u8
+    assert tops.label_stride(128) == 128 and tops.label_stride(129) == 256 and tops.label_stride(1) == 128
+    x = torch.tensor([[1.0, 255.0], [0.0, 7.0], [3.0, 0.0]])
+    xt = tops.counts_operand(x)
+    assert xt.dtype == torch.uint8 and xt.shape == (2, 128)
+    assert xt[:, :3].tolist() == [[1, 0, 3], [255, 7, 0]] and not bool(xt[:, 3:].any())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_perm_counts_take_padded_uint8_labels(dtype):
+    """The counts from K10's uint8 rows (padded, 255 past n) equal those
+    from int32 labels, on both routes."""
+    x, lab, sh, counts, rec, lig, c1, c2, m_sum = _count_inputs(700, 9, 5, 6, dtype, seed=8)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (x, sh, counts, rec, lig, c1, c2, m_sum)]
+    u8 = tops._labels_u8(args[1], 700, 5)
+    for route in ("integral", "float"):
+        want = tops.ligrec_perm_counts(*args, 5, route=route)
+        got = tops.ligrec_perm_counts(args[0], u8, *args[2:], 5, route=route)
+        assert torch.equal(got, want)
+
+
+def test_ligrec_takes_the_integral_route_on_counts(monkeypatch):
+    """``ligrec`` on counts sums by the integral route (and on fractional
+    data by the float route), bitwise JAX's either way."""
+    taken = []
+    own = tops._cluster_sums_int
+    monkeypatch.setattr(tops, "_cluster_sums_int", lambda *a: taken.append(1) or own(*a))
+    for frac in (False, True):
+        adata = _adata(n=600, g=12, n_cls=4, seed=21, frac=frac)
+        rt, rj = _both(adata, adata, interactions=_interactions(adata), n_perms=30, seed=2, use_raw=False)
+        _assert_same(rt, rj)
+        assert bool(taken) == (not frac)
+        taken.clear()
+
+
 @pytest.mark.parametrize("n_cls,itemsize,layout", [(16, 4, (4, 4)), (16, 8, (4, 4)), (2, 8, (4, 4)), (100, 4, (4, 2)),
                                                     (100, 8, (4, 1)), (300, 8, (3, 1)), (1000, 8, (0, 1))])
 def test_k9_layout(n_cls, itemsize, layout):
@@ -476,13 +583,22 @@ def test_genesymbols_without_a_key_needs_no_pandas():
 
 @pytest.mark.cuda
 def test_k9_matches_plain_on_card(cuda_card):
+    """Both K9 routes against the plain version on the card: the integral
+    route where the route rule takes it (counts; more than 16 clusters, 64
+    genes and a slab), the float route on fractional data and when asked
+    for on counts."""
     with sqt.set_device("cuda"):
-        for dtype, n_cls, frac, n in ((np.float32, 16, False, 5000), (np.float64, 3, True, 4097),
-                                      (np.float32, 100, True, 2049)):
-            x, lab, *rest = _count_inputs(n, 40, n_cls, 9, dtype, seed=n, frac=frac)
+        for dtype, n_cls, frac, n, g in ((np.float32, 16, False, 5000, 40), (np.float64, 3, True, 4097, 40),
+                                         (np.float32, 100, True, 2049, 40), (np.float64, 20, False, 17_000, 70),
+                                         (np.float32, 255, False, 3000, 9)):
+            x, lab, *rest = _count_inputs(n, g, n_cls, 9, dtype, seed=n, frac=frac)
             args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (x, *rest)]
+            route = tops._k9_route(args[0], n_cls)
+            assert route == ("float" if frac else "integral")
             got = tops.ligrec_perm_counts(*args, n_cls, chunk_size=4)
             assert torch.equal(got, tops.ligrec_perm_counts_plain(*args, n_cls))
+            if not frac:
+                assert torch.equal(tops.ligrec_perm_counts(*args, n_cls, route="float"), got)
 
 
 @pytest.fixture()

@@ -7,12 +7,15 @@ the CPU), so every word must be equal.
 
 from __future__ import annotations
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from squidpy_torch import _cuda
 from squidpy_torch._core import rng as trng
 from squidpy_tpu._core import rng as jrng
 
@@ -152,6 +155,24 @@ def test_k10_matches_plain_on_card(cuda_card):
         assert torch.equal(got, trng._threefry_plain(kt[: got.shape[0]], n, flip))
 
 
+@pytest.mark.cuda
+def test_k10_shuffle_matches_plain_on_card(cuda_card, monkeypatch):
+    """The shuffle kernel against its plain version (words, torch.sort,
+    gathers), bitwise: rounds 1-2, payloads, ties, and the overflow path
+    (every word equal, capacity lowered)."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    labels = torch.from_numpy(np.random.default_rng(0).integers(0, 16, 70_000).astype(np.uint8))
+    for n, mask, cap in ((1625, trng._FULL_MASK, None), (1626, trng._FULL_MASK, None), (65_537, trng._FULL_MASK, None),
+                         (65_537, 0xFFF00000, None), (20_000, 0, 64), (5000, 0x80000000, 64)):
+        if cap is not None:
+            monkeypatch.setattr(trng, "_SORT_CAP", cap)
+        subs = trng._round_keys(trng.spawn_keys(n, 12), trng._rounds(n))
+        for pay in (None, labels[:n]):
+            got = trng._shuffle(subs, n, cuda, None if pay is None else pay.cuda(), mask=mask)
+            want = trng._shuffle(subs, n, cpu, pay, mask=mask)
+            assert torch.equal(got.cpu(), want)
+
+
 @pytest.fixture()
 def cuda_card():
     if not torch.cuda.is_available():
@@ -161,3 +182,285 @@ def cuda_card():
 def test_shuffle_group_columns_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trng.shuffle_group_columns(None, None, None)
+
+
+# --- K10's shuffle kernel, its C interface emulated in numpy ---------------------------
+
+
+def _view(ptr: int | None, dtype: np.dtype, count: int) -> np.ndarray:
+    """A writable numpy view of ``count`` items at a tensor's ``data_ptr``."""
+    if not count:
+        return np.zeros(0, dtype)
+    itemsize = np.dtype(dtype).itemsize
+    return np.frombuffer((ctypes.c_char * (count * itemsize)).from_address(ptr), dtype=dtype)
+
+
+_PAYLOAD = {1: np.uint8, 4: np.uint32, 8: np.uint64}
+
+
+def _bitonic(a: np.ndarray) -> None:
+    """The overflow kernel's network in place: every compare puts the
+    smaller key at the lower index, and pairs whose upper index is past the
+    end (virtual +inf) are skipped."""
+    m = len(a)
+    span = 1
+    while span < m:
+        span <<= 1
+    k = 2
+    while k <= span:
+        j = k >> 1
+        while j > 0:
+            t = np.arange(span // 2, dtype=np.int64)
+            i = 2 * t - (t & (j - 1))  # the lower element of pair t
+            p = i ^ (k - 1) if j == k >> 1 else i + j
+            keep = p < m
+            i, p = i[keep], p[keep]
+            x, y = a[i], a[p]
+            swap = x > y
+            a[i[swap]], a[p[swap]] = y[swap], x[swap]
+            j >>= 1
+        k <<= 1
+
+
+class _EmulatedK10:
+    """K10's shuffle entry points in numpy, reading and writing CPU tensors
+    through the pointers the wrapper passes, as the kernels do: the
+    histogram of the words' top bits; the scan (offsets, cursors, the
+    overflow list in any order, the largest bucket); the scatter of each
+    row's keys ((word << bits) << 32 | i, or i << 8 | the uint8 value in
+    its low bits) into its buckets in a shuffled order, as atomics leave
+    them; the sort of each bucket up to ``cap`` (a counting
+    sort by the next 11 bits, placed in a shuffled order, then each run of 4
+    sub-buckets sorted alone, as a thread does) and of each listed bucket by
+    the bitonic network; the epilogue writing the previous round's output
+    at each sorted position, or in the first round the payload or the
+    position."""
+
+    def __init__(self, seed: int = 0) -> None:
+        self.calls: list[str] = []
+        self.sorted_by: dict[str, int] = {"local": 0, "overflow": 0}
+        self.packed = False
+        self.rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def _words(keys, rows, n, mask):
+        k = _view(keys, np.uint32, 2 * rows).reshape(rows, 2)
+        return trng.random_bits(k, (n,)) & np.uint32(mask)
+
+    def sqt_shuffle_hist(self, keys, rows, n, mask, bits, hist, stats, stream):
+        self.calls.append("hist")
+        nb = 1 << bits
+        w = self._words(keys, rows, n, mask)
+        h = _view(hist, np.int32, rows * nb).reshape(rows, nb)
+        for r in range(rows):
+            h[r] = np.bincount((w[r] >> np.uint32(32 - bits)) if bits else np.zeros(n, np.int64), minlength=nb)
+        _view(stats, np.int32, 2)[:] = 0
+        return 0
+
+    def sqt_shuffle_scan(self, rows, n, bits, cap, hist, offs, overflow, stats, stream):
+        self.calls.append("scan")
+        nb = 1 << bits
+        h = _view(hist, np.int32, rows * nb).reshape(rows, nb)
+        o = _view(offs, np.int32, rows * (nb + 1)).reshape(rows, nb + 1)
+        st = _view(stats, np.int32, 2)
+        assert np.all(h.sum(axis=1) == n)
+        o[:, 0] = 0
+        o[:, 1:] = np.cumsum(h, axis=1)
+        over = np.flatnonzero(h.ravel() > cap)
+        self.rng.shuffle(over)
+        _view(overflow, np.int32, rows * nb)[: len(over)] = over
+        st[:] = len(over), h.max()
+        h[:] = o[:, :-1]
+        return 0
+
+    def sqt_shuffle_scatter(self, keys, rows, n, mask, bits, vals, vals_ld, hist, tmp, stream):
+        self.calls.append("scatter")
+        nb = 1 << bits
+        w = self._words(keys, rows, n, mask)
+        cur = _view(hist, np.int32, rows * nb).reshape(rows, nb)
+        t = _view(tmp, np.uint64, rows * n).reshape(rows, n)
+        if vals is not None:
+            assert n < 1 << 24
+            v = _view(vals, np.uint8, (rows - 1) * vals_ld + n)
+        for r in range(rows):
+            for i in self.rng.permutation(n):
+                b = int(w[r, i]) >> (32 - bits) if bits else 0
+                low = (int(i) << 8) | int(v[r * vals_ld + i]) if vals is not None else int(i)
+                t[r, cur[r, b]] = (((int(w[r, i]) << bits) & 0xFFFFFFFF) << 32) | low
+                cur[r, b] += 1
+        self.packed = vals is not None
+        return 0
+
+    def sqt_shuffle_sort(self, tmp, offs, overflow, stats, rows, n, bits, cap, prev, prev_ld, payload, payload_bytes,
+                         packed, out, out_ld, stream):
+        self.calls.append("sort")
+        nb = 1 << bits
+        t = _view(tmp, np.uint64, rows * n).reshape(rows, n)
+        o = _view(offs, np.int32, rows * (nb + 1)).reshape(rows, nb + 1)
+        dtype = _PAYLOAD[payload_bytes] if payload_bytes else np.int32
+        pv = _view(prev, dtype, rows * prev_ld).reshape(rows, prev_ld) if prev is not None else None
+        pay = _view(payload, dtype, n) if payload_bytes else None
+        dst = _view(out, dtype, rows * out_ld).reshape(rows, out_ld)
+        listed = set(_view(overflow, np.int32, rows * nb)[: _view(stats, np.int32, 2)[0]].tolist())
+        for r in range(rows):
+            for b in range(nb):
+                off, m = o[r, b], o[r, b + 1] - o[r, b]
+                seg = t[r, off : off + m]
+                if m > cap:
+                    assert r * nb + b in listed
+                    _bitonic(seg)
+                    self.sorted_by["overflow"] += 1
+                elif m:
+                    sub = (seg >> np.uint64(53)).astype(np.int64)
+                    order = self.rng.permutation(m)  # placed in any order within a sub-bucket
+                    placed = order[np.argsort(sub[order], kind="stable")]
+                    keys = seg[placed]
+                    starts = np.searchsorted(np.sort(sub), np.arange(0, 2049, 4))
+                    for lo, hi in zip(starts[:-1], starts[1:]):
+                        keys[lo:hi] = np.sort(keys[lo:hi])
+                    seg[:] = keys
+                    self.sorted_by["local"] += 1
+                else:
+                    continue
+                if packed:
+                    assert self.packed and pv is None and payload_bytes == 1
+                    dst[r, off : off + m] = (seg & np.uint64(0xFF)).astype(np.uint8)
+                    continue
+                pos = (seg & np.uint64(0xFFFFFFFF)).astype(np.int64)
+                dst[r, off : off + m] = pv[r, pos] if pv is not None else pay[pos] if pay is not None else pos
+        return 0
+
+
+@pytest.fixture()
+def emulated(monkeypatch):
+    emu = _EmulatedK10(seed=5)
+    monkeypatch.setattr(_cuda, "library", lambda: emu)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(_cuda, "require", lambda *args, **kwargs: None)
+    monkeypatch.setitem(_cuda.launches, "threefry_shuffle", 0)
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 1 << 20)  # no card to ask
+    return emu
+
+
+_CARD = torch.device("cuda")  # the kernel path's branch; every tensor stays on the CPU
+
+
+def _both(subs, n, payload=None, ld=None, **kw):
+    """The wrapper around the emulated kernel and the plain version."""
+    rows = subs[0].shape[0] if subs else 4
+    dtype = payload.dtype if payload is not None else torch.int32
+    out = torch.full((rows, ld or n), 7, dtype=dtype)
+    got = trng._shuffle(subs, n, _CARD, payload, out, **kw)
+    want = trng._shuffle(subs, n, torch.device("cpu"), payload, torch.full((rows, ld or n), 7, dtype=dtype), **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("n", [1, 2, 1625, 1626, 4097, 65_535, 65_536])
+def test_emulated_shuffle_matches_sort_and_jax(n, emulated):
+    """Every round, the rows' composition and the int32 output: bitwise
+    ``torch.sort(stable=True)`` and ``jax.random.permutation``, at the
+    sizes where JAX goes from one round to two, n not a multiple of the
+    4096-item tile, one bucket (n <= 2048) and several."""
+    keys = trng.spawn_keys(n % 101, 3)
+    subs = trng._round_keys(keys, trng._rounds(n))
+    got, want = _both(subs, n) if subs else (None, None)
+    if subs:
+        assert torch.equal(got, want)
+        assert emulated.calls == ["hist", "scan", "scatter", "sort"] * len(subs)
+        assert _cuda.launches["threefry_shuffle"] == 4 * len(subs)
+    jax_perm = np.asarray(jrng.permutation_batch(jnp.asarray(keys), jnp.arange(n, dtype=jnp.int32)))
+    out = torch.empty((3, n), dtype=torch.int32)
+    np.testing.assert_array_equal(trng.permutation_batch(keys, n, _CARD, out=out).numpy(), jax_perm)
+
+
+def test_emulated_permutation_batch_chunks(emulated, monkeypatch):
+    """``permutation_batch``'s chunks on the kernel path, two rounds, with
+    uint8 labels as the payload into rows padded past n (left untouched)."""
+    n = 3000
+    keys = trng.spawn_keys(4, 7)
+    labels = torch.from_numpy(np.random.default_rng(1).integers(0, 16, n).astype(np.uint8))
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 3)
+    out = torch.full((7, 3072), 255, dtype=torch.uint8)
+    got = trng.permutation_batch(keys, n, _CARD, payload=labels, out=out)
+    want = labels[trng.permutation_batch(keys, n, torch.device("cpu")).long()]
+    assert got is out and torch.equal(got[:, :n], want) and bool((got[:, n:] == 255).all())
+    assert emulated.calls.count("hist") == 3 * 2  # three chunks of two rounds
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["uint8 in the keys", "uint8 gathered"])
+def test_emulated_uint8_labels_both_epilogues(packed, emulated, monkeypatch):
+    """uint8 labels ride in the keys' low byte below 2^24 items; the gather
+    epilogue (forced here by lowering that limit) gives the same rows, over
+    two rounds."""
+    if not packed:
+        monkeypatch.setattr(trng, "_PACKED_MAX_N", 0)
+    n = 4500
+    subs = trng._round_keys(trng.spawn_keys(6, 3), 2)
+    labels = torch.from_numpy(np.random.default_rng(3).integers(0, 256, n).astype(np.uint8))
+    got, want = _both(subs, n, labels, ld=4608)
+    assert torch.equal(got, want) and emulated.packed == packed
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.int64, torch.float32])
+def test_emulated_values_epilogue(dtype, emulated):
+    """``permutation_columns``' round (the keys themselves, one sort) with
+    the values as the payload, against JAX's ``sort_key_val`` columns."""
+    n, P = 5000, 4
+    values = np.random.default_rng(2).permutation(n).astype(np.int64) % 200
+    keys = trng.spawn_keys(9, P)
+    got, want = _both([keys], n, torch.from_numpy(values).to(dtype))
+    assert torch.equal(got, want)
+    jax_cols = np.asarray(jrng.permutation_columns(jnp.asarray(keys), jnp.asarray(values.astype(np.int32))))
+    np.testing.assert_array_equal(got.T.numpy().astype(np.int64), jax_cols)
+
+
+@pytest.mark.parametrize("mask", [0xFFF00000, 0xF0000000, 0x80000000, 0x00000FFF],
+                         ids=["4096 words", "16 words", "top bit only", "low bits only"])
+def test_emulated_ties(mask, emulated):
+    """Crafted words with many ties (the words and-ed with ``mask``): each
+    tie kept in position order, as a stable sort keeps it; the top bit
+    compared unsigned. Two rounds, so round 2's ties follow round 1's
+    output positions."""
+    n = 9000
+    subs = trng._round_keys(trng.spawn_keys(3, 2), 2)
+    got, want = _both(subs, n, mask=mask)
+    assert torch.equal(got, want)
+    w = trng.random_bits(subs[0], (n,)) & np.uint32(mask)
+    np.testing.assert_array_equal(trng._shuffle(subs[:1], n, torch.device("cpu"), mask=mask).numpy(),
+                                  np.argsort(w, axis=1, kind="stable"))
+
+
+def test_emulated_keys_with_the_top_bit(emulated):
+    """Key words at and above 2^31 (negative as int32) on the kernel path."""
+    keys = np.array([[0xFFFFFFFF, 0x80000001], [0x80000000, 0x7FFFFFFF]], dtype=np.uint32)
+    got, want = _both([keys], 3000)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,mask,cap", [(3000, 0, 64), (6000, 0xFF800000, 64), (2049, trng._FULL_MASK, 1024),
+                                        (777, 0, 1)])
+def test_emulated_overflow_path(n, mask, cap, emulated, monkeypatch):
+    """Buckets past the local sort's capacity (lowered here) take the
+    bitonic network: every word equal (one bucket of n), a few large
+    buckets, ordinary words with a small capacity (several buckets, the
+    last one included), and a capacity of one key; payload and index
+    epilogues, composed over two rounds."""
+    monkeypatch.setattr(trng, "_SORT_CAP", cap)
+    subs = trng._round_keys(trng.spawn_keys(n, 3), 2)
+    labels = torch.from_numpy(np.random.default_rng(n).integers(0, 255, n).astype(np.uint8))
+    for payload in (None, labels):
+        got, want = _both(subs, n, payload, ld=n + 5, mask=mask)
+        assert torch.equal(got, want)
+        assert bool((got[:, n:] == 7).all())
+    assert emulated.sorted_by["overflow"] > 0
+
+
+@pytest.mark.parametrize("n,bits", [(1, 0), (2048, 0), (2049, 1), (1_000_000, 9), (2_700_000, 11), (10**9, 13)])
+def test_bucket_bits(n, bits):
+    assert trng._bucket_bits(n) == bits
+    assert n <= trng._BUCKET_MEAN << bits or bits == trng._MAX_BITS
+
+
+@pytest.mark.parametrize("n,rounds", [(0, 0), (1, 0), (2, 1), (1625, 1), (1626, 2), (2_642_245, 2), (2_642_246, 3)])
+def test_rounds_at_the_edges(n, rounds):
+    assert trng._rounds(n) == rounds

@@ -45,6 +45,17 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       line splits it (prepare, observed means, permutations, counts,
       p-values, container) (K10 shuffles, K9 counts on its integral
       route);
+   f. f1: part a's 1M cells as a study of 8 sections (contiguous strips,
+      60k-200k cells each, sizes from a seed): ``spatial_neighbors_knn``
+      with ``library_key`` (no edge across sections) and
+      ``nhood_enrichment(library_key=..., n_perms=1000)`` twice (seeds 0
+      and 1; K10's grouped entry and K3, never the cipher); f2:
+      ``examples/sepal_scale.py``'s timed run, ``sepal`` on a 1000 x 1000
+      square lattice (Visium HD bins) x 1024 genes of floored Gamma counts
+      with bumps, ``thresh=0``, 300 steps, twice (K11); f3: ``sepal`` at
+      its defaults on the example's 316 x 316 x 256 (the spatial genes must
+      score above the background) and on a Visium section of 4,992
+      hexagonal spots x 2000 genes (K11);
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -145,9 +156,17 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    ``permutation_columns`` round of 500 keys, words with ties (4096 and 2
    distinct words), and every word equal or the capacity lowered (the
    overflow path); K10's words at n = 1, 1625, 1626, 65,537 and 1M,
-   unflipped, and with more keys than the grid's rows.
+   unflipped, and with more keys than the grid's rows; on part f's own
+   inputs: K10's grouped entry on f1's first 500-permutation chunk (the
+   sort path, K10's words + one ``torch.sort`` of the (section, word) keys
+   + the gathers, as its yardstick), its ``[diag] grouped`` line (each
+   step, segments, tiles, buckets, the fused write at the original rows
+   against a separate gather), then int32 values with a one-cell and a NaN
+   library, the capacity lowered and every word equal (the overflow path);
+   K11 on f2's first 64 genes for the 300-step budget (the steps and the
+   state after it) and on f3's two datasets at the default threshold.
    Integer kernels
-   (K1-K4, K7, K9, K10), K6's CSR (offsets, columns and distances), K8's indices
+   (K1-K4, K7, K9, K10), K11 (its steps and state), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
@@ -169,7 +188,9 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    sums to rtol 1e-12) and ``centrality_scores`` (bitwise); and ``ligrec``
    bitwise (means and p-values) at 3000 cells of fractional data (the
    float64 route, FDR along the clusters) and 70,000 cells x 64 genes of
-   counts (the float32 route through the device expression handle).
+   counts (the float32 route through the device expression handle); and
+   ``nhood_enrichment(library_key=...)`` bitwise on a ~100k-cell band of
+   part f1's study across its 8 sections.
 
 Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -2607,6 +2628,384 @@ def ligrec_reference_check() -> None:
           f"agree bitwise ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+SECTIONS = 8  # part f1's libraries: contiguous strips of part a's section, 60k-200k cells each
+SECTION_PERMS_CPU = 200  # part f1's card-vs-CPU check on a ~100k-cell cut
+GROUPED_CHECK_KEYS = 500  # K10's grouped entry held on one 500-permutation chunk, as nhood_enrichment makes it
+SEPAL_SIDE, SEPAL_GENES, SEPAL_BUDGET = 1000, 1024, 300  # examples/sepal_scale.py: Visium HD bins, thresh=0
+SEPAL_SMALL_SIDE, SEPAL_SMALL_GENES = 316, 256  # its score check, at the default threshold
+VISIUM_SPOTS, VISIUM_GENES = 4992, 2000  # a Visium section: hexagonal spots
+K11_CHECK_GENES = 64  # K11 held to its plain version by the state after the budget
+SEPAL_DT = 0.001
+
+
+def _sections(coords: np.ndarray, seed: int) -> np.ndarray:
+    """Library codes of :data:`SECTIONS` contiguous strips along x, their
+    sizes drawn from a seed and each within 60k-200k cells."""
+    rng = np.random.default_rng(seed)
+    n = len(coords)
+    while True:
+        w = rng.uniform(0.5, 1.6, SECTIONS)
+        sizes = np.floor(w / w.sum() * n).astype(np.int64)
+        sizes[-1] += n - sizes.sum()
+        if sizes.min() >= 60_000 and sizes.max() <= 200_000:
+            break
+    codes = np.empty(n, dtype=np.int32)
+    codes[np.argsort(coords[:, 0], kind="stable")] = np.repeat(np.arange(SECTIONS), sizes)
+    return codes
+
+
+def sections_path(adata: StandIn) -> tuple[StandIn, dict, dict]:
+    """Part f1: part a's 1M cells as a study of 8 sections (libraries of
+    unequal size): ``spatial_neighbors_knn(library_key=...)``, then
+    ``nhood_enrichment(library_key=..., n_perms=1000)`` twice (seeds 0 and
+    1), the counters reset before the two calls and read after; then checks
+    of what they returned. Returns the study, the launches and the seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+
+    coords = adata.obsm["spatial"]
+    codes = _sections(coords, seed=31)
+    study = StandIn(coords, np.asarray(adata.obs["cluster"].cat.codes), N_CLS)
+    study.obs["library"] = _Categorical(codes, SECTIONS)
+    secs = {"sizes": "/".join(map(str, np.bincount(codes)))}
+    _, secs["graph_s"] = _sync_time(lambda: sqt.gr.spatial_neighbors_knn(study, n_neighs=N_NEIGHS,
+                                                                           library_key="library"))
+    adj = study.obsp["spatial_connectivities"].tocoo()
+    if adj.nnz != len(codes) * N_NEIGHS or np.any(codes[adj.row] != codes[adj.col]):
+        raise AssertionError("the sections' kNN graph has the wrong edge count or edges across sections")
+    _cuda.reset_launches()
+    call = dict(library_key="library", n_perms=N_PERMS, copy=True)
+    res0, secs["nhood_seed0_s"] = _sync_time(lambda: sqt.gr.nhood_enrichment(study, "cluster", seed=0, **call))
+    res1, secs["nhood_seed1_s"] = _sync_time(lambda: sqt.gr.nhood_enrichment(study, "cluster", seed=1, **call))
+    launches = dict(_cuda.launches)
+    for res in (res0, res1):
+        if res.zscore.shape != (N_CLS, N_CLS) or int(res.counts.astype(np.int64).sum()) != adj.nnz:
+            raise AssertionError("nhood_enrichment(library_key): wrong shape or observed edge total")
+        if not np.isfinite(res.zscore).all():
+            raise AssertionError("nhood_enrichment(library_key): non-finite z-scores")
+    if not np.array_equal(res0.counts, res1.counts) or np.array_equal(res0.zscore, res1.zscore):
+        raise AssertionError("nhood_enrichment(library_key): counts depend on the seed, or z-scores do not")
+    return study, launches, secs
+
+
+def _grouped_bound(rows: int, n: int, out_bytes: int, payload_bytes: int) -> tuple[float, str]:
+    # the function's least work: one word an item; the values and the group
+    # codes read once, the output written once
+    return _bound(float(rows) * n * out_bytes + n * (payload_bytes + 4) + 8.0 * rows, WORD_OPS * rows * n)
+
+
+def _library_grouped(keys, lay, vsorted):
+    """The sort path of the grouped shuffle: K10's word entry, one
+    ``torch.sort(stable=True)`` of the int64 keys (segment << 32) | word, the
+    gather of the values and the scatter to the original rows."""
+    import torch
+
+    from squidpy_torch._core.rng import random_bits_device
+
+    n = vsorted.shape[0]
+    cuda = torch.device("cuda")
+    words = random_bits_device(keys, n, cuda).to(torch.int64) & 0xFFFFFFFF
+    rank = torch.from_numpy(np.repeat(np.arange(len(lay.starts) - 1), np.diff(lay.starts))).to(cuda)
+    idx = torch.sort((rank << 32) | words, dim=1, stable=True).indices
+    out = torch.empty((len(keys), n), dtype=vsorted.dtype, device=cuda)
+    out[:, torch.from_numpy(lay.order).to(cuda)] = vsorted[idx]
+    return out
+
+
+def check_grouped(name: str, keys, values, groups, library: bool = False, plain_warm: bool = True) -> dict:
+    """K10's grouped entry (``_core/rng.py`` ``_shuffle_grouped``, chunked as
+    ``shuffle_group_columns`` chunks) against its plain version on the card,
+    bitwise; with ``library`` the sort path as the yardstick."""
+    import torch
+
+    from squidpy_torch._core import rng
+
+    cuda = torch.device("cuda")
+    lay = rng.group_layout(groups)
+    vsorted = values[torch.from_numpy(lay.order).to(cuda)].contiguous()
+    n = len(groups)
+    out_k = torch.empty((len(keys), n), dtype=values.dtype, device=cuda)
+    out_p = torch.empty_like(out_k)
+    lib = (lambda: _library_grouped(keys, lay, vsorted)) if library else None
+    return _compare(name, lambda: rng._shuffle_grouped(keys, lay, vsorted, out_k, cuda),
+                    lambda: rng._shuffle_grouped_plain(keys, lay, vsorted, out_p), 3,
+                    _grouped_bound(len(keys), n, out_k.element_size(), values.element_size()),
+                    plain_warm=plain_warm, library=lib)
+
+
+def grouped_split(keys, values, groups) -> None:
+    """``[diag] grouped``: one chunk of K10's grouped entry (the chunk the
+    card's memory allows) with each step timed by CUDA events, its
+    segments, tiles, buckets, largest bucket and overflowing buckets; and
+    the sort's fused write at the original rows against a write at the
+    group-sorted slots followed by a separate gather."""
+    import torch
+
+    from squidpy_torch._core import rng
+
+    cuda = torch.device("cuda")
+    lay = rng.group_layout(groups)
+    vsorted = values[torch.from_numpy(lay.order).to(cuda)].contiguous()
+    n = len(groups)
+    step = rng._keys_per_chunk(n, cuda)
+    chunk = np.ascontiguousarray(np.asarray(keys, np.uint32)[:step])
+    dev = rng._grouped_device(lay, cuda)
+    out = torch.empty((len(chunk), n), dtype=values.dtype, device=cuda)
+    sorted_slots = torch.empty_like(out)
+    order = torch.from_numpy(lay.order).to(cuda)
+    rng._shuffle_grouped_k10(chunk, dev, vsorted, out, rng._FULL_MASK, rng._SORT_CAP)  # warm
+    stats: dict = {}
+    rng._shuffle_grouped_k10(chunk, dev, vsorted, out, rng._FULL_MASK, rng._SORT_CAP, stats=stats)
+    _, fused_ms = _time_ms(lambda: rng._shuffle_grouped_k10(chunk, dev, vsorted, out, rng._FULL_MASK, rng._SORT_CAP),
+                           3)
+
+    def apart():
+        rng._shuffle_grouped_k10(chunk, dev, vsorted, sorted_slots, rng._FULL_MASK, rng._SORT_CAP, fused=False)
+        out2 = torch.empty_like(out)
+        out2[:, order] = sorted_slots
+        return out2
+
+    got, apart_ms = _time_ms(apart, 3)
+    if not torch.equal(got, out):
+        raise AssertionError("K10 grouped: the fused write and the separate gather differ")
+    steps = " ".join(f"{k}={stats[k][0]:.3f}" for k in ("hist_ms", "scan_ms", "scatter_ms", "sort_ms"))
+    bound = _grouped_bound(len(chunk), n, 1, 1)
+    print(f"[diag] grouped n={n} keys={len(chunk)} (a chunk) segments={len(lay.starts) - 1} tiles={dev.tiles.shape[0]} "
+          f"buckets={stats['buckets']} largest_bucket={stats['largest_bucket'][0]} overflow={stats['overflow'][0]} "
+          f"{steps} fused_ms={fused_ms:.3f} (each slot written at its original row) "
+          f"apart_ms={apart_ms:.3f} (group-sorted slots, then a gather); bound_ms={bound[0]:.4f} ({bound[1]})",
+          flush=True)
+    if stats["overflow"][0]:
+        raise AssertionError("K10 grouped: a bucket of part f1's chunk overflowed")
+
+
+def grouped_kernel_checks(study: StandIn) -> list[dict]:
+    """K10's grouped entry on part f1's own inputs: the first 500-permutation
+    chunk of ``nhood_enrichment``'s keys over the study's labels (uint8) and
+    libraries, with the sort path as the yardstick, and its ``[diag]`` line;
+    then int32 values, a one-cell library and a NaN library, every word
+    equal, and the capacity lowered (the overflow path)."""
+    import torch
+
+    from squidpy_torch._core import rng
+
+    codes = np.asarray(study.obs["cluster"].cat.codes)
+    libs = np.asarray(study.obs["library"].cat.codes)
+    labels = torch.from_numpy(codes).cuda().to(torch.uint8)
+    keys = rng.spawn_keys(0, N_PERMS)[:GROUPED_CHECK_KEYS]
+    out = [check_grouped(f"threefry_grouped part f1 ({GROUPED_CHECK_KEYS} keys x {len(codes)}, {SECTIONS} sections, "
+                         f"uint8 labels)", keys, labels, libs, library=True, plain_warm=False)]
+    grouped_split(keys, labels, libs)
+    g = np.random.default_rng(33)
+    odd = g.integers(0, 5, 150_000).astype(np.int32)
+    odd[:7] = -1
+    odd[7] = 9  # a library of one cell
+    vals = torch.from_numpy(g.integers(0, 2**31 - 1, 150_000).astype(np.int32)).cuda()
+    out.append(check_grouped("threefry_grouped int32 values, a one-cell and a NaN library", rng.spawn_keys(1, 64),
+                             vals, odd))
+    old = rng._SORT_CAP
+    try:
+        rng._SORT_CAP = 64
+        out.append(check_grouped("threefry_grouped capacity lowered to 64 (the overflow path)", rng.spawn_keys(2, 16),
+                                 labels[:200_000], libs[:200_000]))
+    finally:
+        rng._SORT_CAP = old
+    lay = rng.group_layout(libs[:300_000])
+    vs = labels[:300_000][torch.from_numpy(lay.order).cuda()].contiguous()
+    got = torch.empty((8, 300_000), dtype=torch.uint8, device="cuda")
+    rng._shuffle_grouped(rng.spawn_keys(3, 8), lay, vs, got, torch.device("cuda"), mask=0)
+    want = rng._shuffle_grouped_plain(rng.spawn_keys(3, 8), lay, vs, torch.empty_like(got), mask=0)
+    if not torch.equal(got, want):
+        raise AssertionError("K10 grouped: every word equal differs from the plain version")
+    print("[kernel] threefry_grouped every word equal (one bucket a section, bitonic): max_abs_err=0.0", flush=True)
+    return out
+
+
+def sections_reference_check(study: StandIn) -> None:
+    """``nhood_enrichment(library_key=...)`` on the card and on the CPU (plain
+    torch) on a ~100k-cell band of part f1's study across all its sections:
+    counts and z-scores bitwise."""
+    import squidpy_torch as sqt
+
+    t0 = time.perf_counter()
+    coords = study.obsm["spatial"]
+    keep = coords[:, 1] < np.quantile(coords[:, 1], 0.1)
+    cut = StandIn(coords[keep], np.asarray(study.obs["cluster"].cat.codes)[keep], N_CLS)
+    cut.obs["library"] = _Categorical(np.asarray(study.obs["library"].cat.codes)[keep], SECTIONS)
+    sqt.gr.spatial_neighbors_knn(cut, n_neighs=N_NEIGHS, library_key="library")
+    out = {}
+    for device in ("cuda", "cpu"):
+        with sqt.set_device(device):
+            out[device] = sqt.gr.nhood_enrichment(cut, "cluster", library_key="library", n_perms=SECTION_PERMS_CPU,
+                                                  seed=2, copy=True)
+    np.testing.assert_array_equal(out["cuda"].counts, out["cpu"].counts)
+    np.testing.assert_array_equal(out["cuda"].zscore, out["cpu"].zscore)
+    print(f"[reference] nhood_enrichment(library_key) at {int(keep.sum())} cells, {SECTIONS} sections, "
+          f"{SECTION_PERMS_CPU} permutations: card and CPU agree bitwise ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def _lattice_adjacency(side: int):
+    """The 4-neighbour square lattice of ``side`` x ``side`` bins, as
+    ``examples/sepal_scale.py`` builds it."""
+    from scipy import sparse as sp
+
+    idx = np.arange(side * side).reshape(side, side)
+    r = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    c = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    n = side * side
+    return sp.csr_matrix((np.ones(2 * len(r)), (np.r_[r, c], np.r_[c, r])), shape=(n, n))
+
+
+def _sepal_counts(side: int, n_genes: int, seed: int) -> np.ndarray:
+    """``examples/sepal_scale.py``'s counts, drawn on the card: Gamma(2, 1)
+    times 1 + 10 x a Gaussian bump (width uniform in side/20-side/4) for
+    the first quarter of the genes, floored, as uint8 (clamped at 255)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = side * side
+    n_sv = n_genes // 4
+    alpha = torch.full((n, n_genes), 2.0, device="cuda")
+    x = torch._standard_gamma(alpha, generator=gen)
+    del alpha
+    yy, xx = torch.meshgrid(torch.arange(side, device="cuda"), torch.arange(side, device="cuda"), indexing="ij")
+    sx, sy = xx.reshape(-1).float(), yy.reshape(-1).float()
+    cy = torch.rand(n_sv, device="cuda", generator=gen) * side
+    cx = torch.rand(n_sv, device="cuda", generator=gen) * side
+    w = side / 20 + torch.rand(n_sv, device="cuda", generator=gen) * (side / 4 - side / 20)
+    bump = torch.exp(-((sx[:, None] - cx) ** 2 + (sy[:, None] - cy) ** 2) / (2 * w**2))
+    x[:, :n_sv] *= 1.0 + 10.0 * bump
+    return torch.floor(x).clamp_(max=255).to(torch.uint8).cpu().numpy()
+
+
+def _sepal_dataset(side: int, n_genes: int, seed: int) -> StandIn:
+    yy, xx = np.mgrid[:side, :side]
+    adata = StandIn(np.column_stack([xx.ravel(), yy.ravel()]).astype(np.float64), np.zeros(side * side), 1)
+    adata.obsp["spatial_connectivities"] = _lattice_adjacency(side)
+    adata.set_expression(_sepal_counts(side, n_genes, seed))
+    return adata
+
+
+def _check_sepal(res, genes: int, budget: int) -> np.ndarray:
+    s = res.columns["sepal_score"]
+    if len(res.index) != genes or len(set(res.index)) != genes:
+        raise AssertionError("sepal: wrong or repeated genes")
+    finite = s[np.isfinite(s)]
+    if np.any(finite < 0) or np.any(finite > budget * SEPAL_DT) or np.any(np.diff(finite) > 0):
+        raise AssertionError("sepal: scores outside [0, n_iter * dt] or not descending")
+    if not np.array_equal(np.isnan(s), np.arange(len(s)) >= len(finite)):
+        raise AssertionError("sepal: NaN scores not last")
+    return s
+
+
+def sepal_path() -> tuple[dict, dict, dict]:
+    """Parts f2 and f3. f2: ``examples/sepal_scale.py``'s timed run, a
+    1000 x 1000 square lattice (Visium HD bins) x 1024 genes, ``thresh=0``
+    and ``n_iter=300``, two calls; f3: sepal at its defaults on the
+    example's 316 x 316 lattice x 256 genes (the spatial genes must score
+    above the background) and on a Visium section of 4,992 hexagonal spots
+    (``spatial_neighbors_grid(n_neighs=6)``) x 2000 genes. Each part's
+    counters reset before its calls and read after. Returns the datasets,
+    the launches (f2, f3) and the seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+    from squidpy_torch._core.device_x import device_expression
+
+    secs: dict = {}
+    t0 = time.perf_counter()
+    big = _sepal_dataset(SEPAL_SIDE, SEPAL_GENES, seed=41)
+    secs["f2_setup_s"] = time.perf_counter() - t0
+    _, secs["f2_handle_s"] = _sync_time(lambda: device_expression(big))
+    _cuda.reset_launches()
+    call = dict(max_neighs=4, n_iter=SEPAL_BUDGET, thresh=0.0, copy=True)
+    r1, secs["f2_call1_s"] = _sync_time(lambda: sqt.gr.sepal(big, **call))
+    r2, secs["f2_call2_s"] = _sync_time(lambda: sqt.gr.sepal(big, **call))
+    launches_f2 = dict(_cuda.launches)
+    s = _check_sepal(r1, SEPAL_GENES, SEPAL_BUDGET)
+    if not (np.array_equal(r1.index, r2.index) and np.array_equal(s, r2.columns["sepal_score"], equal_nan=True)):
+        raise AssertionError("sepal: two calls on the same data differ")
+    secs["f2_converged"] = int(np.isfinite(s).sum())
+
+    small = _sepal_dataset(SEPAL_SMALL_SIDE, SEPAL_SMALL_GENES, seed=7)
+    hexa = _hex_dataset(VISIUM_SPOTS, seed=43)
+    hexa.set_expression(poisson_counts(VISIUM_SPOTS, VISIUM_GENES, seed=44, low=0.5))
+    sqt.gr.spatial_neighbors_grid(hexa, n_neighs=6)
+    _cuda.reset_launches()
+    r3, secs["f3_square_s"] = _sync_time(lambda: sqt.gr.sepal(small, max_neighs=4, copy=True))
+    r4, secs["f3_visium_s"] = _sync_time(lambda: sqt.gr.sepal(hexa, max_neighs=6, copy=True))
+    launches_f3 = dict(_cuda.launches)
+    s3 = dict(zip(r3.index, _check_sepal(r3, SEPAL_SMALL_GENES, 30000)))
+    sv = np.nanmean([s3[f"gene_{i}"] for i in range(SEPAL_SMALL_GENES // 4)])
+    bg = np.nanmean([s3[f"gene_{i}"] for i in range(SEPAL_SMALL_GENES // 4, SEPAL_SMALL_GENES)])
+    secs["f3_spatial_mean"], secs["f3_background_mean"] = float(sv), float(bg)
+    print(f"[score check] sepal at {SEPAL_SMALL_SIDE * SEPAL_SMALL_SIDE} bins, thresh=1e-8: spatial genes {sv:.6f} "
+          f"vs background {bg:.6f} (mean scores)", flush=True)
+    s4 = _check_sepal(r4, VISIUM_GENES, 30000)
+    secs["f3_visium_converged"] = int(np.isfinite(s4).sum())
+    return {"big": big, "small": small, "visium": hexa}, {"f2": launches_f2, "f3": launches_f3}, secs
+
+
+def _sepal_bound(n: int, k: int, n_sat: int, done, n_iter: int) -> tuple[float, str]:
+    # this run's steps: a gene runs to its convergence step (or the budget);
+    # each step reads the state and writes it once (4 + 4 bytes a node and
+    # gene); operations: the stencil (k adds, 3 more, the clamp) a node and
+    # the entropy's ~24 (two compares, a division, a log, two adds) a
+    # saturated node
+    steps = float(np.where(np.isnan(done), n_iter, done + 1).sum())
+    return _bound(8.0 * n * steps, ((k + 4) * n + 24.0 * n_sat) * steps)
+
+
+def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter: int, thresh: float,
+                plain_warm: bool = False) -> dict:
+    """K11 against its plain version on the card on ``adata``'s genes, by
+    the convergence steps and the state after the run (one tensor: the steps
+    in row 0), bitwise."""
+    import torch
+    from scipy import sparse as sp
+
+    from squidpy_torch._core.device_x import device_expression
+    from squidpy_torch.gr._sepal import _compute_idxs
+    from squidpy_torch.ops.sepal import _diffusion_plain, sepal_diffusion
+
+    g = sp.csr_matrix(adata.obsp["spatial_connectivities"])
+    k = 6 if hexa else 4
+    sat, sat_idx, unsat, near = _compute_idxs(g, np.asarray(adata.obsm["spatial"], np.float64), k)
+    tables = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
+              for a in (sat, sat_idx, unsat, np.searchsorted(sat, near))]
+    conc = device_expression(adata).dense_block(genes)
+
+    def kernel():
+        done, state = sepal_diffusion(conc, *tables, hexa, n_iter, SEPAL_DT, thresh, return_state=True)
+        return torch.cat([done[None, :], state])
+
+    def plain():
+        done, state = _diffusion_plain(conc, *tables, hexa, n_iter, SEPAL_DT, thresh)
+        return torch.cat([done[None, :], state])
+
+    done = kernel()[0].cpu().numpy()
+    print(f"[diag] sepal {name}: steps run {int(np.where(np.isnan(done), n_iter, done + 1).max())}, genes "
+          f"converged {int(np.isfinite(done).sum())} of {len(done)}, nodes {g.shape[0]} ({len(sat)} saturated)",
+          flush=True)
+    return _compare(name, kernel, plain, 2, _sepal_bound(g.shape[0], k, len(sat), done, n_iter),
+                    plain_warm=plain_warm)
+
+
+def sepal_kernel_checks(data: dict) -> list[dict]:
+    """K11 on part f's own inputs: the first 64 genes of f2's 1M bins for
+    its budget of 300 steps (the state after it, and the steps), then f3's
+    316 x 316 x 256 and Visium 4,992 x 2000 at the default threshold (the
+    steps and the state)."""
+    out = [check_sepal(f"sepal_diffusion part f2 ({SEPAL_SIDE}x{SEPAL_SIDE} bins x {K11_CHECK_GENES} genes, "
+                       f"{SEPAL_BUDGET} steps, thresh=0)", data["big"], False, np.arange(K11_CHECK_GENES), SEPAL_BUDGET,
+                       0.0)]
+    out.append(check_sepal(f"sepal_diffusion part f3 ({SEPAL_SMALL_SIDE}x{SEPAL_SMALL_SIDE} x {SEPAL_SMALL_GENES} "
+                           f"genes, thresh=1e-8)", data["small"], False, np.arange(SEPAL_SMALL_GENES), 30000, 1e-8))
+    out.append(check_sepal(f"sepal_diffusion part f3 (Visium {VISIUM_SPOTS} hex spots x {VISIUM_GENES} genes, "
+                           f"thresh=1e-8)", data["visium"], True, np.arange(VISIUM_GENES), 30000, 1e-8))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2702,6 +3101,26 @@ def main() -> int:
     launches = {k: launches[k] + launches_e[k] for k in launches}
     phases["main_path_e"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    study, launches_f1, secs_f1 = sections_path(adata)
+    print(f"[main path f1] n={N_CELLS} sections={SECTIONS} perms={N_PERMS} "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in secs_f1.items()), flush=True)
+    print(f"[launches f1] {launches_f1}", flush=True)
+    missing = [k for k in ("threefry_grouped", "pair_counts") if launches_f1[k] <= 0]
+    if missing or launches_f1["index_cipher"]:
+        raise AssertionError(f"part f1: kernels not launched {missing}, or the cipher launched with library_key")
+    sepal_data, launches_sepal, secs_f = sepal_path()
+    print(f"[main path f2/f3] f2: {SEPAL_SIDE}x{SEPAL_SIDE} bins x {SEPAL_GENES} genes, {SEPAL_BUDGET} steps; f3: "
+          f"{SEPAL_SMALL_SIDE}x{SEPAL_SMALL_SIDE} x {SEPAL_SMALL_GENES}, Visium {VISIUM_SPOTS} x {VISIUM_GENES} "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in secs_f.items()), flush=True)
+    for part, counts in launches_sepal.items():
+        print(f"[launches {part}] {counts}", flush=True)
+        if counts["sepal_diffusion"] <= 0:
+            raise AssertionError(f"part {part}: sepal_diffusion was not launched")
+    for counts in (launches_f1, *launches_sepal.values()):
+        launches = {k: launches[k] + counts[k] for k in launches}
+    phases["main_path_f"] = time.perf_counter() - t_phase
+
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take
     t_phase = time.perf_counter()
@@ -2716,6 +3135,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     checks.update(ligrec_kernel_checks(adata_e))
     del adata_e
+    torch.cuda.empty_cache()
+    checks["threefry_grouped"] = grouped_kernel_checks(study)
+    checks["sepal_diffusion"] = sepal_kernel_checks(sepal_data)
+    del sepal_data
     torch.cuda.empty_cache()
     phases["kernels_main_path_inputs"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -2742,6 +3165,7 @@ def main() -> int:
     graph_reference_check(3000)
     ripley_reference_check(3000)
     ligrec_reference_check()
+    sections_reference_check(study)
     phases["card_vs_cpu"] = time.perf_counter() - t_phase
     print("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()), flush=True)
 

@@ -10,7 +10,9 @@ a few thousand words per call, so they are made on the host (``spawn_keys``,
 ``split_keys``); the shuffles themselves, up to 2e9 sort words a call, run
 on the device: kernel K10 (``csrc/threefry.cu``) draws each round's words
 in registers and sorts every row by (word, position) in buckets
-(:func:`permutation_batch`, :func:`permutation_columns`); its plain torch
+(:func:`permutation_batch`, :func:`permutation_columns`), and its grouped
+entry sorts each group's segment of a row by (segment, word) for the
+library-stratified shuffles (:func:`shuffle_group_columns`); its plain torch
 version, on the CPU, draws the words with :func:`_threefry_plain` and sorts
 them with ``torch.sort(stable=True)``. :func:`threefry_bits` is K10's word
 entry alone. Everything downstream (shuffles, counts, z-scores) is bitwise
@@ -20,6 +22,7 @@ equal to the JAX package.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +30,8 @@ import torch
 from squidpy_torch import _cuda
 
 __all__ = [
+    "GroupLayout",
+    "group_layout",
     "permutation_batch",
     "permutation_columns",
     "random_bits",
@@ -250,16 +255,35 @@ def _shuffle_plain(subs: list[np.ndarray], n: int, payload: torch.Tensor | None,
     return out
 
 
-def _launch(entry: str, *args: object) -> None:
-    """One call into K10's C interface, counted as one launch of K10."""
-    _cuda.check(getattr(_cuda.library(), entry)(*args, _cuda.stream_ptr()), "threefry_shuffle")
-    _cuda.launches["threefry_shuffle"] += 1
+def _launch(entry: str, *args: object, kernel: str = "threefry_shuffle") -> None:
+    """One call into K10's C interface, counted as one launch of ``kernel``
+    (the shuffle, or its grouped entry)."""
+    _cuda.check(getattr(_cuda.library(), entry)(*args, _cuda.stream_ptr()), kernel)
+    _cuda.launches[kernel] += 1
 
 
 def _event() -> torch.cuda.Event:
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
     return ev
+
+
+def _run_round(steps: tuple, st: torch.Tensor, nb: int, stats: dict | None, kernel: str) -> None:
+    """One round's calls (histogram, scan, scatter, sort); given ``stats``,
+    each timed by CUDA events and the round's overflowing buckets and
+    largest bucket read back (one wait)."""
+    events = [_event()] if stats is not None else None
+    for _, call in steps:
+        _launch(*call, kernel=kernel)
+        if events is not None:
+            events.append(_event())
+    if stats is not None:
+        n_over, largest = st.tolist()  # waits for the round
+        stats.setdefault("overflow", []).append(n_over)
+        stats.setdefault("largest_bucket", []).append(largest)
+        stats["buckets"] = nb
+        for (name, _), a, b in zip(steps, events, events[1:]):
+            stats.setdefault(f"{name}_ms", []).append(a.elapsed_time(b))
 
 
 def _shuffle_k10(subs: list[np.ndarray], n: int, payload: torch.Tensor | None, out: torch.Tensor, mask: int,
@@ -301,18 +325,7 @@ def _shuffle_k10(subs: list[np.ndarray], n: int, payload: torch.Tensor | None, o
                  ("sort", ("sqt_shuffle_sort", tmp.data_ptr(), offs.data_ptr(), overflow.data_ptr(), st.data_ptr(),
                            rows, n, bits, cap, None if packed else prev_ptr, prev_ld, pay_ptr, pay_bytes, int(packed),
                            dst.data_ptr(), dst.stride(0))))
-        events = [_event()] if stats is not None else None
-        for _, call in steps:
-            _launch(*call)
-            if events is not None:
-                events.append(_event())
-        if stats is not None:
-            n_over, largest = st.tolist()  # waits for the round
-            stats.setdefault("overflow", []).append(n_over)
-            stats.setdefault("largest_bucket", []).append(largest)
-            stats["buckets"] = nb
-            for (name, _), a, b in zip(steps, events, events[1:]):
-                stats.setdefault(f"{name}_ms", []).append(a.elapsed_time(b))
+        _run_round(steps, st, nb, stats, "threefry_shuffle")
         prev = dst
 
 
@@ -389,9 +402,168 @@ def permutation_columns(keys: np.ndarray, values: torch.Tensor, payload_dtype: t
     return _shuffle([keys], values.shape[0], values.device, values).T.contiguous()
 
 
-def shuffle_group_columns(*args: object, **kwargs: object) -> torch.Tensor:
-    """Library-stratified shuffles (``library_key``) are not ported yet."""
-    raise NotImplementedError(
-        "Library-stratified shuffles (`library_key`) are not ported to squidpy_torch yet; "
-        "see ROADMAP.md, queue 1, 'library_key shuffles'."
-    )
+class GroupLayout(NamedTuple):
+    """The group-sorted order of a shuffle within groups, made once a call:
+    ``order`` (n,) int64, the stable argsort of the group codes (code -1, a
+    NaN library, is a group of its own and sorts first), and ``starts``
+    (S + 1,) int64, each group's first position in that order, then n."""
+
+    order: np.ndarray
+    starts: np.ndarray
+
+
+def group_layout(groups: np.ndarray) -> GroupLayout:
+    """The :class:`GroupLayout` of ``groups`` (integer codes), as the JAX
+    package orders them: a stable argsort, the codes compared as int32."""
+    groups = np.asarray(groups)
+    order = np.argsort(groups, kind="stable")
+    sorted_codes = groups[order].astype(np.int32)
+    if np.any(sorted_codes[1:] < sorted_codes[:-1]):
+        raise ValueError("Group codes must fit in int32.")
+    starts = np.flatnonzero(np.r_[True, sorted_codes[1:] != sorted_codes[:-1]]) if len(groups) else np.zeros(0, int)
+    return GroupLayout(order=order, starts=np.append(starts, len(groups)).astype(np.int64))
+
+
+_TILE = 4096  # items a block of K10's histogram and scatter (csrc/threefry.cu kTile)
+
+
+class _GroupedDevice(NamedTuple):
+    """K10's grouped layout on the card: ``tiles`` (n_tiles, 3) int32, each
+    block's (segment, first position, count <= 4096); ``segs`` (S, 2) int32,
+    each segment's first bucket and bucket bits; ``order`` (n,) int32; the
+    row's buckets ``nb`` and the largest bits ``max_bits``."""
+
+    tiles: torch.Tensor
+    segs: torch.Tensor
+    order: torch.Tensor
+    nb: int
+    max_bits: int
+
+
+def _group_tiles(starts: np.ndarray) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """K10's grouped host layout from the segment bounds: ``(tiles, segs, nb,
+    max_bits)``. A segment of L items gets :func:`_bucket_bits` (L) bits, its
+    buckets follow the previous segment's, and its items are cut into tiles
+    of at most 4096."""
+    lengths = np.diff(starts)
+    bits = np.array([_bucket_bits(int(length)) for length in lengths], dtype=np.int64)
+    widths = np.left_shift(1, bits)
+    base = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(np.int64)
+    per_seg = -(-lengths // _TILE)
+    seg = np.repeat(np.arange(len(lengths)), per_seg)
+    within = np.arange(len(seg)) - np.repeat(np.cumsum(per_seg) - per_seg, per_seg)
+    first = starts[seg] + _TILE * within
+    count = np.minimum(_TILE, starts[seg + 1] - first)
+    tiles = np.stack([seg, first, count], axis=1).astype(np.int32)
+    return tiles, np.stack([base, bits], axis=1).astype(np.int32), int(widths.sum()), int(bits.max(initial=0))
+
+
+def _grouped_device(layout: GroupLayout, device: torch.device) -> _GroupedDevice:
+    tiles, segs, nb, max_bits = _group_tiles(layout.starts)
+    return _GroupedDevice(torch.from_numpy(tiles).to(device), torch.from_numpy(segs).to(device),
+                          torch.from_numpy(layout.order.astype(np.int32)).to(device), nb, max_bits)
+
+
+def _shuffle_grouped_plain(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tensor, out: torch.Tensor,
+                           mask: int = _FULL_MASK) -> torch.Tensor:
+    """Plain torch version of K10's grouped entry: one ``torch.sort(stable=True)``
+    of the int64 keys ``(segment << 32) | word`` a row, the values in
+    group-sorted order gathered at the sorted positions, and each row's
+    slots written back at their original rows ``order``."""
+    n = vsorted.shape[0]
+    device = out.device
+    w = _threefry_plain(torch.from_numpy(keys.view(np.int32)).to(device), n)
+    if mask != _FULL_MASK:
+        w = w & _as_int32(mask)
+    rank = torch.from_numpy(np.repeat(np.arange(len(layout.starts) - 1), np.diff(layout.starts))).to(device)
+    idx = torch.sort((rank << 32) | (w.to(torch.int64) & _MASK32), dim=1, stable=True).indices
+    out[:, torch.from_numpy(layout.order).to(device)] = vsorted[idx]
+    return out
+
+
+def _shuffle_grouped_k10(keys: np.ndarray, dev: _GroupedDevice, vsorted: torch.Tensor, out: torch.Tensor, mask: int,
+                         cap: int, stats: dict | None = None, fused: bool = True) -> None:
+    """K10's grouped entry into ``out`` ``(rows, ld >= n)``: the histogram,
+    scan, scatter and sort of one round over every segment's buckets (four
+    launches). A uint8 payload rides in the sort keys (below 2^24 items),
+    others are gathered; the sort writes each slot at its original row (or,
+    with ``fused`` off, at its group-sorted slot). ``stats`` as in
+    :func:`_shuffle_k10`."""
+    rows, n, device = out.shape[0], vsorted.shape[0], out.device
+    nb, n_tiles = dev.nb, dev.tiles.shape[0]
+    hist = torch.empty((rows, nb), dtype=torch.int32, device=device)
+    offs = torch.empty((rows, nb + 1), dtype=torch.int32, device=device)
+    overflow = torch.empty(rows * nb, dtype=torch.int32, device=device)
+    st = torch.empty(2, dtype=torch.int32, device=device)
+    tmp = torch.empty((rows, n), dtype=torch.int64, device=device)
+    keys_t = torch.from_numpy(keys.view(np.int32)).to(device)
+    packed = vsorted.element_size() == 1 and n < _PACKED_MAX_N
+    layout = (dev.tiles.data_ptr(), n_tiles, dev.segs.data_ptr(), dev.max_bits, nb)
+    steps = (("hist", ("sqt_shuffle_ghist", keys_t.data_ptr(), rows, n, mask, *layout, hist.data_ptr(), st.data_ptr())),
+             ("scan", ("sqt_shuffle_gscan", rows, n, nb, cap, hist.data_ptr(), offs.data_ptr(), overflow.data_ptr(),
+                       st.data_ptr())),
+             ("scatter", ("sqt_shuffle_gscatter", keys_t.data_ptr(), rows, n, mask, *layout,
+                          vsorted.data_ptr() if packed else None, hist.data_ptr(), tmp.data_ptr())),
+             ("sort", ("sqt_shuffle_gsort", tmp.data_ptr(), offs.data_ptr(), overflow.data_ptr(), st.data_ptr(), rows,
+                       n, nb, cap, dev.order.data_ptr() if fused else None, vsorted.data_ptr(),
+                       vsorted.element_size(), int(packed), out.data_ptr(), out.stride(0))))
+    _run_round(steps, st, nb, stats, "threefry_grouped")
+
+
+def _shuffle_grouped(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tensor, out: torch.Tensor,
+                     device: torch.device, *, mask: int = _FULL_MASK, stats: dict | None = None,
+                     fused: bool = True) -> torch.Tensor:
+    """Each row of ``out`` ``(n_keys, ld >= n)``: ``vsorted`` (the values in
+    group-sorted order) sorted within each segment by the words of its key,
+    written at the original rows. K10's grouped entry on a CUDA device, keys
+    in chunks sized by the card's memory (``stats`` and ``fused`` as in
+    :func:`_shuffle_grouped_k10`); its plain version on the CPU. ``mask``
+    ands every word (ties, in tests)."""
+    n = vsorted.shape[0]
+    dev = None
+    if device.type == "cuda":
+        if n >= 2**31 - 1:
+            raise ValueError(f"K10 writes int32 positions: at most 2^31 - 2 items, found {n}.")
+        if vsorted.element_size() not in (1, 4, 8):
+            raise TypeError(f"K10 moves payloads of 1, 4 or 8 bytes, found {vsorted.dtype}.")
+        _cuda.require(vsorted, "values", vsorted.dtype, (n,))
+        _cuda.require(out, "out", vsorted.dtype)
+        dev = _grouped_device(layout, out.device)
+    step = _keys_per_chunk(n, device)
+    for c0 in range(0, keys.shape[0], step):
+        if dev is None:
+            _shuffle_grouped_plain(keys[c0 : c0 + step], layout, vsorted, out[c0 : c0 + step], mask)
+        else:
+            _shuffle_grouped_k10(keys[c0 : c0 + step], dev, vsorted, out[c0 : c0 + step], mask, _SORT_CAP, stats,
+                                 fused)
+    return out
+
+
+def shuffle_group_columns(keys: np.ndarray, values: torch.Tensor, groups: np.ndarray | None = None,
+                          payload_dtype: torch.dtype | None = None, *, layout: GroupLayout | None = None
+                          ) -> torch.Tensor:
+    """Batched within-group permutations, one per COLUMN: ``(len(values), n_keys)``
+    (counterpart of ``squidpy_tpu/_core/rng.py`` ``shuffle_group_columns``).
+
+    Values move only within their group (library). Word ``j`` of key ``p``,
+    ``random_bits(keys[p], (n,))[j]``, belongs to position ``j`` of the
+    group-sorted order; each group's segment is sorted stably by word, and
+    each column goes back to the original row order: bitwise the JAX
+    package's two-key ``lax.sort``. ``layout`` (:func:`group_layout` of
+    ``groups``) may be made once and passed for every call. On a CUDA
+    device K10's grouped entry sorts all segments of a row at once, keys in
+    chunks sized by the card's memory; on the CPU its plain version.
+    """
+    if payload_dtype is not None:
+        values = values.to(payload_dtype)
+    if layout is None:
+        layout = group_layout(groups)
+    keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint32).reshape(-1, 2))
+    n, device = values.shape[0], values.device
+    if layout.order.shape != (n,):
+        raise ValueError(f"`groups` must have one code a value ({n}), found {layout.order.shape[0]}.")
+    out = torch.empty((keys.shape[0], n), dtype=values.dtype, device=device)
+    if n and keys.shape[0]:
+        vsorted = values[torch.from_numpy(layout.order).to(device)].contiguous()
+        _shuffle_grouped(keys, layout, vsorted, out, device)
+    return out.T.contiguous()

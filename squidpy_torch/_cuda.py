@@ -13,8 +13,10 @@ it with :func:`reset_launches` and reads it afterwards to show which kernels
 the path went through. A kernel whose C interface has several entry points
 (``radius_pairs``: bounds, bin, scatter, the two passes, the order;
 ``threefry_shuffle``: the words, and a round's histogram, scan, scatter and
-sort; ``ligrec_perms``: its float and integral routes) counts each call into
-that interface, which may start more than one CUDA kernel;
+sort; ``threefry_grouped``: the same four steps of its grouped entry;
+``ligrec_perms``: its float and integral routes; ``sepal_diffusion``: a call
+of up to 64 steps, four kernels each) counts each call into that interface,
+which may start more than one CUDA kernel;
 K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
 and those calls count as K6's.
 """
@@ -56,6 +58,8 @@ KERNELS = {
     "cross_knn": ("squidpy_torch/csrc/cross_knn.cu", "squidpy_tpu/ops/knn.py:364"),
     "ligrec_perms": ("squidpy_torch/csrc/ligrec_perms.cu", "squidpy_tpu/ops/ligrec.py:50"),
     "threefry_shuffle": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:38"),
+    "threefry_grouped": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:98"),
+    "sepal_diffusion": ("squidpy_torch/csrc/sepal.cu", "squidpy_tpu/ops/sepal.py:35"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -69,6 +73,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_int64
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 _SIGNATURES = {
     "sqt_index_cipher": [_P, _I, _I, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
                          ctypes.c_uint64, _I, _P, _I, _P, _I, _P],
@@ -97,6 +102,12 @@ _SIGNATURES = {
     "sqt_shuffle_scan": [_L, _L, _I, _I, _P, _P, _P, _P, _P],
     "sqt_shuffle_scatter": [_P, _L, _L, _U, _I, _P, _L, _P, _P, _P],
     "sqt_shuffle_sort": [_P, _P, _P, _P, _L, _L, _I, _I, _P, _L, _P, _I, _I, _P, _L, _P],
+    "sqt_shuffle_ghist": [_P, _L, _L, _U, _P, _L, _P, _I, _L, _P, _P, _P],
+    "sqt_shuffle_gscan": [_L, _L, _L, _I, _P, _P, _P, _P, _P],
+    "sqt_shuffle_gscatter": [_P, _L, _L, _U, _P, _L, _P, _I, _L, _P, _P, _P, _P],
+    "sqt_shuffle_gsort": [_P, _P, _P, _P, _L, _L, _L, _I, _P, _P, _I, _I, _P, _L, _P],
+    "sqt_sepal_steps": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P,
+                        _P, _P, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

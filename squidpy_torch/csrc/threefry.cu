@@ -54,6 +54,14 @@
 //     element with its mirror, so that the virtual +inf past the bucket never
 //     moves) in global memory, correct at any size; its blocks read the
 //     overflow list on the card and exit at once when it is empty.
+// The grouped entry (`sqt_shuffle_g*`) is the same round for a shuffle
+// within groups (squidpy_tpu/_core/rng.py `shuffle_group_columns`, the
+// (group, word) `lax.sort` of line 98): the positions of the group-sorted
+// order fall into segments, each segment has its own buckets (a bucket is
+// (segment, top bits of the word), as many a segment as its length asks),
+// a block of (a) and (c) takes at most 4096 items of one segment (a tile
+// table made on the host once a call), and the epilogue writes each sorted
+// slot straight at its original row.
 // The plain torch version (squidpy_torch/_core/rng.py) draws the words with
 // `_threefry_plain` and sorts them with `torch.sort(stable=True)`.
 
@@ -119,24 +127,56 @@ constexpr int kRowsPerGrid = 65535;
 
 __device__ __forceinline__ uint32_t bucket_of(uint32_t w, int bits) { return bits == 0 ? 0u : w >> (32 - bits); }
 
-// (a) histogram of the top `bits` bits of each row's words.
+// The items a block of (a) and (c) takes from each row: [i0, i0 + count),
+// bucketed by the top `bits` bits of their words into the row's buckets
+// [base, base + 2^bits). Without groups, block x takes the x-th 4096 items
+// and the row's 2^bits buckets. The grouped entry's `tiles` give each block
+// (segment, first item, count), at most 4096 items of one segment, and
+// `segs` each segment's (first bucket, bits). A template parameter: one
+// kernel for both took the ungrouped scatter from 40 registers to 78 and
+// from ~2.4 to 3.9-4.8 ms a round of a 357-key chunk at 1M items (ptxas
+// and chip_smoke.py on the H100).
+struct Tile {
+    int64_t i0;
+    int count;
+    int bits;
+    int base;
+};
+
+template <bool kGrouped>
+__device__ __forceinline__ Tile tile_of(const int32_t* __restrict__ tiles, const int32_t* __restrict__ segs,
+                                        int64_t n, int bits) {
+    if constexpr (kGrouped) {
+        const int32_t* t = tiles + 3 * static_cast<int64_t>(blockIdx.x);
+        return {t[1], t[2], segs[2 * t[0] + 1], segs[2 * t[0]]};
+    } else {
+        const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile;
+        return {i0, static_cast<int>(n - i0 < kTile ? n - i0 : kTile), bits, 0};
+    }
+}
+
+// (a) histogram of the top bits of each row's words (`nb_row` buckets a row).
+template <bool kGrouped>
 __global__ void __launch_bounds__(kTileThreads) hist_kernel(const uint32_t* __restrict__ keys, int64_t rows,
                                                            int64_t n, uint32_t mask, int bits,
+                                                           const int32_t* __restrict__ tiles,
+                                                           const int32_t* __restrict__ segs, int64_t nb_row,
                                                            int32_t* __restrict__ hist) {
     extern __shared__ int32_t s_cnt[];
-    const int nb = 1 << bits;
-    const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile;
+    const Tile tl = tile_of<kGrouped>(tiles, segs, n, bits);
+    const int nb = 1 << tl.bits;
+    const int64_t end = kGrouped ? tl.i0 + tl.count : n;
     for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
         for (int b = threadIdx.x; b < nb; b += kTileThreads) s_cnt[b] = 0;
         __syncthreads();
         const uint32_t k1 = __ldg(keys + 2 * row), k2 = __ldg(keys + 2 * row + 1);
 #pragma unroll 4
         for (int k = 0; k < kTileItems; ++k) {
-            const int64_t i = i0 + k * kTileThreads + threadIdx.x;
-            if (i < n) atomicAdd(&s_cnt[bucket_of(word_at(k1, k2, i) & mask, bits)], 1);
+            const int64_t i = tl.i0 + k * kTileThreads + threadIdx.x;
+            if (i < end) atomicAdd(&s_cnt[bucket_of(word_at(k1, k2, i) & mask, tl.bits)], 1);
         }
         __syncthreads();
-        int32_t* h = hist + row * nb;
+        int32_t* h = kGrouped ? hist + row * nb_row + tl.base : hist + row * nb;
         for (int b = threadIdx.x; b < nb; b += kTileThreads) {
             const int32_t c = s_cnt[b];
             if (c) atomicAdd(h + b, c);
@@ -176,11 +216,10 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v, int32_t* s_wa
 // by the cursors the scatter claims slots from, the overflow list (row * nb
 // + bucket of every bucket past `cap`) and stats[0] its length, stats[1] the
 // largest bucket.
-__global__ void __launch_bounds__(1024) scan_kernel(int64_t rows, int64_t n, int bits, int cap,
+__global__ void __launch_bounds__(1024) scan_kernel(int64_t rows, int64_t n, int nb, int cap,
                                                    int32_t* __restrict__ hist, int32_t* __restrict__ offs,
                                                    int32_t* __restrict__ overflow, int32_t* __restrict__ stats) {
     __shared__ int32_t s_warp[32];
-    const int nb = 1 << bits;
     const int per = (nb + 1023) / 1024;
     const int b0 = threadIdx.x * per;
     for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -213,20 +252,26 @@ __global__ void __launch_bounds__(1024) scan_kernel(int64_t rows, int64_t n, int
 // the tile), each bucket claims one slot range with one global atomic, and
 // consecutive threads then write consecutive keys, so a bucket's run of the
 // tile (~8 keys at 512 buckets) leaves as one coalesced store.
+template <bool kGrouped>
 __global__ void __launch_bounds__(kTileThreads) scatter_kernel(const uint32_t* __restrict__ keys, int64_t rows,
                                                               int64_t n, uint32_t mask, int bits,
-                                                              const uint8_t* __restrict__ vals, int64_t vals_ld,
-                                                              int32_t* __restrict__ cursor,
+                                                              const int32_t* __restrict__ tiles,
+                                                              const int32_t* __restrict__ segs, int64_t nb_row,
+                                                              int max_bits, const uint8_t* __restrict__ vals,
+                                                              int64_t vals_ld, int32_t* __restrict__ cursor,
                                                               uint64_t* __restrict__ tmp) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int nb = 1 << bits;
+    const Tile tl = tile_of<kGrouped>(tiles, segs, n, bits);
+    const int nb = 1 << tl.bits;
+    const int nb_max = kGrouped ? 1 << max_bits : nb;  // the shared arrays' length
     uint64_t* s_keys = reinterpret_cast<uint64_t*>(smem_raw);
     int32_t* s_cnt = reinterpret_cast<int32_t*>(s_keys + kTile);  // counts, then the tile's starts
-    int32_t* s_base = s_cnt + nb;  // a bucket's slot in the row minus its start in the tile
-    int32_t* s_warp = s_base + nb;
+    int32_t* s_base = s_cnt + nb_max;  // a bucket's slot in the row minus its start in the tile
+    int32_t* s_warp = s_base + nb_max;
     uint16_t* s_bucket = reinterpret_cast<uint16_t*>(s_warp + 32);  // the bucket of each placed key
-    const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile;
-    const int count = n - i0 < kTile ? static_cast<int>(n - i0) : kTile;
+    const int64_t i0 = tl.i0;
+    const int64_t end = kGrouped ? i0 + tl.count : n;
+    const int count = tl.count;
     const int per = (nb + kTileThreads - 1) / kTileThreads;
     const int b0 = threadIdx.x * per;
     for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
@@ -239,10 +284,10 @@ __global__ void __launch_bounds__(kTileThreads) scatter_kernel(const uint32_t* _
 #pragma unroll
         for (int k = 0; k < kTileItems; ++k) {
             const int64_t i = i0 + k * kTileThreads + threadIdx.x;
-            if (i < n) {
+            if (i < end) {
                 const int32_t value = v ? static_cast<int32_t>(__ldg(v + i)) << 16 : 0;
                 w[k] = word_at(k1, k2, i) & mask;
-                rank[k] = value | atomicAdd(&s_cnt[bucket_of(w[k], bits)], 1);
+                rank[k] = value | atomicAdd(&s_cnt[bucket_of(w[k], tl.bits)], 1);
             }
         }
         __syncthreads();
@@ -250,7 +295,7 @@ __global__ void __launch_bounds__(kTileThreads) scatter_kernel(const uint32_t* _
         for (int j = 0; j < per; ++j)
             if (b0 + j < nb) local += s_cnt[b0 + j];
         int32_t run = block_exclusive_scan(local, s_warp);
-        int32_t* cur = cursor + row * nb;
+        int32_t* cur = kGrouped ? cursor + row * nb_row + tl.base : cursor + row * nb;
         for (int j = 0; j < per; ++j) {
             const int b = b0 + j;
             if (b >= nb) break;
@@ -263,12 +308,12 @@ __global__ void __launch_bounds__(kTileThreads) scatter_kernel(const uint32_t* _
 #pragma unroll
         for (int k = 0; k < kTileItems; ++k) {
             const int64_t i = i0 + k * kTileThreads + threadIdx.x;
-            if (i < n) {
-                const uint32_t b = bucket_of(w[k], bits);
+            if (i < end) {
+                const uint32_t b = bucket_of(w[k], tl.bits);
                 const int at = s_cnt[b] + (rank[k] & 0xFFFF);
                 const uint64_t low = v ? (static_cast<uint64_t>(i) << 8) | static_cast<uint32_t>(rank[k] >> 16)
                                        : static_cast<uint64_t>(i);
-                s_keys[at] = (static_cast<uint64_t>(w[k] << bits) << 32) | low;
+                s_keys[at] = (static_cast<uint64_t>(w[k] << tl.bits) << 32) | low;
                 s_bucket[at] = static_cast<uint16_t>(b);
             }
         }
@@ -309,18 +354,21 @@ __device__ __forceinline__ void emit(uint64_t key, int64_t row, const P* __restr
 // 11 bits of the word into shared memory (the keys read twice from L2, so a
 // thread holds no key and four blocks fit an SM), an insertion sort of each
 // thread's run of 4 sub-buckets, the epilogue.
+// `order`, when given, maps each sorted slot to the column it is written
+// at (the grouped entry: group-sorted slot -> original row), else the slot
+// is the column.
 template <typename P, int kMode>
 __global__ void __launch_bounds__(kSortThreads, 4) sort_kernel(const uint64_t* __restrict__ tmp,
                                                              const int32_t* __restrict__ offs, int64_t rows,
-                                                             int64_t n, int bits, int cap,
+                                                             int64_t n, int nb, int cap,
                                                              const P* __restrict__ prev, int64_t prev_ld,
-                                                             const P* __restrict__ payload, P* __restrict__ out,
+                                                             const P* __restrict__ payload,
+                                                             const int32_t* __restrict__ order, P* __restrict__ out,
                                                              int64_t out_ld) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     uint64_t* s_keys = reinterpret_cast<uint64_t*>(smem_raw);
     int32_t* s_sub = reinterpret_cast<int32_t*>(s_keys + kCap);
     int32_t* s_warp = s_sub + kSubs;
-    const int nb = 1 << bits;
     const int b = blockIdx.x;
     const int tid = threadIdx.x;
     for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
@@ -362,9 +410,9 @@ __global__ void __launch_bounds__(kSortThreads, 4) sort_kernel(const uint64_t* _
             s_keys[z + 1] = v;
         }
         __syncthreads();
-        P* dst = out + row * out_ld + off;
+        P* dst = out + row * out_ld;
         for (int j = tid; j < m; j += kSortThreads)
-            emit<P, kMode>(s_keys[j], row, prev, prev_ld, payload, dst, j);
+            emit<P, kMode>(s_keys[j], row, prev, prev_ld, payload, dst, order ? __ldg(order + off + j) : off + j);
         __syncthreads();
     }
 }
@@ -376,13 +424,13 @@ __global__ void __launch_bounds__(kSortThreads, 4) sort_kernel(const uint64_t* _
 // visible by __syncthreads.
 template <typename P, int kMode>
 __global__ void __launch_bounds__(kOverflowThreads) overflow_kernel(uint64_t* tmp, const int32_t* __restrict__ offs,
-                                                                   int64_t n, int bits,
+                                                                   int64_t n, int nb,
                                                                    const int32_t* __restrict__ overflow,
                                                                    const int32_t* __restrict__ stats,
                                                                    const P* __restrict__ prev, int64_t prev_ld,
-                                                                   const P* __restrict__ payload, P* __restrict__ out,
-                                                                   int64_t out_ld) {
-    const int nb = 1 << bits;
+                                                                   const P* __restrict__ payload,
+                                                                   const int32_t* __restrict__ order,
+                                                                   P* __restrict__ out, int64_t out_ld) {
     const int count = stats[0];
     for (int e = blockIdx.x; e < count; e += gridDim.x) {
         const int32_t code = overflow[e];
@@ -409,38 +457,72 @@ __global__ void __launch_bounds__(kOverflowThreads) overflow_kernel(uint64_t* tm
                 __syncthreads();
             }
         }
-        P* dst = out + row * out_ld + off;
+        P* dst = out + row * out_ld;
         for (int64_t j = threadIdx.x; j < m; j += blockDim.x)
-            emit<P, kMode>(a[j], row, prev, prev_ld, payload, dst, j);
+            emit<P, kMode>(a[j], row, prev, prev_ld, payload, dst, order ? __ldg(order + off + j) : off + j);
         __syncthreads();
     }
 }
 
 unsigned row_grid(int64_t rows) { return static_cast<unsigned>(rows < kRowsPerGrid ? rows : kRowsPerGrid); }
 
+bool valid_nb(int64_t rows, int64_t n, int64_t nb) {
+    return rows > 0 && n > 0 && n < 0x7FFFFFFF && nb > 0 && rows * nb < 0x7FFFFFFF;
+}
+
 bool valid(int64_t rows, int64_t n, int bits) {
-    return rows > 0 && n > 0 && n < 0x7FFFFFFF && bits >= 0 && bits <= kMaxBits &&
-           rows * (static_cast<int64_t>(1) << bits) < 0x7FFFFFFF;
+    return bits >= 0 && bits <= kMaxBits && valid_nb(rows, n, static_cast<int64_t>(1) << bits);
 }
 
 template <typename P, int kMode>
 int launch_sort(const uint64_t* tmp, const int32_t* offs, const int32_t* overflow, const int32_t* stats, int64_t rows,
-                int64_t n, int bits, int cap, const void* prev_v, int64_t prev_ld, const void* payload, void* out,
-                int64_t out_ld, cudaStream_t s) {
+                int64_t n, int nb, int cap, const void* prev_v, int64_t prev_ld, const void* payload,
+                const int32_t* order, void* out, int64_t out_ld, cudaStream_t s) {
     const P* prev = static_cast<const P*>(prev_v);
     const size_t smem = kCap * sizeof(uint64_t) + kSubs * sizeof(int32_t) + 32 * sizeof(int32_t);
     cudaError_t err = sqt_allow_smem(sort_kernel<P, kMode>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(1u << bits, row_grid(rows));
-    sort_kernel<P, kMode><<<grid, kSortThreads, smem, s>>>(tmp, offs, rows, n, bits, cap, prev, prev_ld,
-                                                              static_cast<const P*>(payload), static_cast<P*>(out),
-                                                              out_ld);
+    const dim3 grid(static_cast<unsigned>(nb), row_grid(rows));
+    sort_kernel<P, kMode><<<grid, kSortThreads, smem, s>>>(tmp, offs, rows, n, nb, cap, prev, prev_ld,
+                                                              static_cast<const P*>(payload), order,
+                                                              static_cast<P*>(out), out_ld);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     overflow_kernel<P, kMode><<<kOverflowBlocks, kOverflowThreads, 0, s>>>(
-        const_cast<uint64_t*>(tmp), offs, n, bits, overflow, stats, prev, prev_ld, static_cast<const P*>(payload),
-        static_cast<P*>(out), out_ld);
+        const_cast<uint64_t*>(tmp), offs, n, nb, overflow, stats, prev, prev_ld, static_cast<const P*>(payload),
+        order, static_cast<P*>(out), out_ld);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The sort's epilogue by payload: packed uint8 values, or a gather of 1, 4
+// or 8 bytes, or (payload_bytes 0) the int32 positions.
+int sort_by_payload(const uint64_t* tmp, const int32_t* offs, const int32_t* overflow, const int32_t* stats,
+                    int64_t rows, int64_t n, int nb, int cap, const void* prev, int64_t prev_ld, const void* payload,
+                    int payload_bytes, int packed, const int32_t* order, void* out, int64_t out_ld, cudaStream_t s) {
+    if (packed)
+        return launch_sort<uint8_t, kPacked>(tmp, offs, overflow, stats, rows, n, nb, cap, nullptr, 0, nullptr, order,
+                                             out, out_ld, s);
+    switch (payload_bytes) {
+        case 0:
+            return launch_sort<int32_t, kIndex>(tmp, offs, overflow, stats, rows, n, nb, cap, prev, prev_ld, nullptr,
+                                                order, out, out_ld, s);
+        case 1:
+            return launch_sort<uint8_t, kGather>(tmp, offs, overflow, stats, rows, n, nb, cap, prev, prev_ld, payload,
+                                                 order, out, out_ld, s);
+        case 4:
+            return launch_sort<uint32_t, kGather>(tmp, offs, overflow, stats, rows, n, nb, cap, prev, prev_ld,
+                                                  payload, order, out, out_ld, s);
+        case 8:
+            return launch_sort<unsigned long long, kGather>(tmp, offs, overflow, stats, rows, n, nb, cap, prev,
+                                                            prev_ld, payload, order, out, out_ld, s);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+size_t scatter_smem(int max_bits) {
+    return kTile * (sizeof(uint64_t) + sizeof(uint16_t)) +
+           (2 * (static_cast<size_t>(1) << max_bits) + 32) * sizeof(int32_t);
 }
 
 }  // namespace
@@ -473,10 +555,10 @@ SQT_EXPORT int sqt_shuffle_hist(const uint32_t* keys, int64_t rows, int64_t n, u
     if (err == cudaSuccess) err = cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t), s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t smem = nb * sizeof(int32_t);
-    err = sqt_allow_smem(hist_kernel, smem);
+    err = sqt_allow_smem(hist_kernel<false>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile), row_grid(rows));
-    hist_kernel<<<grid, kTileThreads, smem, s>>>(keys, rows, n, mask, bits, hist);
+    hist_kernel<false><<<grid, kTileThreads, smem, s>>>(keys, rows, n, mask, bits, nullptr, nullptr, nb, hist);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,7 +566,7 @@ SQT_EXPORT int sqt_shuffle_hist(const uint32_t* keys, int64_t rows, int64_t n, u
 SQT_EXPORT int sqt_shuffle_scan(int64_t rows, int64_t n, int bits, int cap, int32_t* hist, int32_t* offs,
                                 int32_t* overflow, int32_t* stats, void* stream) {
     if (!valid(rows, n, bits) || cap < 1 || cap > kCap) return static_cast<int>(cudaErrorInvalidValue);
-    scan_kernel<<<row_grid(rows), 1024, 0, static_cast<cudaStream_t>(stream)>>>(rows, n, bits, cap, hist, offs,
+    scan_kernel<<<row_grid(rows), 1024, 0, static_cast<cudaStream_t>(stream)>>>(rows, n, 1 << bits, cap, hist, offs,
                                                                                 overflow, stats);
     return static_cast<int>(cudaGetLastError());
 }
@@ -497,13 +579,12 @@ SQT_EXPORT int sqt_shuffle_scatter(const uint32_t* keys, int64_t rows, int64_t n
                                    const uint8_t* vals, int64_t vals_ld, int32_t* hist, uint64_t* tmp,
                                    void* stream) {
     if (!valid(rows, n, bits) || (vals && n >= (1 << 24))) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = kTile * (sizeof(uint64_t) + sizeof(uint16_t)) +
-                        (2 * (static_cast<size_t>(1) << bits) + 32) * sizeof(int32_t);
-    cudaError_t err = sqt_allow_smem(scatter_kernel, smem);
+    const size_t smem = scatter_smem(bits);
+    cudaError_t err = sqt_allow_smem(scatter_kernel<false>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile), row_grid(rows));
-    scatter_kernel<<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(keys, rows, n, mask, bits, vals,
-                                                                                    vals_ld, hist, tmp);
+    scatter_kernel<false><<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        keys, rows, n, mask, bits, nullptr, nullptr, static_cast<int64_t>(1) << bits, bits, vals, vals_ld, hist, tmp);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,24 +599,77 @@ SQT_EXPORT int sqt_shuffle_sort(const uint64_t* tmp, const int32_t* offs, const 
                                 int64_t prev_ld, const void* payload, int payload_bytes, int packed, void* out,
                                 int64_t out_ld, void* stream) {
     if (!valid(rows, n, bits) || cap < 1 || cap > kCap || out_ld < n) return static_cast<int>(cudaErrorInvalidValue);
+    return sort_by_payload(tmp, offs, overflow, stats, rows, n, 1 << bits, cap, prev, prev_ld, payload, payload_bytes,
+                           packed, nullptr, out, out_ld, static_cast<cudaStream_t>(stream));
+}
+
+// The grouped entry: one round whose items are the positions of the
+// group-sorted order, each row sorted stably by (segment, word), i.e. each
+// segment [start, end) of the positions on its own (squidpy_tpu/_core/rng.py
+// `shuffle_group_columns`, the two-key `lax.sort` of line 98). Word j is the
+// word of position j, as there. A segment of L items has 2^bits buckets
+// (bits from L, as a row's in the entries above); `segs` (S, 2) int32 holds
+// each segment's first bucket in the row and its bits, `nb` the row's
+// buckets in all, `max_bits` the largest bits; `tiles` (n_tiles, 3) int32
+// each block's (segment, first position, count <= 4096). Keys hold the
+// position j in the row, so (word, j) stays a distinct key and the result
+// stays exact under atomics. Scratch as above, with nb buckets a row.
+// (a): zeroes `hist` and `stats`, then counts the buckets.
+SQT_EXPORT int sqt_shuffle_ghist(const uint32_t* keys, int64_t rows, int64_t n, uint32_t mask, const int32_t* tiles,
+                                 int64_t n_tiles, const int32_t* segs, int max_bits, int64_t nb, int32_t* hist,
+                                 int32_t* stats, void* stream) {
+    if (!valid_nb(rows, n, nb) || max_bits < 0 || max_bits > kMaxBits || n_tiles < 1 || n_tiles > 0x7FFFFFFF)
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (packed)
-        return launch_sort<uint8_t, kPacked>(tmp, offs, overflow, stats, rows, n, bits, cap, nullptr, 0, nullptr, out,
-                                             out_ld, s);
-    switch (payload_bytes) {
-        case 0:
-            return launch_sort<int32_t, kIndex>(tmp, offs, overflow, stats, rows, n, bits, cap, prev, prev_ld, nullptr,
-                                                out, out_ld, s);
-        case 1:
-            return launch_sort<uint8_t, kGather>(tmp, offs, overflow, stats, rows, n, bits, cap, prev, prev_ld,
-                                                 payload, out, out_ld, s);
-        case 4:
-            return launch_sort<uint32_t, kGather>(tmp, offs, overflow, stats, rows, n, bits, cap, prev, prev_ld,
-                                                  payload, out, out_ld, s);
-        case 8:
-            return launch_sort<unsigned long long, kGather>(tmp, offs, overflow, stats, rows, n, bits, cap, prev,
-                                                            prev_ld, payload, out, out_ld, s);
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
+    cudaError_t err = cudaMemsetAsync(hist, 0, rows * nb * sizeof(int32_t), s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = (static_cast<size_t>(1) << max_bits) * sizeof(int32_t);
+    err = sqt_allow_smem(hist_kernel<true>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(n_tiles), row_grid(rows));
+    hist_kernel<true><<<grid, kTileThreads, smem, s>>>(keys, rows, n, mask, 0, tiles, segs, nb, hist);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// (b): as `sqt_shuffle_scan`, over the row's nb buckets.
+SQT_EXPORT int sqt_shuffle_gscan(int64_t rows, int64_t n, int64_t nb, int cap, int32_t* hist, int32_t* offs,
+                                 int32_t* overflow, int32_t* stats, void* stream) {
+    if (!valid_nb(rows, n, nb) || cap < 1 || cap > kCap) return static_cast<int>(cudaErrorInvalidValue);
+    scan_kernel<<<row_grid(rows), 1024, 0, static_cast<cudaStream_t>(stream)>>>(rows, n, static_cast<int>(nb), cap,
+                                                                                hist, offs, overflow, stats);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// (c): `vals`, when given, holds the n uint8 values in group-sorted order
+// (one row shared by all), carried in the keys' low byte (n below 2^24).
+SQT_EXPORT int sqt_shuffle_gscatter(const uint32_t* keys, int64_t rows, int64_t n, uint32_t mask,
+                                    const int32_t* tiles, int64_t n_tiles, const int32_t* segs, int max_bits,
+                                    int64_t nb, const uint8_t* vals, int32_t* hist, uint64_t* tmp, void* stream) {
+    if (!valid_nb(rows, n, nb) || max_bits < 0 || max_bits > kMaxBits || n_tiles < 1 || n_tiles > 0x7FFFFFFF ||
+        (vals && n >= (1 << 24)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = scatter_smem(max_bits);
+    cudaError_t err = sqt_allow_smem(scatter_kernel<true>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(n_tiles), row_grid(rows));
+    scatter_kernel<true><<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        keys, rows, n, mask, 0, tiles, segs, nb, max_bits, vals, 0, hist, tmp);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// (d) and (e): the epilogue of `sqt_shuffle_sort`'s first round (`payload`:
+// n items of 1, 4 or 8 bytes in group-sorted order, gathered at the keys'
+// positions, or the packed uint8 values), each sorted slot k written at
+// column `order[k]` of its row when `order` (n int32) is given (the
+// original row of group-sorted position k: increasing within a segment, so
+// a bucket's stores are monotone), else at column k.
+SQT_EXPORT int sqt_shuffle_gsort(const uint64_t* tmp, const int32_t* offs, const int32_t* overflow,
+                                 const int32_t* stats, int64_t rows, int64_t n, int64_t nb, int cap,
+                                 const int32_t* order, const void* payload, int payload_bytes, int packed, void* out,
+                                 int64_t out_ld, void* stream) {
+    if (!valid_nb(rows, n, nb) || cap < 1 || cap > kCap || out_ld < n || (!packed && payload_bytes == 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return sort_by_payload(tmp, offs, overflow, stats, rows, n, static_cast<int>(nb), cap, nullptr, 0, payload,
+                           payload_bytes, packed, order, out, out_ld, static_cast<cudaStream_t>(stream));
 }

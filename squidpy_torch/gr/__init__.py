@@ -1,6 +1,6 @@
 """The graph module of the port: spatial graphs (kNN, radius, Delaunay, grid, a custom builder, polygon
 masking), neighbourhood enrichment, interaction matrix, group centralities, co-occurrence, spatial
-autocorrelation, Ripley's statistics and the receptor-ligand permutation test."""
+autocorrelation, Ripley's statistics, the receptor-ligand permutation test and sepal."""
 
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from squidpy_torch.gr._nhood import (
 )
 from squidpy_torch.gr._ppatterns import AutocorrResult, co_occurrence, spatial_autocorr
 from squidpy_torch.gr._ripley import RipleyTable, ripley
+from squidpy_torch.gr._sepal import SepalResult, sepal
 
 __all__ = [
     "AutocorrResult",
@@ -35,6 +36,7 @@ __all__ = [
     "PermutationTest",
     "PermutationTestABC",
     "RipleyTable",
+    "SepalResult",
     "SpatialNeighborsResult",
     "centrality_scores",
     "co_occurrence",
@@ -44,6 +46,7 @@ __all__ = [
     "neighbors",
     "nhood_enrichment",
     "ripley",
+    "sepal",
     "spatial_autocorr",
     "spatial_neighbors",
     "spatial_neighbors_delaunay",

@@ -141,6 +141,7 @@ class PermutationTestABC(ABC):
         self._filtered: list[int] | None = None  # positions in self._genes
 
         self._interactions: dict[str, list[Any]] | None = None
+        self._row_labels: list[Any] = []
 
     def _columns(self, pos: list[int]) -> NDArrayA:
         """``(n_obs, len(pos))`` values of the genes at positions ``pos``,
@@ -161,9 +162,11 @@ class PermutationTestABC(ABC):
         complex_policy = ComplexPolicy(complex_policy)
 
         with record_function("ligrec.prepare"):
+            index = None  # a DataFrame's row labels: complexes 'all' joins on them
             if isinstance(interactions, Mapping):
                 interactions = _table_of_mapping(interactions)
             elif hasattr(interactions, "columns"):  # a DataFrame, duck-typed
+                index = list(interactions.index)
                 interactions = {c: list(interactions[c]) for c in interactions.columns}
             elif isinstance(interactions, Iterable):
                 interactions = tuple(interactions)
@@ -187,6 +190,7 @@ class PermutationTestABC(ABC):
             self._interactions = interactions
             if not len(self._interactions[SOURCE]):
                 raise ValueError("The interactions are empty")
+            self._row_labels = index if index is not None else list(range(len(self._interactions[SOURCE])))
 
             # gene symbols are case-normalized on both sides before any matching
             self._genes = [g.upper() for g in self._genes]
@@ -210,6 +214,7 @@ class PermutationTestABC(ABC):
 
     def _take_rows(self, keep: list[bool] | NDArrayA) -> None:
         self._interactions = {c: [v for v, k in zip(vals, keep) if k] for c, vals in self._interactions.items()}
+        self._row_labels = [v for v, k in zip(self._row_labels, keep) if k]
 
     def _dedupe_interactions(self) -> None:
         """Drop NaN-bearing and repeated (source, target) pairs, keeping the
@@ -370,15 +375,27 @@ class PermutationTestABC(ABC):
             for col in (SOURCE, TARGET):
                 self._interactions[col] = [self._resolve_complex_min(v, resolved) for v in self._interactions[col]]
         elif complex_policy == ComplexPolicy.ALL:
+            # the JAX package joins each column's member lists back on the
+            # row labels, then explodes them: a row takes the members of
+            # every row with its label (itself alone when labels are unique)
             other = [c for c in self._interactions if c not in (SOURCE, TARGET)]
+            rows_of: dict[Any, list[int]] = {}
+            for r, label in enumerate(self._row_labels):
+                rows_of.setdefault(label, []).append(r)
+            members = {c: [str(v).split("_") for v in self._interactions[c]] for c in (SOURCE, TARGET)}
             table: dict[str, list[Any]] = {c: [] for c in (*other, SOURCE, TARGET)}
-            for r, (s, t) in enumerate(zip(self._interactions[SOURCE], self._interactions[TARGET])):
-                for sm, tm in product(str(s).split("_"), str(t).split("_")):
-                    for c in other:
-                        table[c].append(self._interactions[c][r])
-                    table[SOURCE].append(sm)
-                    table[TARGET].append(tm)
-            self._interactions = table
+            labels = []
+            for r, label in enumerate(self._row_labels):
+                for r_s in rows_of[label]:
+                    for sm in members[SOURCE][r_s]:
+                        for r_t in rows_of[label]:
+                            for tm in members[TARGET][r_t]:
+                                for c in other:
+                                    table[c].append(self._interactions[c][r])
+                                table[SOURCE].append(sm)
+                                table[TARGET].append(tm)
+                                labels.append(label)
+            self._interactions, self._row_labels = table, labels
         else:
             raise NotImplementedError(f"Complex policy {complex_policy!r} is not implemented.")
 

@@ -5,7 +5,8 @@ z-score = (observed count - mean(permuted counts)) / std(permuted counts),
 per cluster pair, over directed stored edges. At ``n >= MIN_CIPHER_N`` the
 shuffles come from the keyed index cipher (kernel K4) and are counted by the
 pair counter (kernel K3), 500 permutations at a time; smaller inputs shuffle
-by a stable sort of the same threefry words. Keys, shuffles, counts and
+by a stable sort of the same threefry words, and a ``library_key`` shuffles
+within each library by K10's grouped entry. Keys, shuffles, counts and
 z-scores equal the JAX package's on the cipher path. The interaction matrix
 counts through K3 too (weighted: a float64 sum on the device); the group
 centralities are host scipy, copied from the JAX package.
@@ -13,6 +14,7 @@ centralities are host scipy, copied from the JAX package.
 
 from __future__ import annotations
 
+import logging
 from collections.abc import Iterable
 from typing import Any, Literal, NamedTuple
 
@@ -25,7 +27,7 @@ from squidpy_torch._constants._constants import Centrality
 from squidpy_torch._constants._pkg_constants import Key
 from squidpy_torch._core.graph import SpatialGraph, graph_from_adata
 from squidpy_torch._core.index_cipher import MIN_CIPHER_N, cipher_label_columns
-from squidpy_torch._core.rng import permutation_columns, spawn_keys
+from squidpy_torch._core.rng import group_layout, permutation_columns, shuffle_group_columns, spawn_keys
 from squidpy_torch._device import NDArrayA, assert_positive, get_device, to_host
 from squidpy_torch.gr._utils import (
     _assert_categorical_obs,
@@ -35,10 +37,13 @@ from squidpy_torch.gr._utils import (
     extract_adata_if_sdata,
 )
 from squidpy_torch.ops.nhood import analytic_pair_count_moments, cluster_pair_counts, permuted_pair_counts_cols
+from squidpy_torch.utils._memoize import memoize_arrays
 
 __all__ = ["CentralityResult", "NhoodEnrichmentResult", "centrality_scores", "interaction_matrix", "nhood_enrichment"]
 
 _PERM_CHUNK = 500
+
+logger = logging.getLogger(__name__)
 
 
 class NhoodEnrichmentResult(NamedTuple):
@@ -77,17 +82,15 @@ def nhood_enrichment(
 
     ``numba_parallel``, ``n_jobs``, ``backend`` and ``show_progress_bar`` are
     accepted for API compatibility and ignored.
+    ``library_key`` names a categorical obs column of libraries (sections):
+    labels are then shuffled only within their library (K10's grouped
+    entry), never by the cipher; it needs ``mode='perm'``. ``cache`` (``True``
+    or a directory) keeps the permutation counts on disk, keyed by the
+    graph, labels, libraries, seed and counts, so an identical seeded call
+    reads them back (it needs a ``seed``, else it is turned off with a
+    warning).
     Stores ``uns['{cluster_key}_nhood_enrichment'] = {'zscore', 'count'}``.
     """
-    if library_key is not None:
-        raise NotImplementedError(
-            "`library_key` stratification is not ported to squidpy_torch yet; "
-            "see ROADMAP.md, queue 1, 'library_key shuffles'."
-        )
-    if cache:
-        raise NotImplementedError(
-            "`cache=` is not ported to squidpy_torch yet; see ROADMAP.md, queue 1, 'cache='."
-        )
     adata = extract_adata_if_sdata(adata, table_key=table_key)
     connectivity_key = Key.obsp.spatial_conn(connectivity_key)
     _assert_categorical_obs(adata, cluster_key)
@@ -97,6 +100,8 @@ def nhood_enrichment(
     int_clust, n_cls = _categorical_codes(adata, cluster_key)
 
     if mode == "analytic":
+        if library_key is not None:
+            raise ValueError("`library_key` stratification requires `mode='perm'`.")
         # observed counts from the same self-loop-free edge set the moments use
         adj = sp.csr_matrix(adata.obsp[connectivity_key], copy=True)
         adj.setdiag(0)
@@ -114,7 +119,26 @@ def nhood_enrichment(
         graph = graph_from_adata(adata, connectivity_key)
         labels_dev = torch.from_numpy(int_clust).to(get_device())
         count = to_host(cluster_pair_counts(graph.indices, graph.mask, labels_dev, n_cls), np.int64).astype(np.uint32)
-        perms = _permuted_counts(graph, labels_dev, int_clust, n_cls, n_perms, seed)
+        lib_codes = None
+        if library_key is not None:
+            _assert_categorical_obs(adata, key=library_key)
+            lib_codes = np.asarray(adata.obs[library_key].cat.codes)
+
+        def compute() -> dict[str, np.ndarray]:
+            return {"perms": _permuted_counts(graph, labels_dev, int_clust, n_cls, n_perms, seed, lib_codes)}
+
+        if cache and seed is None:
+            logger.warning("`cache` requires an explicit `seed`; caching is disabled for this call")
+            cache = False
+        if cache:
+            adj = sp.csr_matrix(adata.obsp[connectivity_key])
+            arrays = {"indptr": adj.indptr, "indices": adj.indices, "labels": int_clust}
+            if lib_codes is not None:
+                arrays["libs"] = lib_codes
+            params = {"seed": seed, "n_perms": n_perms, "n_cls": n_cls}
+            perms = memoize_arrays(cache, "nhood_enrichment", arrays, params, compute)["perms"]
+        else:
+            perms = compute()["perms"]
         # zero-variance pairs (e.g. singleton clusters) yield NaN, as in the
         # reference; suppress only the warning
         with np.errstate(invalid="ignore", divide="ignore"):
@@ -129,15 +153,24 @@ def nhood_enrichment(
 
 
 def _permuted_counts(
-    graph: Any, labels_dev: torch.Tensor, int_clust: np.ndarray, n_cls: int, n_perms: int, seed: int | None
+    graph: Any,
+    labels_dev: torch.Tensor,
+    int_clust: np.ndarray,
+    n_cls: int,
+    n_perms: int,
+    seed: int | None,
+    lib_codes: np.ndarray | None = None,
 ) -> np.ndarray:
     """``(n_perms, C, C)`` float64 counts, in chunks of 500 permutations.
 
     Shuffles are generated and counted in column layout (permutation axis
-    minor). The tail chunk is padded with repeated keys, as in the JAX
-    package, and its extra counts are dropped.
+    minor): within each library when ``lib_codes`` is given (the group order
+    made once a call), else by the cipher at scale or the sort shuffles. The
+    tail chunk is padded with repeated keys, as in the JAX package, and its
+    extra counts are dropped.
     """
-    use_cipher = labels_dev.shape[0] >= MIN_CIPHER_N
+    layout = group_layout(lib_codes) if lib_codes is not None else None
+    use_cipher = layout is None and labels_dev.shape[0] >= MIN_CIPHER_N
     class_counts = np.bincount(int_clust, minlength=n_cls)
     keys = spawn_keys(seed, n_perms)
     chunk = min(n_perms, _PERM_CHUNK)
@@ -148,7 +181,9 @@ def _permuted_counts(
         n_real = kc.shape[0]
         if n_real < chunk:
             kc = np.concatenate([kc, np.broadcast_to(kc[-1:], (chunk - n_real, 2))])
-        if use_cipher:
+        if layout is not None:
+            cols = shuffle_group_columns(kc, labels_dev, payload_dtype=payload, layout=layout)
+        elif use_cipher:
             cols = cipher_label_columns(kc, class_counts, out_dtype=payload)
         else:
             cols = permutation_columns(kc, labels_dev, payload_dtype=payload)

@@ -10,6 +10,7 @@ Results are plain numpy containers, not pandas.
 
 from __future__ import annotations
 
+import logging
 from collections.abc import Sequence
 from typing import Any, Literal, NamedTuple
 
@@ -32,6 +33,8 @@ from squidpy_torch.gr._utils import (
     _assert_spatial_basis,
     _categorical_codes,
     _save_data,
+    _take_columns,
+    _var_positions,
     extract_adata_if_sdata,
 )
 from squidpy_torch.ops.autocorr import (
@@ -48,9 +51,14 @@ from squidpy_torch.ops.autocorr import (
 )
 from squidpy_torch.ops.cooccur import co_occurrence_counts, co_occurrence_probs
 from squidpy_torch.ops.dense_pairs import MAX_CLASSES, dense_pair_counts
+from squidpy_torch.utils._memoize import memoize_arrays
 from squidpy_torch.utils._stats import multipletests
 
 __all__ = ["AutocorrResult", "co_occurrence", "spatial_autocorr"]
+
+logger = logging.getLogger(__name__)
+
+CACHE_MAX_BYTES = 512e6  # an expression matrix above this is not fingerprinted for `cache`
 
 
 class AutocorrResult(NamedTuple):
@@ -65,28 +73,6 @@ class AutocorrResult(NamedTuple):
 
     index: NDArrayA
     columns: dict[str, NDArrayA]
-
-
-def _var_positions(var_names: Any, genes: Sequence[Any]) -> list[int]:
-    """Column positions of ``genes`` (names, or integer positions) in ``var_names``."""
-    first: dict[str, int] = {}
-    for i, name in enumerate(np.asarray(var_names)):
-        first.setdefault(str(name), i)
-    pos = []
-    for g in genes:
-        if isinstance(g, (int, np.integer)) and not isinstance(g, bool):
-            pos.append(int(g))
-        elif str(g) in first:
-            pos.append(first[str(g)])
-        else:
-            raise KeyError(f"Gene `{g}` not found in `var_names`.")
-    return pos
-
-
-def _take_columns(x: Any, pos: list[int]) -> Any:
-    if pos == list(range(x.shape[1])):
-        return x
-    return x[:, pos] if sp.issparse(x) else np.asarray(x)[:, pos]
 
 
 def _to_dense_block(x: Any, col_slice: slice) -> np.ndarray:
@@ -148,14 +134,15 @@ def spatial_autocorr(
     ``BF16_GATHER_MIN_N`` cells on, the null's operands are bf16, as the JAX
     package gathers them there. Analytic
     p-values follow Cliff & Ord. ``n_jobs``, ``backend`` and
-    ``show_progress_bar`` are accepted for API compatibility and ignored;
-    ``cache`` is not ported.
+    ``show_progress_bar`` are accepted for API compatibility and ignored.
+    ``cache`` (``True`` or a directory) keeps the scores and the null on
+    disk, keyed by the graph, the expression, seed, permutations and
+    transformation: it needs a ``seed`` when ``n_perms`` is set, and is
+    turned off (with a warning) for an expression matrix above 512 MB.
 
     Stores (or, with ``copy``, returns) an :class:`AutocorrResult` under
     ``uns['moranI']`` / ``uns['gearyC']``.
     """
-    if cache:
-        raise NotImplementedError("`cache=` is not ported to squidpy_torch yet; see ROADMAP.md, queue 1, 'cache='.")
     adata = extract_adata_if_sdata(adata, table_key=table_key)
     _assert_connectivity_key(adata, connectivity_key)
     mode = SpatialAutocorr(mode)
@@ -265,47 +252,74 @@ def spatial_autocorr(
         # (n_cells, block) buffer passes ~2.5 GB
         gene_block_size = int(np.clip(2.5e9 // max(4 * n_cells, 1), 64, 512))
 
-    perms = None
     if n_perms is not None:
         assert_positive(n_perms, name="n_perms")
-        with record_function("spatial_autocorr.permutations"):
-            keys = spawn_keys(seed, n_perms)
-            if n_cells >= MIN_CIPHER_N:
-                perms = cipher_index_batch(keys, n_cells)  # O(n) keyed index cipher, kernel K4
-            else:
-                perms = permutation_batch(keys, n_cells, device)
 
-    row_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=1), dtype=np.float32).ravel()).to(device)
-    col_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=0), dtype=np.float32).ravel()).to(device)
-    # the null's operands: bf16 at scale, as the JAX package gathers them
-    # (its sims denominator then comes from the bf16 z; scores and cg never)
-    gather_dtype = torch.bfloat16 if n_cells >= BF16_GATHER_MIN_N else torch.float32
-    score_parts: list[np.ndarray] = []
-    sims_parts: list[np.ndarray] = []
-    with record_function("spatial_autocorr.gene_blocks"):
-        for start_col in range(0, n_feats, gene_block_size):
-            if dev_cols is not None:
-                xb = dev_handle.dense_block(dev_cols[start_col : start_col + gene_block_size])
-            else:
-                xb = torch.from_numpy(_to_dense_block(vals, slice(start_col, start_col + gene_block_size))).to(device)
-            if perms is None:
-                score_parts.append(to_host(_scores(xb)))
-                continue
-            # the permutation identities need u = W z: one ELL pass serves the
-            # observed score and the null
-            zb = xb - torch.mean(xb, dim=0, keepdim=True)
-            del xb
-            ub = _spmv(zb)
-            if mode == SpatialAutocorr.MORAN:
-                score_parts.append(to_host(moran_scores_from_u(zb, ub, s0)))
-                sims_parts.append(to_host(moran_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype), perms, s0)))
-            else:
-                score_parts.append(to_host(geary_scores_from_u(zb, ub, row_sums_dev, col_sums_dev, s0)))
-                cg = torch.sum(col_sums_dev[:, None] * (zb * zb), dim=0)  # permutation-invariant third term
-                sims_parts.append(to_host(geary_perm_scores(zb.to(gather_dtype), ub.to(gather_dtype),
-                                                            row_sums_dev.to(gather_dtype), cg, perms, s0)))
-    score = np.concatenate(score_parts).astype(np.float64) if score_parts else np.empty(0)
-    sims = np.concatenate(sims_parts, axis=1).astype(np.float64) if sims_parts else None
+    def _score_blocks() -> dict[str, np.ndarray]:
+        perms = None
+        if n_perms is not None:
+            with record_function("spatial_autocorr.permutations"):
+                keys = spawn_keys(seed, n_perms)
+                if n_cells >= MIN_CIPHER_N:
+                    perms = cipher_index_batch(keys, n_cells)  # O(n) keyed index cipher, kernel K4
+                else:
+                    perms = permutation_batch(keys, n_cells, device)
+
+        row_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=1), dtype=np.float32).ravel()).to(device)
+        col_sums_dev = torch.from_numpy(np.asarray(g_csr.sum(axis=0), dtype=np.float32).ravel()).to(device)
+        # the null's operands: bf16 at scale, as the JAX package gathers them
+        # (its sims denominator then comes from the bf16 z; scores and cg never)
+        gather_dtype = torch.bfloat16 if n_cells >= BF16_GATHER_MIN_N else torch.float32
+        score_parts: list[np.ndarray] = []
+        sims_parts: list[np.ndarray] = []
+        with record_function("spatial_autocorr.gene_blocks"):
+            for start_col in range(0, n_feats, gene_block_size):
+                if dev_cols is not None:
+                    xb = dev_handle.dense_block(dev_cols[start_col : start_col + gene_block_size])
+                else:
+                    xb = torch.from_numpy(_to_dense_block(vals, slice(start_col, start_col + gene_block_size)))
+                    xb = xb.to(device)
+                if perms is None:
+                    score_parts.append(to_host(_scores(xb)))
+                    continue
+                # the permutation identities need u = W z: one ELL pass serves the
+                # observed score and the null
+                zb = xb - torch.mean(xb, dim=0, keepdim=True)
+                del xb
+                ub = _spmv(zb)
+                zg, ug = zb.to(gather_dtype), ub.to(gather_dtype)
+                if mode == SpatialAutocorr.MORAN:
+                    score_parts.append(to_host(moran_scores_from_u(zb, ub, s0)))
+                    sims_parts.append(to_host(moran_perm_scores(zg, ug, perms, s0)))
+                else:
+                    score_parts.append(to_host(geary_scores_from_u(zb, ub, row_sums_dev, col_sums_dev, s0)))
+                    cg = torch.sum(col_sums_dev[:, None] * (zb * zb), dim=0)  # permutation-invariant third term
+                    sims_parts.append(to_host(geary_perm_scores(zg, ug, row_sums_dev.to(gather_dtype), cg, perms, s0)))
+        out = {"score": np.concatenate(score_parts).astype(np.float64) if score_parts else np.empty(0)}
+        if sims_parts:
+            out["sims"] = np.concatenate(sims_parts, axis=1).astype(np.float64)
+        return out
+
+    if cache:
+        if n_perms is not None and seed is None:
+            logger.warning("`cache` requires an explicit `seed`; caching is disabled for this call")
+            cache = False
+        elif (vals.data.nbytes if sp.issparse(vals) else np.asarray(vals).nbytes) > CACHE_MAX_BYTES:
+            logger.warning("`cache`: expression matrix too large to fingerprint cheaply; caching is disabled")
+            cache = False
+    if cache:
+        memo_arrays: dict[str, Any] = {"g_data": g_csr.data, "g_indices": g_csr.indices, "g_indptr": g_csr.indptr}
+        if sp.issparse(vals):
+            v = vals.tocsr()
+            memo_arrays.update(x_data=v.data, x_indices=v.indices, x_indptr=v.indptr)
+        else:
+            memo_arrays["x"] = np.asarray(vals)
+        result = memoize_arrays(cache, f"spatial_autocorr_{mode.s}", memo_arrays,
+                                {"seed": seed, "n_perms": n_perms, "transformation": transformation}, _score_blocks)
+    else:
+        result = _score_blocks()
+    score = result["score"]
+    sims = result.get("sims")
 
     with record_function("spatial_autocorr.pvalues"), np.errstate(divide="ignore", invalid="ignore"):
         pvals = _score_pvalues(score, sims, g_csr, mode=mode, expected=expected, two_tailed=two_tailed)

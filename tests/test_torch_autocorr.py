@@ -736,8 +736,6 @@ def test_sort_order_is_pandas_sort_values():
 def test_spatial_autocorr_argument_errors():
     adata = _adata(100, 3, seed=10)
     sq.gr.spatial_neighbors_knn(adata, n_neighs=4)
-    with pytest.raises(NotImplementedError, match="cache"):
-        sqt.gr.spatial_autocorr(adata, cache=True)
     with pytest.raises(ValueError, match="Invalid option"):
         sqt.gr.spatial_autocorr(adata, mode="ripley")
     with pytest.raises(NotImplementedError, match="adata.layers"):

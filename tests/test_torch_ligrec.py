@@ -420,6 +420,28 @@ def test_prepare_complexes(policy):
     _assert_same_interactions(pt_t, pt_j)
 
 
+@pytest.mark.parametrize("labels", [[0, 0, 1, 0, 2], ["b", "a", "b", "b", "a"], [4, 3, 2, 1, 0]],
+                         ids=["repeated ints", "repeated strings", "unique, reversed"])
+def test_prepare_complexes_all_joins_on_row_labels(labels):
+    """``complex_policy='all'`` on a DataFrame whose index repeats labels:
+    the JAX package joins each column's member lists on the index, so a row
+    takes the members of every row with its label; the port follows its
+    rows (a row's own members alone where labels are unique)."""
+    adata = _adata(g=10, frac=True, seed=5)
+    g = list(adata.var_names)
+    interactions = pd.DataFrame({
+        "source": [f"{g[0]}_{g[1]}", g[2], f"{g[3]}_{g[4]}", g[5], g[6]],
+        "target": [g[6], f"{g[7]}_{g[8]}", g[9], f"{g[1]}_{g[2]}", g[0]],
+        "db": list("abcde"),
+    }, index=labels)
+    pt_j, pt_t = _pt_pair(adata)
+    pt_j.prepare(interactions, complex_policy="all")
+    pt_t.prepare(interactions, complex_policy="all")
+    _assert_same_interactions(pt_t, pt_j)
+    rt, rj = _both(adata, adata, interactions=interactions, complex_policy="all", n_perms=20, seed=0, use_raw=False)
+    _assert_same(rt, rj)
+
+
 def test_prepare_errors():
     adata = _adata()
     with pytest.raises(ValueError, match="No interactions"):

@@ -119,10 +119,61 @@ def test_sort_path_matches_null_moments():
 
 
 def test_unported_options_raise(adata_70k):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqt.gr.nhood_enrichment(adata_70k, "cl", library_key="cl")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqt.gr.nhood_enrichment(adata_70k, "cl", cache=True, seed=0)
+    """``library_key`` and ``cache`` are ported; what still raises is the
+    JAX package's own error: a ``library_key`` needs ``mode='perm'``, and a
+    library column must be categorical."""
+    adata_70k.obs["lib"] = pd.Categorical(np.arange(70_000) % 3)
+    with pytest.raises(ValueError, match="requires `mode='perm'`"):
+        sqt.gr.nhood_enrichment(adata_70k, "cl", library_key="lib", mode="analytic")
+    with pytest.raises(ValueError, match="requires `mode='perm'`"):
+        sq.gr.nhood_enrichment(adata_70k, "cl", library_key="lib", mode="analytic")
+    adata_70k.obs["lib_int"] = np.arange(70_000) % 3
+    with pytest.raises(TypeError, match="categorical"):
+        sqt.gr.nhood_enrichment(adata_70k, "cl", library_key="lib_int", n_perms=2, seed=0)
+
+
+def _libraries(n: int, sizes: list[int], seed: int, nan: int = 0) -> pd.Categorical:
+    codes = np.repeat(np.arange(len(sizes)), sizes)
+    assert len(codes) == n
+    np.random.default_rng(seed).shuffle(codes)
+    codes[:nan] = -1
+    return pd.Categorical.from_codes(codes, [f"s{i}" for i in range(len(sizes))])
+
+
+@pytest.mark.parametrize("n,sizes,nan", [(3000, [1000, 1700, 300], 0), (3000, [2999, 1], 4),
+                                          (70_000, [30_000, 25_000, 15_000], 0)],
+                         ids=["three sections", "a one-cell section and NaN", "70k cells (no cipher)"])
+def test_nhood_enrichment_library_key_matches_jax(n, sizes, nan, adata_70k):
+    """Within-library shuffles: counts and z-scores bitwise the JAX
+    package's, 1003 permutations (a padded tail chunk), NaN libraries
+    their own group; at 70k cells neither package takes the cipher."""
+    if n == 70_000:
+        adata = adata_70k
+    else:
+        adata = _adata(n, 5, seed=n + nan)
+        sq.gr.spatial_neighbors_knn(adata, n_neighs=6)
+    adata.obs["lib"] = _libraries(n, sizes, seed=7, nan=nan)
+    perms = 1003 if n < 10_000 else 40
+    want = sq.gr.nhood_enrichment(adata, "cl", library_key="lib", n_perms=perms, seed=3, copy=True)
+    got = sqt.gr.nhood_enrichment(adata, "cl", library_key="lib", n_perms=perms, seed=3, copy=True)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(got.zscore, want.zscore)
+    plain = sqt.gr.nhood_enrichment(adata, "cl", n_perms=perms, seed=3, copy=True)
+    assert not np.array_equal(plain.zscore, got.zscore, equal_nan=True)  # the libraries change the null
+
+
+def test_library_order_is_made_once(monkeypatch):
+    """The group order is made once a call, not once a 500-permutation chunk."""
+    from squidpy_torch.gr import _nhood
+
+    adata = _adata(2000, 4, seed=5)
+    sq.gr.spatial_neighbors_knn(adata, n_neighs=6)
+    adata.obs["lib"] = _libraries(2000, [1200, 800], seed=1)
+    calls = []
+    real = _nhood.group_layout
+    monkeypatch.setattr(_nhood, "group_layout", lambda g: calls.append(1) or real(g))
+    sqt.gr.nhood_enrichment(adata, "cl", library_key="lib", n_perms=1200, seed=0, copy=True)
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("n_cols,n_cls", [(1, 4), (5, 16), (64, 16), (500, 16), (16, 200), (3, 400)])

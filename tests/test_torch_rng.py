@@ -180,8 +180,80 @@ def cuda_card():
 
 
 def test_shuffle_group_columns_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trng.shuffle_group_columns(None, None, None)
+    """Once a stub that raised, now ported: one group is a plain column shuffle,
+    bitwise ``permutation_columns`` and the JAX package's grouped shuffle."""
+    values = np.random.default_rng(8).integers(0, 9, 700).astype(np.int32)
+    keys = trng.spawn_keys(5, 6)
+    got = trng.shuffle_group_columns(keys, torch.from_numpy(values), np.zeros(700, np.int8)).numpy()
+    np.testing.assert_array_equal(got, trng.permutation_columns(keys, torch.from_numpy(values)).numpy())
+    want = jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values), np.zeros(700, np.int8))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def _groups(sizes, seed, nan=0):
+    """Group codes (int8, as pandas gives them) of the given sizes in a
+    shuffled order, the first ``nan`` cells set to -1 (a NaN library)."""
+    codes = np.repeat(np.arange(len(sizes)), sizes).astype(np.int8)
+    np.random.default_rng(seed).shuffle(codes)
+    codes[:nan] = -1
+    return codes
+
+
+_GROUPINGS = {
+    "one group": [3000],
+    "two unequal": [2900, 100],
+    "seven with a single cell": [1000, 1, 640, 7, 1200, 52, 100],
+    "fifty unequal": list(np.random.default_rng(3).integers(1, 120, 50)),
+}
+
+
+@pytest.mark.parametrize("nan", [0, 17], ids=["no NaN library", "NaN library"])
+@pytest.mark.parametrize("grouping", list(_GROUPINGS))
+@pytest.mark.parametrize("payload", [jnp.uint8, None], ids=["uint8", "int32"])
+def test_shuffle_group_columns_match_jax(grouping, nan, payload):
+    """Bitwise the JAX package's (group, word) sort, rows back in their
+    original order, for one group, 2 to 50 unequal groups, a group of one
+    cell and code -1 (a group of its own, sorted first)."""
+    groups = _groups(_GROUPINGS[grouping], seed=len(grouping), nan=nan)
+    n = len(groups)
+    values = np.random.default_rng(n).integers(0, 200, n).astype(np.int32)
+    keys = trng.spawn_keys(n % 31, 7)
+    want = np.asarray(jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values), groups, payload_dtype=payload))
+    got = trng.shuffle_group_columns(keys, torch.from_numpy(values), groups,
+                                     payload_dtype=torch.uint8 if payload is not None else None).numpy()
+    assert got.dtype == want.dtype and got.shape == (n, 7)
+    np.testing.assert_array_equal(got, want)
+    for lib in np.unique(groups):  # values move only within their group
+        rows = groups == lib
+        for p in range(7):
+            np.testing.assert_array_equal(np.sort(got[rows, p]), np.sort(values[rows].astype(got.dtype)))
+
+
+def test_shuffle_group_columns_bitwise_with_tied_words():
+    """At 65,000 cells in three libraries a column holds two equal words with
+    probability ~0.39; the segments' sorts are stable in both packages, so
+    every column is bitwise JAX's, the tied ones included (distinct values,
+    so a tie taken in the other order would show)."""
+    n, P = 65_000, 24
+    groups = _groups([30_000, 25_000, 10_000], seed=9)
+    values = np.random.default_rng(1).permutation(n).astype(np.int32)
+    keys = trng.spawn_keys(23, P)
+    words = trng.random_bits(keys, (n,))
+    assert any(len(np.unique(words[p])) < n for p in range(P))
+    got = trng.shuffle_group_columns(keys, torch.from_numpy(values), groups).numpy()
+    want = np.asarray(jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values), groups))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_group_layout():
+    groups = np.array([2, -1, 2, 0, -1, 2], dtype=np.int8)
+    lay = trng.group_layout(groups)
+    np.testing.assert_array_equal(lay.order, [1, 4, 3, 0, 2, 5])
+    np.testing.assert_array_equal(lay.starts, [0, 2, 3, 6])
+    empty = trng.group_layout(np.zeros(0, np.int8))
+    assert len(empty.order) == 0 and list(empty.starts) == [0]
+    with pytest.raises(ValueError, match="one code a value"):
+        trng.shuffle_group_columns(trng.spawn_keys(0, 2), torch.zeros(5, dtype=torch.int32), np.zeros(4))
 
 
 # --- K10's shuffle kernel, its C interface emulated in numpy ---------------------------
@@ -331,6 +403,103 @@ class _EmulatedK10:
         return 0
 
 
+    # --- the grouped entry: buckets (segment, top bits), tiles of one segment ---------
+
+    def _grouped_layout(self, tiles, n_tiles, segs, max_bits, nb, n):
+        """The tile table and the segments read back, checked as the kernels
+        rely on them: tiles of at most 4096 positions, each inside one
+        segment, covering every position once in order; each segment's
+        buckets following the previous one's."""
+        t = _view(tiles, np.int32, 3 * n_tiles).reshape(n_tiles, 3)
+        n_seg = int(t[:, 0].max()) + 1
+        sg = _view(segs, np.int32, 2 * n_seg).reshape(n_seg, 2)
+        assert np.all(t[:, 2] >= 1) and np.all(t[:, 2] <= 4096)
+        assert t[0, 1] == 0 and np.all(t[1:, 1] == t[:-1, 1] + t[:-1, 2]) and t[-1, 1] + t[-1, 2] == n
+        assert np.all(np.diff(t[:, 0]) >= 0) and np.all(np.diff(t[:, 0]) <= 1)
+        widths = np.left_shift(1, sg[:, 1].astype(np.int64))
+        assert sg[0, 0] == 0 and np.all(sg[1:, 0] == np.cumsum(widths)[:-1]) and widths.sum() == nb
+        assert sg[:, 1].max() == max_bits <= 13
+        seg_of = np.repeat(t[:, 0], t[:, 2])
+        return seg_of, sg[seg_of, 1].astype(np.int64), sg[seg_of, 0].astype(np.int64)
+
+    def sqt_shuffle_ghist(self, keys, rows, n, mask, tiles, n_tiles, segs, max_bits, nb, hist, stats, stream):
+        self.calls.append("ghist")
+        _, bits, base = self._grouped_layout(tiles, n_tiles, segs, max_bits, nb, n)
+        w = self._words(keys, rows, n, mask).astype(np.int64)
+        h = _view(hist, np.int32, rows * nb).reshape(rows, nb)
+        for r in range(rows):
+            h[r] = np.bincount(base + np.where(bits > 0, w[r] >> (32 - bits), 0), minlength=nb)
+        _view(stats, np.int32, 2)[:] = 0
+        return 0
+
+    def sqt_shuffle_gscan(self, rows, n, nb, cap, hist, offs, overflow, stats, stream):
+        self.calls.append("gscan")
+        h = _view(hist, np.int32, rows * nb).reshape(rows, nb)
+        o = _view(offs, np.int32, rows * (nb + 1)).reshape(rows, nb + 1)
+        assert np.all(h.sum(axis=1) == n)
+        o[:, 0] = 0
+        o[:, 1:] = np.cumsum(h, axis=1)
+        over = np.flatnonzero(h.ravel() > cap)
+        self.rng.shuffle(over)
+        _view(overflow, np.int32, rows * nb)[: len(over)] = over
+        _view(stats, np.int32, 2)[:] = len(over), h.max()
+        h[:] = o[:, :-1]
+        return 0
+
+    def sqt_shuffle_gscatter(self, keys, rows, n, mask, tiles, n_tiles, segs, max_bits, nb, vals, hist, tmp, stream):
+        self.calls.append("gscatter")
+        _, bits, base = self._grouped_layout(tiles, n_tiles, segs, max_bits, nb, n)
+        w = self._words(keys, rows, n, mask)
+        cur = _view(hist, np.int32, rows * nb).reshape(rows, nb)
+        t = _view(tmp, np.uint64, rows * n).reshape(rows, n)
+        v = _view(vals, np.uint8, n) if vals is not None else None
+        for r in range(rows):
+            for i in self.rng.permutation(n):  # in any order, as atomics leave them
+                b = int(base[i]) + (int(w[r, i]) >> (32 - int(bits[i])) if bits[i] else 0)
+                low = (int(i) << 8) | int(v[i]) if v is not None else int(i)
+                t[r, cur[r, b]] = (((int(w[r, i]) << int(bits[i])) & 0xFFFFFFFF) << 32) | low
+                cur[r, b] += 1
+        self.packed = v is not None
+        return 0
+
+    def sqt_shuffle_gsort(self, tmp, offs, overflow, stats, rows, n, nb, cap, order, payload, payload_bytes, packed,
+                          out, out_ld, stream):
+        self.calls.append("gsort")
+        t = _view(tmp, np.uint64, rows * n).reshape(rows, n)
+        o = _view(offs, np.int32, rows * (nb + 1)).reshape(rows, nb + 1)
+        dtype = _PAYLOAD[payload_bytes]
+        pay = _view(payload, dtype, n)
+        at = _view(order, np.int32, n) if order is not None else np.arange(n)
+        dst = _view(out, dtype, rows * out_ld).reshape(rows, out_ld)
+        listed = set(_view(overflow, np.int32, rows * nb)[: _view(stats, np.int32, 2)[0]].tolist())
+        for r in range(rows):
+            for b in range(nb):
+                off, m = o[r, b], o[r, b + 1] - o[r, b]
+                seg = t[r, off : off + m]
+                if m > cap:
+                    assert r * nb + b in listed
+                    _bitonic(seg)
+                    self.sorted_by["overflow"] += 1
+                elif m:
+                    sub = (seg >> np.uint64(53)).astype(np.int64)
+                    placed = self.rng.permutation(m)
+                    placed = placed[np.argsort(sub[placed], kind="stable")]
+                    keys = seg[placed]
+                    starts = np.searchsorted(np.sort(sub), np.arange(0, 2049, 4))
+                    for lo, hi in zip(starts[:-1], starts[1:]):
+                        keys[lo:hi] = np.sort(keys[lo:hi])
+                    seg[:] = keys
+                    self.sorted_by["local"] += 1
+                else:
+                    continue
+                if packed:
+                    assert self.packed and payload_bytes == 1
+                    dst[r, at[off : off + m]] = (seg & np.uint64(0xFF)).astype(np.uint8)
+                else:
+                    dst[r, at[off : off + m]] = pay[(seg & np.uint64(0xFFFFFFFF)).astype(np.int64)]
+        return 0
+
+
 @pytest.fixture()
 def emulated(monkeypatch):
     emu = _EmulatedK10(seed=5)
@@ -338,6 +507,7 @@ def emulated(monkeypatch):
     monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
     monkeypatch.setattr(_cuda, "require", lambda *args, **kwargs: None)
     monkeypatch.setitem(_cuda.launches, "threefry_shuffle", 0)
+    monkeypatch.setitem(_cuda.launches, "threefry_grouped", 0)
     monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 1 << 20)  # no card to ask
     return emu
 
@@ -464,3 +634,118 @@ def test_bucket_bits(n, bits):
 @pytest.mark.parametrize("n,rounds", [(0, 0), (1, 0), (2, 1), (1625, 1), (1626, 2), (2_642_245, 2), (2_642_246, 3)])
 def test_rounds_at_the_edges(n, rounds):
     assert trng._rounds(n) == rounds
+
+
+# --- K10's grouped entry, its C interface emulated in numpy -----------------------------
+
+
+def _grouped_both(keys, values, groups, mask=trng._FULL_MASK, ld=None):
+    """The grouped wrapper around the emulated kernel (the CUDA branch, on
+    CPU tensors) and the plain version, into rows padded to ``ld``."""
+    lay = trng.group_layout(groups)
+    vsorted = values[torch.from_numpy(lay.order)].contiguous()
+    n = len(groups)
+    outs = [torch.full((keys.shape[0], ld or n), 7, dtype=values.dtype) for _ in range(2)]
+    got = trng._shuffle_grouped(keys, lay, vsorted, outs[0], _CARD, mask=mask)
+    want = trng._shuffle_grouped(keys, lay, vsorted, outs[1], torch.device("cpu"), mask=mask)
+    return got, want
+
+
+@pytest.mark.parametrize("grouping", ["one group", "two unequal", "seven with a single cell", "fifty unequal"])
+def test_emulated_grouped_matches_plain_and_jax(grouping, emulated):
+    """The grouped host layout (tiles of one segment, segments' buckets,
+    bucket bits from each length) and the four calls, bitwise the plain
+    version and the JAX package's columns; a NaN library included."""
+    groups = _groups(_GROUPINGS[grouping], seed=2, nan=3)
+    n = len(groups)
+    values = torch.from_numpy(np.random.default_rng(4).integers(0, 250, n).astype(np.uint8))
+    keys = trng.spawn_keys(n % 13, 3)
+    got, want = _grouped_both(keys, values, groups)
+    assert torch.equal(got, want)
+    assert emulated.calls == ["ghist", "gscan", "gscatter", "gsort"] and emulated.packed
+    assert _cuda.launches["threefry_grouped"] == 4 and _cuda.launches["threefry_shuffle"] == 0
+    jax_cols = jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values.numpy()), groups)
+    np.testing.assert_array_equal(got.T.numpy(), np.asarray(jax_cols))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.uint8])
+def test_emulated_grouped_gathered_payloads(dtype, emulated, monkeypatch):
+    """Payloads gathered at the sorted positions (4 and 8 bytes, and uint8
+    with the packing limit lowered to 0), into rows padded past n (left
+    untouched)."""
+    monkeypatch.setattr(trng, "_PACKED_MAX_N", 0)
+    groups = _groups([700, 1, 3000, 250], seed=5, nan=2)
+    values = torch.from_numpy(np.random.default_rng(6).permutation(len(groups)) % 250).to(dtype)
+    got, want = _grouped_both(trng.spawn_keys(7, 2), values, groups, ld=len(groups) + 9)
+    assert torch.equal(got, want) and not emulated.packed
+    assert bool((got[:, len(groups):] == 7).all())
+
+
+def test_emulated_grouped_large_segments_and_ties(emulated):
+    """A segment of 9000 (several buckets, tiles across it), words and-ed to
+    4096 values (ties kept in position order within a segment)."""
+    groups = _groups([9000, 4100, 1], seed=7)
+    values = torch.from_numpy(np.random.default_rng(8).permutation(len(groups)).astype(np.int32))
+    got, want = _grouped_both(trng.spawn_keys(8, 2), values, groups, mask=0xFFF00000)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cap,mask", [(64, trng._FULL_MASK), (16, 0)], ids=["capacity lowered", "every word equal"])
+def test_emulated_grouped_overflow_path(cap, mask, emulated, monkeypatch):
+    """Buckets past the local sort's capacity take the bitonic network, in
+    every segment (every word equal: a segment's one bucket holds all of it)."""
+    monkeypatch.setattr(trng, "_SORT_CAP", cap)
+    groups = _groups([3000, 40, 1, 2500], seed=9, nan=5)
+    values = torch.from_numpy(np.random.default_rng(9).integers(0, 250, len(groups)).astype(np.uint8))
+    got, want = _grouped_both(trng.spawn_keys(9, 2), values, groups, mask=mask)
+    assert torch.equal(got, want) and emulated.sorted_by["overflow"] > 0
+
+
+def test_emulated_grouped_chunks(emulated, monkeypatch):
+    """Keys in chunks (three here) change nothing."""
+    groups = _groups([1500, 900, 600], seed=10)
+    values = torch.from_numpy(np.random.default_rng(10).integers(0, 9, len(groups)).astype(np.uint8))
+    keys = trng.spawn_keys(10, 7)
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 3)
+    got, want = _grouped_both(keys, values, groups)
+    assert torch.equal(got, want) and emulated.calls.count("ghist") == 3
+
+
+@pytest.mark.parametrize("sizes", [[1], [2048], [2049], [4096, 1], [10_000, 3, 8193, 1], [1] * 40])
+def test_group_tiles(sizes):
+    """K10's grouped host layout: each segment's bucket bits from its length
+    (as a row's), its buckets after the previous segment's, its positions in
+    tiles of at most 4096 that never cross a segment."""
+    starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    tiles, segs, nb, max_bits = trng._group_tiles(starts)
+    bits = [trng._bucket_bits(s) for s in sizes]
+    np.testing.assert_array_equal(segs[:, 1], bits)
+    np.testing.assert_array_equal(segs[:, 0], np.concatenate([[0], np.cumsum(np.left_shift(1, bits))[:-1]]))
+    assert nb == sum(1 << b for b in bits) and max_bits == max(bits)
+    assert np.all(tiles[:, 2] <= 4096) and tiles[:, 2].sum() == sum(sizes)
+    np.testing.assert_array_equal(tiles[:, 1] - starts[tiles[:, 0]] >= 0, True)
+    np.testing.assert_array_equal(tiles[:, 1] + tiles[:, 2] <= starts[tiles[:, 0] + 1], True)
+    assert len(tiles) == sum(-(-s // 4096) for s in sizes)
+
+
+@pytest.mark.cuda
+def test_k10_grouped_matches_plain_on_card(cuda_card, monkeypatch):
+    """The grouped entry against its plain version on the card, bitwise:
+    uint8 (packed) and int32 payloads, a NaN library, a single-cell group,
+    ties, the overflow path."""
+    cuda = torch.device("cuda")
+    for sizes, mask, cap in (([70_000, 1, 30_000, 5], trng._FULL_MASK, None), ([20_000, 9000], 0xFFF00000, None),
+                             ([5000, 3000], 0, 64)):
+        if cap is not None:
+            monkeypatch.setattr(trng, "_SORT_CAP", cap)
+        groups = _groups(sizes, seed=len(sizes), nan=4)
+        keys = trng.spawn_keys(len(groups), 9)
+        lay = trng.group_layout(groups)
+        for dtype in (torch.uint8, torch.int32):
+            values = torch.from_numpy(np.random.default_rng(1).integers(0, 200, len(groups))).to(dtype)
+            vsorted = values[torch.from_numpy(lay.order)].contiguous()
+            got = torch.empty((9, len(groups)), dtype=dtype, device=cuda)
+            trng._shuffle_grouped(keys, lay, vsorted.to(cuda), got, cuda, mask=mask)
+            want = trng._shuffle_grouped(keys, lay, vsorted, torch.empty((9, len(groups)), dtype=dtype),
+                                         torch.device("cpu"), mask=mask)
+            assert torch.equal(got.cpu(), want)

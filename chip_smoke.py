@@ -49,13 +49,17 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       60k-200k cells each, sizes from a seed): ``spatial_neighbors_knn``
       with ``library_key`` (no edge across sections) and
       ``nhood_enrichment(library_key=..., n_perms=1000)`` twice (seeds 0
-      and 1; K10's grouped entry and K3, never the cipher); f2:
+      and 1; K10's grouped entry (K10g) and K3, never
+      the cipher), and once more under the CPU profiler, whose ``[host]
+      nhood_library`` line splits it (the group layout, the device layout,
+      ``values[order]``, K10g, the transpose, K3, the copy to the host); f2:
       ``examples/sepal_scale.py``'s timed run, ``sepal`` on a 1000 x 1000
       square lattice (Visium HD bins) x 1024 genes of floored Gamma counts
-      with bumps, ``thresh=0``, 300 steps, twice (K11); f3: ``sepal`` at
-      its defaults on the example's 316 x 316 x 256 (the spatial genes must
-      score above the background) and on a Visium section of 4,992
-      hexagonal spots x 2000 genes (K11);
+      with bumps, ``thresh=0``, 300 steps, twice (K11's streaming route);
+      f3: ``sepal`` at its defaults on the example's 316 x 316 x 256 (the
+      spatial genes must score above the background; streaming) and on a
+      Visium section of 4,992 hexagonal spots x 2000 genes (K11's resident
+      route);
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -157,14 +161,18 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    distinct words), and every word equal or the capacity lowered (the
    overflow path); K10's words at n = 1, 1625, 1626, 65,537 and 1M,
    unflipped, and with more keys than the grid's rows; on part f's own
-   inputs: K10's grouped entry on f1's first 500-permutation chunk (the
-   sort path, K10's words + one ``torch.sort`` of the (section, word) keys
-   + the gathers, as its yardstick), its ``[diag] grouped`` line (each
-   step, segments, tiles, buckets, the fused write at the original rows
-   against a separate gather), then int32 values with a one-cell and a NaN
-   library, the capacity lowered and every word equal (the overflow path);
-   K11 on f2's first 64 genes for the 300-step budget (the steps and the
-   state after it) and on f3's two datasets at the default threshold.
+   inputs: K10g on f1's first 500-permutation chunk (the sort path, K10's
+   words + one ``torch.sort`` of the (section, word) keys + the gathers, as
+   its yardstick, held bitwise too), its ``[diag] grouped`` line (steps,
+   segments, tiles, buckets, the device layout alone, the fused write at
+   the original rows against a separate gather), then int32 values with a
+   one-cell and a NaN library, tied words, the capacity lowered and every
+   word equal (the overflow path); K11 on the route each shape
+   selects (asserted): f2's first 64 genes for the 300-step budget (the
+   steps and the state after it) and f3's 316 x 316 x 256 (streaming), f3's
+   Visium section (resident), each with a ``[diag] sepal`` line that times
+   the earlier four-kernel design (``csrc/sepal_split.cu``) in turns with
+   the current one.
    Integer kernels
    (K1-K4, K7, K9, K10), K11 (its steps and state), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
@@ -1618,15 +1626,16 @@ def _skewed_labels(n: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).choice(RIPLEY_CLS, size=n, p=p).astype(np.int32)
 
 
-def _profiled(fn, prefix: str) -> tuple[object, float, dict[str, float]]:
+def _profiled(fn, prefix: str | tuple[str, ...]) -> tuple[object, float, dict[str, float]]:
     """``fn()`` under the CPU profiler: its result, its wall seconds and the
-    host milliseconds of each of its ``prefix.*`` ranges."""
+    host milliseconds of each of its ``prefix.*`` ranges (of each prefix)."""
     from torch.profiler import ProfilerActivity, profile
 
+    prefixes = (prefix,) if isinstance(prefix, str) else prefix
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out, wall = _sync_time(fn)
     steps = {e.key.split(".", 1)[1]: e.cpu_time_total / 1e3 for e in prof.key_averages()
-             if e.key.startswith(prefix + ".")}
+             if e.key.startswith(tuple(p + "." for p in prefixes))}
     if not steps:
         raise AssertionError(f"the profile holds none of {prefix}'s ranges")
     return out, wall, steps
@@ -2658,8 +2667,9 @@ def sections_path(adata: StandIn) -> tuple[StandIn, dict, dict]:
     """Part f1: part a's 1M cells as a study of 8 sections (libraries of
     unequal size): ``spatial_neighbors_knn(library_key=...)``, then
     ``nhood_enrichment(library_key=..., n_perms=1000)`` twice (seeds 0 and
-    1), the counters reset before the two calls and read after; then checks
-    of what they returned. Returns the study, the launches and the seconds."""
+    1) and once more under the CPU profiler (its ``[host]`` line), the
+    counters reset before the calls and read after; then checks of what they
+    returned. Returns the study, the launches and the seconds."""
     import squidpy_torch as sqt
     from squidpy_torch import _cuda
 
@@ -2678,6 +2688,12 @@ def sections_path(adata: StandIn) -> tuple[StandIn, dict, dict]:
     res0, secs["nhood_seed0_s"] = _sync_time(lambda: sqt.gr.nhood_enrichment(study, "cluster", seed=0, **call))
     res1, secs["nhood_seed1_s"] = _sync_time(lambda: sqt.gr.nhood_enrichment(study, "cluster", seed=1, **call))
     launches = dict(_cuda.launches)
+    _cuda.reset_launches()
+    _, secs["nhood_profiled_s"], host = _profiled(lambda: sqt.gr.nhood_enrichment(study, "cluster", seed=3, **call),
+                                                  ("nhood_enrichment", "shuffle_group_columns"))
+    launches = {k: launches[k] + _cuda.launches[k] for k in launches}
+    print(f"[host] nhood_library (8 sections, 1000 permutations, profiled): wall {secs['nhood_profiled_s']:.4f} s; "
+          + " ".join(f"{k}={v:.1f}" for k, v in sorted(host.items())) + " (host ms)", flush=True)
     for res in (res0, res1):
         if res.zscore.shape != (N_CLS, N_CLS) or int(res.counts.astype(np.int64).sum()) != adj.nnz:
             raise AssertionError("nhood_enrichment(library_key): wrong shape or observed edge total")
@@ -2712,10 +2728,14 @@ def _library_grouped(keys, lay, vsorted):
     return out
 
 
-def check_grouped(name: str, keys, values, groups, library: bool = False, plain_warm: bool = True) -> dict:
+def check_grouped(name: str, keys, values, groups, library: bool = False, plain_warm: bool = True,
+                  mask: int | None = None) -> dict:
     """K10's grouped entry (``_core/rng.py`` ``_shuffle_grouped``, chunked as
     ``shuffle_group_columns`` chunks) against its plain version on the card,
-    bitwise; with ``library`` the sort path as the yardstick."""
+    bitwise; with ``library`` the sort path as the yardstick, held bitwise
+    too. Each timed call starts from a fresh layout cache, so it pays the
+    device layout (the order's upload and the tile table) as a call with a
+    single chunk does."""
     import torch
 
     from squidpy_torch._core import rng
@@ -2726,19 +2746,24 @@ def check_grouped(name: str, keys, values, groups, library: bool = False, plain_
     n = len(groups)
     out_k = torch.empty((len(keys), n), dtype=values.dtype, device=cuda)
     out_p = torch.empty_like(out_k)
+    m = rng._FULL_MASK if mask is None else mask
     lib = (lambda: _library_grouped(keys, lay, vsorted)) if library else None
-    return _compare(name, lambda: rng._shuffle_grouped(keys, lay, vsorted, out_k, cuda),
-                    lambda: rng._shuffle_grouped_plain(keys, lay, vsorted, out_p), 3,
-                    _grouped_bound(len(keys), n, out_k.element_size(), values.element_size()),
-                    plain_warm=plain_warm, library=lib)
+    res = _compare(name, lambda: rng._shuffle_grouped(keys, lay._replace(cache={}), vsorted, out_k, cuda, mask=m),
+                   lambda: rng._shuffle_grouped_plain(keys, lay, vsorted, out_p, m), 3,
+                   _grouped_bound(len(keys), n, out_k.element_size(), values.element_size()),
+                   plain_warm=plain_warm, library=lib)
+    if library and not torch.equal(out_k, _library_grouped(keys, lay, vsorted)):
+        raise AssertionError(f"{name}: the kernel and the sort path differ")
+    return res
 
 
 def grouped_split(keys, values, groups) -> None:
     """``[diag] grouped``: one chunk of K10's grouped entry (the chunk the
     card's memory allows) with each step timed by CUDA events, its
-    segments, tiles, buckets, largest bucket and overflowing buckets; and
-    the sort's fused write at the original rows against a write at the
-    group-sorted slots followed by a separate gather."""
+    segments, tiles, buckets, largest bucket and overflowing buckets; the
+    device layout alone (the order's upload and the tile table, made once a
+    call); and the sort's fused write at the original rows against a write
+    at the group-sorted slots followed by a separate gather."""
     import torch
 
     from squidpy_torch._core import rng
@@ -2749,6 +2774,7 @@ def grouped_split(keys, values, groups) -> None:
     n = len(groups)
     step = rng._keys_per_chunk(n, cuda)
     chunk = np.ascontiguousarray(np.asarray(keys, np.uint32)[:step])
+    _, layout_ms = _time_ms(lambda: rng._grouped_device(lay._replace(cache={}), cuda), 3)
     dev = rng._grouped_device(lay, cuda)
     out = torch.empty((len(chunk), n), dtype=values.dtype, device=cuda)
     sorted_slots = torch.empty_like(out)
@@ -2773,8 +2799,8 @@ def grouped_split(keys, values, groups) -> None:
     print(f"[diag] grouped n={n} keys={len(chunk)} (a chunk) segments={len(lay.starts) - 1} tiles={dev.tiles.shape[0]} "
           f"buckets={stats['buckets']} largest_bucket={stats['largest_bucket'][0]} overflow={stats['overflow'][0]} "
           f"{steps} fused_ms={fused_ms:.3f} (each slot written at its original row) "
-          f"apart_ms={apart_ms:.3f} (group-sorted slots, then a gather); bound_ms={bound[0]:.4f} ({bound[1]})",
-          flush=True)
+          f"apart_ms={apart_ms:.3f} (group-sorted slots, then a gather) layout_ms={layout_ms:.3f} (the device "
+          f"layout, once a call); bound_ms={bound[0]:.4f} ({bound[1]})", flush=True)
     if stats["overflow"][0]:
         raise AssertionError("K10 grouped: a bucket of part f1's chunk overflowed")
 
@@ -2783,8 +2809,8 @@ def grouped_kernel_checks(study: StandIn) -> list[dict]:
     """K10's grouped entry on part f1's own inputs: the first 500-permutation
     chunk of ``nhood_enrichment``'s keys over the study's labels (uint8) and
     libraries, with the sort path as the yardstick, and its ``[diag]`` line;
-    then int32 values, a one-cell library and a NaN library, every word
-    equal, and the capacity lowered (the overflow path)."""
+    then int32 values, a one-cell library and a NaN library, tied words,
+    every word equal, and the capacity lowered (the overflow path)."""
     import torch
 
     from squidpy_torch._core import rng
@@ -2803,6 +2829,8 @@ def grouped_kernel_checks(study: StandIn) -> list[dict]:
     vals = torch.from_numpy(g.integers(0, 2**31 - 1, 150_000).astype(np.int32)).cuda()
     out.append(check_grouped("threefry_grouped int32 values, a one-cell and a NaN library", rng.spawn_keys(1, 64),
                              vals, odd))
+    out.append(check_grouped("threefry_grouped tied words (mask 0xFFF00000)", rng.spawn_keys(4, 16),
+                             labels[:200_000], libs[:200_000], mask=0xFFF00000))
     old = rng._SORT_CAP
     try:
         rng._SORT_CAP = 64
@@ -2946,27 +2974,102 @@ def sepal_path() -> tuple[dict, dict, dict]:
     return {"big": big, "small": small, "visium": hexa}, {"f2": launches_f2, "f3": launches_f3}, secs
 
 
+def _sepal_steps(done, n_iter: int) -> float:
+    # this run's steps: a gene runs to its convergence step (or the budget)
+    return float(np.where(np.isnan(done), n_iter, done + 1).sum())
+
+
 def _sepal_bound(n: int, k: int, n_sat: int, done, n_iter: int) -> tuple[float, str]:
-    # this run's steps: a gene runs to its convergence step (or the budget);
-    # each step reads the state and writes it once (4 + 4 bytes a node and
-    # gene); operations: the stencil (k adds, 3 more, the clamp) a node and
-    # the entropy's ~24 (two compares, a division, a log, two adds) a
-    # saturated node
-    steps = float(np.where(np.isnan(done), n_iter, done + 1).sum())
+    # the streaming route: each step reads the state and writes it once (4 +
+    # 4 bytes a node and gene); operations: the stencil (k adds, 3 more, the
+    # clamp) a node and the entropy's ~24 (two compares, a division, a log,
+    # two adds) a saturated node
+    steps = _sepal_steps(done, n_iter)
     return _bound(8.0 * n * steps, ((k + 4) * n + 24.0 * n_sat) * steps)
 
 
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared-memory bandwidth a clock (H100)
+SMS = 132
+
+
+def _sm_clock_hz() -> float:
+    """The SM clock the card reports as its maximum (``nvidia-smi
+    clocks.max.sm``), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _sepal_resident_bound(n: int, k: int, n_sat: int, n_unsat: int, n_genes: int, done,
+                          n_iter: int) -> tuple[tuple[float, str], float, float]:
+    # the resident route moves the state through device memory once (read
+    # and written: 8 bytes a node and gene), and does the streaming bound's
+    # operations: the larger of the two is the contract's bound. Its state
+    # lives in shared memory, whose traffic is returned beside it: each
+    # step reads a saturated node's state and its k neighbours' and writes
+    # one value ((k + 2) x 4 bytes), an unsaturated node's own, its saturated
+    # node's and that one's k neighbours' ((k + 3) x 4 bytes), at 128 bytes a
+    # clock an SM on 132 SMs at the SM clock nvidia-smi reports as its
+    # maximum; returns (the bound, the shared-memory time, that clock in Hz)
+    steps = _sepal_steps(done, n_iter)
+    clock = _sm_clock_hz()
+    smem = 4.0 * (n_sat * (k + 2) + n_unsat * (k + 3)) * steps
+    t_smem = smem / (SMEM_BYTES_PER_CLOCK * SMS * clock)
+    return _bound(8.0 * n * n_genes, ((k + 4) * n + 24.0 * n_sat) * steps), 1e3 * t_smem, clock
+
+
+def _diffusion_split(conc0, tables, hexa: bool, n_iter: int, dt: float, thresh: float):
+    """K11's earlier design (``csrc/sepal_split.cu``: four kernels a step,
+    64 steps a call), timed beside the current routes; launches uncounted.
+    Its hex update multiplies by f32(1/3), then by dt, on every node."""
+    import torch
+
+    from squidpy_torch import _cuda
+    from squidpy_torch.ops.sepal import _constants, _next_pow2
+
+    sat, sat_idx, unsat, pos = tables
+    n_genes = conc0.shape[1]
+    n_sat, k = sat_idx.shape
+    dt_, thresh_, recip3, recip_sat, eps = _constants(torch.float32, n_sat, dt, thresh)
+    bufs = (conc0.clone(), torch.empty_like(conc0))
+    span = max(32, _next_pow2(-(-n_sat // 256)))
+    part_x = torch.empty((span, n_genes), dtype=torch.float32, device=conc0.device)
+    part_h = torch.empty_like(part_x)
+    total = torch.empty(n_genes, dtype=torch.float32, device=conc0.device)
+    active = torch.ones(n_genes, dtype=torch.uint8, device=conc0.device)
+    prev = torch.ones(n_genes, dtype=torch.float32, device=conc0.device)
+    done = torch.full((n_genes,), float("nan"), dtype=torch.float32, device=conc0.device)
+    lib = _cuda.library()
+    i = 0
+    while i < n_iter:
+        steps = min(64, n_iter - i)
+        _cuda.check(lib.sqt_sepal_steps(bufs[0].data_ptr(), bufs[1].data_ptr(), n_genes, n_genes, sat.data_ptr(),
+                                        sat_idx.data_ptr(), n_sat, k, unsat.data_ptr(), pos.data_ptr(),
+                                        unsat.shape[0], int(hexa), dt_, recip3, recip_sat, eps, thresh_, i, steps,
+                                        span, part_x.data_ptr(), part_h.data_ptr(), total.data_ptr(),
+                                        active.data_ptr(), prev.data_ptr(), done.data_ptr(), _cuda.stream_ptr()),
+                    "sepal_split")
+        i += steps
+        if not bool(active.any()):
+            break
+    return torch.cat([done[None, :], bufs[i % 2]])
+
+
 def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter: int, thresh: float,
-                plain_warm: bool = False) -> dict:
+                route: str, plain_warm: bool = False) -> dict:
     """K11 against its plain version on the card on ``adata``'s genes, by
     the convergence steps and the state after the run (one tensor: the steps
-    in row 0), bitwise."""
+    in row 0), bitwise, on the route the shape selects (asserted to be
+    ``route``); the earlier four-kernel design timed beside it, in turns
+    (``split_ms``; held bitwise too on the square lattice, where its
+    arithmetic is the current one)."""
     import torch
     from scipy import sparse as sp
 
+    from squidpy_torch import _cuda
     from squidpy_torch._core.device_x import device_expression
     from squidpy_torch.gr._sepal import _compute_idxs
-    from squidpy_torch.ops.sepal import _diffusion_plain, sepal_diffusion
+    from squidpy_torch.ops.sepal import _diffusion_plain, _k11_route, sepal_diffusion
 
     g = sp.csr_matrix(adata.obsp["spatial_connectivities"])
     k = 6 if hexa else 4
@@ -2974,6 +3077,10 @@ def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter
     tables = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
               for a in (sat, sat_idx, unsat, np.searchsorted(sat, near))]
     conc = device_expression(adata).dense_block(genes)
+    genes_a_block = _k11_route(g.shape[0], len(sat), len(genes), *_cuda.device_info())
+    if ("resident" if genes_a_block else "streaming") != route:
+        raise AssertionError(f"{name}: the shape selects the {'resident' if genes_a_block else 'streaming'} route, "
+                             f"not {route}")
 
     def kernel():
         done, state = sepal_diffusion(conc, *tables, hexa, n_iter, SEPAL_DT, thresh, return_state=True)
@@ -2983,27 +3090,63 @@ def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter
         done, state = _diffusion_plain(conc, *tables, hexa, n_iter, SEPAL_DT, thresh)
         return torch.cat([done[None, :], state])
 
+    def split():
+        return _diffusion_split(conc, tables, hexa, n_iter, SEPAL_DT, thresh)
+
     done = kernel()[0].cpu().numpy()
-    print(f"[diag] sepal {name}: steps run {int(np.where(np.isnan(done), n_iter, done + 1).max())}, genes "
-          f"converged {int(np.isfinite(done).sum())} of {len(done)}, nodes {g.shape[0]} ({len(sat)} saturated)",
-          flush=True)
-    return _compare(name, kernel, plain, 2, _sepal_bound(g.shape[0], k, len(sat), done, n_iter),
-                    plain_warm=plain_warm)
+    smem_note = ""
+    if route == "resident":
+        bound, smem_ms, clock = _sepal_resident_bound(g.shape[0], k, len(sat), len(unsat), len(genes), done, n_iter)
+        smem_note = (f" smem_bound_ms={smem_ms:.4f} (shared-memory traffic at 128 B a clock x {SMS} SMs x "
+                     f"{clock / 1e6:.0f} MHz, nvidia-smi clocks.max.sm);")
+    else:
+        bound = _sepal_bound(g.shape[0], k, len(sat), done, n_iter)
+    times = {"new": [], "split": []}
+    for which in ("new", "split", "new", "split"):  # in turns
+        out, ms = _time_ms(kernel if which == "new" else split, 1)
+        times[which].append(ms)
+        if which == "split" and not hexa and not torch.equal(torch.nan_to_num(out, nan=-1.0),
+                                                            torch.nan_to_num(kernel(), nan=-1.0)):
+            raise AssertionError(f"{name}: the earlier design and the current one differ on a square lattice")
+    other = ""
+    if route == "resident":  # the streaming route on the same shape, forced, for the choice's record
+        from squidpy_torch.ops import sepal as ops_sepal
+
+        chosen = ops_sepal._k11_route
+        ops_sepal._k11_route = lambda *args: 0
+        try:
+            streamed, streaming_ms = _time_ms(kernel, 1)
+        finally:
+            ops_sepal._k11_route = chosen
+        if not torch.equal(torch.nan_to_num(streamed, nan=-1.0), torch.nan_to_num(kernel(), nan=-1.0)):
+            raise AssertionError(f"{name}: the streaming and resident routes differ")
+        other = f" streaming_ms={streaming_ms:.3f} (the streaming route forced, the same result)"
+    layout = f"{genes_a_block} genes a block" if genes_a_block else "64 genes x 256 rows a block, one pass a step"
+    print(f"[diag] sepal {name}: route={route} ({layout}), steps run "
+          f"{int(np.where(np.isnan(done), n_iter, done + 1).max())}, genes converged {int(np.isfinite(done).sum())} "
+          f"of {len(done)}, nodes {g.shape[0]} ({len(sat)} saturated); new_ms="
+          + "/".join(f"{t:.3f}" for t in times["new"]) + " split_ms=" + "/".join(f"{t:.3f}" for t in times["split"])
+          + f" (four kernels a step, in turns);{other}{smem_note} bound_ms={bound[0]:.4f} ({bound[1]})", flush=True)
+    res = _compare(name, kernel, plain, 2, bound, plain_warm=plain_warm)
+    res["split_ms"] = float(np.mean(times["split"]))
+    return res
 
 
-def sepal_kernel_checks(data: dict) -> list[dict]:
-    """K11 on part f's own inputs: the first 64 genes of f2's 1M bins for
-    its budget of 300 steps (the state after it, and the steps), then f3's
-    316 x 316 x 256 and Visium 4,992 x 2000 at the default threshold (the
-    steps and the state)."""
-    out = [check_sepal(f"sepal_diffusion part f2 ({SEPAL_SIDE}x{SEPAL_SIDE} bins x {K11_CHECK_GENES} genes, "
-                       f"{SEPAL_BUDGET} steps, thresh=0)", data["big"], False, np.arange(K11_CHECK_GENES), SEPAL_BUDGET,
-                       0.0)]
-    out.append(check_sepal(f"sepal_diffusion part f3 ({SEPAL_SMALL_SIDE}x{SEPAL_SMALL_SIDE} x {SEPAL_SMALL_GENES} "
-                           f"genes, thresh=1e-8)", data["small"], False, np.arange(SEPAL_SMALL_GENES), 30000, 1e-8))
-    out.append(check_sepal(f"sepal_diffusion part f3 (Visium {VISIUM_SPOTS} hex spots x {VISIUM_GENES} genes, "
-                           f"thresh=1e-8)", data["visium"], True, np.arange(VISIUM_GENES), 30000, 1e-8))
-    return out
+def sepal_kernel_checks(data: dict) -> dict[str, list[dict]]:
+    """K11 on part f's own inputs, each on the route its shape selects: the
+    first 64 genes of f2's 1M bins for its budget of 300 steps (the state
+    after it, and the steps) and f3's 316 x 316 x 256 at the default
+    threshold (streaming); Visium 4,992 x 2000 at the default threshold
+    (resident)."""
+    streaming = [check_sepal(f"sepal_diffusion part f2 ({SEPAL_SIDE}x{SEPAL_SIDE} bins x {K11_CHECK_GENES} genes, "
+                             f"{SEPAL_BUDGET} steps, thresh=0)", data["big"], False, np.arange(K11_CHECK_GENES),
+                             SEPAL_BUDGET, 0.0, "streaming")]
+    streaming.append(check_sepal(f"sepal_diffusion part f3 ({SEPAL_SMALL_SIDE}x{SEPAL_SMALL_SIDE} x "
+                                 f"{SEPAL_SMALL_GENES} genes, thresh=1e-8)", data["small"], False,
+                                 np.arange(SEPAL_SMALL_GENES), 30000, 1e-8, "streaming"))
+    resident = [check_sepal(f"sepal_resident part f3 (Visium {VISIUM_SPOTS} hex spots x {VISIUM_GENES} genes, "
+                            f"thresh=1e-8)", data["visium"], True, np.arange(VISIUM_GENES), 30000, 1e-8, "resident")]
+    return {"sepal_diffusion": streaming, "sepal_resident": resident}
 
 
 def main() -> int:
@@ -3115,8 +3258,10 @@ def main() -> int:
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in secs_f.items()), flush=True)
     for part, counts in launches_sepal.items():
         print(f"[launches {part}] {counts}", flush=True)
-        if counts["sepal_diffusion"] <= 0:
-            raise AssertionError(f"part {part}: sepal_diffusion was not launched")
+        wanted = ("sepal_diffusion",) if part == "f2" else ("sepal_diffusion", "sepal_resident")
+        missing = [k for k in wanted if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"part {part}: {missing} not launched")
     for counts in (launches_f1, *launches_sepal.values()):
         launches = {k: launches[k] + counts[k] for k in launches}
     phases["main_path_f"] = time.perf_counter() - t_phase
@@ -3137,7 +3282,7 @@ def main() -> int:
     del adata_e
     torch.cuda.empty_cache()
     checks["threefry_grouped"] = grouped_kernel_checks(study)
-    checks["sepal_diffusion"] = sepal_kernel_checks(sepal_data)
+    checks.update(sepal_kernel_checks(sepal_data))
     del sepal_data
     torch.cuda.empty_cache()
     phases["kernels_main_path_inputs"] = time.perf_counter() - t_phase

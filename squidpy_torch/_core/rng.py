@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from squidpy_torch import _cuda
 
@@ -406,10 +407,13 @@ class GroupLayout(NamedTuple):
     """The group-sorted order of a shuffle within groups, made once a call:
     ``order`` (n,) int64, the stable argsort of the group codes (code -1, a
     NaN library, is a group of its own and sorts first), and ``starts``
-    (S + 1,) int64, each group's first position in that order, then n."""
+    (S + 1,) int64, each group's first position in that order, then n.
+    ``cache`` keeps what the card's kernels make of it (the order and the
+    tile table on the device), so every chunk of a call reuses them."""
 
     order: np.ndarray
     starts: np.ndarray
+    cache: dict
 
 
 def group_layout(groups: np.ndarray) -> GroupLayout:
@@ -421,7 +425,7 @@ def group_layout(groups: np.ndarray) -> GroupLayout:
     if np.any(sorted_codes[1:] < sorted_codes[:-1]):
         raise ValueError("Group codes must fit in int32.")
     starts = np.flatnonzero(np.r_[True, sorted_codes[1:] != sorted_codes[:-1]]) if len(groups) else np.zeros(0, int)
-    return GroupLayout(order=order, starts=np.append(starts, len(groups)).astype(np.int64))
+    return GroupLayout(order=order, starts=np.append(starts, len(groups)).astype(np.int64), cache={})
 
 
 _TILE = 4096  # items a block of K10's histogram and scatter (csrc/threefry.cu kTile)
@@ -458,10 +462,28 @@ def _group_tiles(starts: np.ndarray) -> tuple[np.ndarray, np.ndarray, int, int]:
     return tiles, np.stack([base, bits], axis=1).astype(np.int32), int(widths.sum()), int(bits.max(initial=0))
 
 
+def _cached(layout: GroupLayout, key: tuple, make):
+    """``make()`` once for ``layout``: kept in its ``cache``."""
+    if key not in layout.cache:
+        layout.cache[key] = make()
+    return layout.cache[key]
+
+
+def _device_order(layout: GroupLayout, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The group-sorted order on ``device``, int64 (to gather with) and int32
+    (for the kernels), made once a layout."""
+    def make():
+        order = torch.from_numpy(layout.order).to(device)
+        return order, order.to(torch.int32)
+    return _cached(layout, ("order", str(device)), make)
+
+
 def _grouped_device(layout: GroupLayout, device: torch.device) -> _GroupedDevice:
-    tiles, segs, nb, max_bits = _group_tiles(layout.starts)
-    return _GroupedDevice(torch.from_numpy(tiles).to(device), torch.from_numpy(segs).to(device),
-                          torch.from_numpy(layout.order.astype(np.int32)).to(device), nb, max_bits)
+    def make():
+        tiles, segs, nb, max_bits = _group_tiles(layout.starts)
+        return _GroupedDevice(torch.from_numpy(tiles).to(device), torch.from_numpy(segs).to(device),
+                              _device_order(layout, device)[1], nb, max_bits)
+    return _cached(layout, ("tiles", str(device)), make)
 
 
 def _shuffle_grouped_plain(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tensor, out: torch.Tensor,
@@ -564,6 +586,11 @@ def shuffle_group_columns(keys: np.ndarray, values: torch.Tensor, groups: np.nda
         raise ValueError(f"`groups` must have one code a value ({n}), found {layout.order.shape[0]}.")
     out = torch.empty((keys.shape[0], n), dtype=values.dtype, device=device)
     if n and keys.shape[0]:
-        vsorted = values[torch.from_numpy(layout.order).to(device)].contiguous()
-        _shuffle_grouped(keys, layout, vsorted, out, device)
-    return out.T.contiguous()
+        with record_function("shuffle_group_columns.device_layout"):
+            order = _device_order(layout, device)[0]
+        with record_function("shuffle_group_columns.values_order"):
+            vsorted = values[order].contiguous()
+        with record_function("shuffle_group_columns.shuffle"):
+            _shuffle_grouped(keys, layout, vsorted, out, device)
+    with record_function("shuffle_group_columns.transpose"):
+        return out.T.contiguous()

@@ -15,9 +15,10 @@ the path went through. A kernel whose C interface has several entry points
 ``threefry_shuffle``: the words, and a round's histogram, scan, scatter and
 sort; ``threefry_grouped``: the same four steps of its grouped entry;
 ``ligrec_perms``: its float and integral routes; ``sepal_diffusion``: a call
-of up to 64 steps, four kernels each) counts each call into that interface,
-which may start more than one CUDA kernel;
-K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
+of up to 64 streaming passes, one kernel each) counts each call into that
+interface, which may start more than one CUDA kernel. K11's two routes
+count under their own names (``sepal_diffusion``, the streaming route, and
+``sepal_resident``). K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
 and those calls count as K6's.
 """
 
@@ -33,7 +34,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build_log", "check", "launches", "library", "require", "reset_launches", "stream_ptr"]
+__all__ = ["KERNELS", "build_log", "check", "device_info", "launches", "library", "require", "reset_launches",
+           "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
@@ -60,6 +62,7 @@ KERNELS = {
     "threefry_shuffle": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:38"),
     "threefry_grouped": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:98"),
     "sepal_diffusion": ("squidpy_torch/csrc/sepal.cu", "squidpy_tpu/ops/sepal.py:35"),
+    "sepal_resident": ("squidpy_torch/csrc/sepal.cu", "squidpy_tpu/ops/sepal.py:35"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -106,6 +109,10 @@ _SIGNATURES = {
     "sqt_shuffle_gscan": [_L, _L, _L, _I, _P, _P, _P, _P, _P],
     "sqt_shuffle_gscatter": [_P, _L, _L, _U, _P, _L, _P, _I, _L, _P, _P, _P, _P],
     "sqt_shuffle_gsort": [_P, _P, _P, _P, _L, _L, _L, _I, _P, _P, _I, _I, _P, _L, _P],
+    "sqt_sepal_passes": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _P, _P],
+    "sqt_sepal_resident": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P],
+    "sqt_device_info": [_P],
     "sqt_sepal_steps": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P,
                         _P, _P, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
@@ -188,6 +195,14 @@ def library() -> ctypes.CDLL:
                 build_log = _compile(sources, so)
             _lib = _load(so)
     return _lib
+
+
+def device_info() -> tuple[int, int]:
+    """The current card's opt-in shared memory a block, in bytes, and its
+    SMs: what the routes chosen by shape weigh a launch against."""
+    out = (ctypes.c_int * 2)()
+    check(library().sqt_device_info(ctypes.addressof(out)), "device_info")
+    return int(out[0]), int(out[1])
 
 
 def check(code: int, kernel: str) -> None:

@@ -169,7 +169,8 @@ def _permuted_counts(
     tail chunk is padded with repeated keys, as in the JAX package, and its
     extra counts are dropped.
     """
-    layout = group_layout(lib_codes) if lib_codes is not None else None
+    with record_function("nhood_enrichment.group_layout"):
+        layout = group_layout(lib_codes) if lib_codes is not None else None
     use_cipher = layout is None and labels_dev.shape[0] >= MIN_CIPHER_N
     class_counts = np.bincount(int_clust, minlength=n_cls)
     keys = spawn_keys(seed, n_perms)
@@ -187,8 +188,10 @@ def _permuted_counts(
             cols = cipher_label_columns(kc, class_counts, out_dtype=payload)
         else:
             cols = permutation_columns(kc, labels_dev, payload_dtype=payload)
-        counts_c = permuted_pair_counts_cols(graph.indices, graph.mask, cols, n_cls)
-        parts.append(to_host(counts_c, np.float64)[:n_real])
+        with record_function("nhood_enrichment.pair_counts"):
+            counts_c = permuted_pair_counts_cols(graph.indices, graph.mask, cols, n_cls)
+        with record_function("nhood_enrichment.to_host"):
+            parts.append(to_host(counts_c, np.float64)[:n_real])
     return np.concatenate(parts, axis=0)
 
 

@@ -668,6 +668,20 @@ def test_emulated_grouped_matches_plain_and_jax(grouping, emulated):
     np.testing.assert_array_equal(got.T.numpy(), np.asarray(jax_cols))
 
 
+@pytest.mark.parametrize("grouping", ["one group", "two unequal", "seven with a single cell", "fifty unequal"])
+def test_emulated_grouped_int32_matches_plain_and_jax(grouping, emulated):
+    """int32 values (gathered at the sorted positions, not packed in the
+    keys) bitwise the plain version and the JAX package's columns."""
+    groups = _groups(_GROUPINGS[grouping], seed=12, nan=3)
+    n = len(groups)
+    values = torch.from_numpy(np.random.default_rng(13).integers(0, 2**31 - 1, n).astype(np.int32))
+    keys = trng.spawn_keys(n % 17, 5)
+    got, want = _grouped_both(keys, values, groups)
+    assert torch.equal(got, want) and not emulated.packed
+    jax_cols = jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values.numpy()), groups)
+    np.testing.assert_array_equal(got.T.numpy(), np.asarray(jax_cols))
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.uint8])
 def test_emulated_grouped_gathered_payloads(dtype, emulated, monkeypatch):
     """Payloads gathered at the sorted positions (4 and 8 bytes, and uint8
@@ -709,6 +723,31 @@ def test_emulated_grouped_chunks(emulated, monkeypatch):
     monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 3)
     got, want = _grouped_both(keys, values, groups)
     assert torch.equal(got, want) and emulated.calls.count("ghist") == 3
+
+
+def test_emulated_grouped_chunks_reuse_the_device_layout(emulated, monkeypatch):
+    """A layout's device order and tile table are made once and reused by
+    every chunk and every later call with that layout (``nhood_enrichment``
+    passes one layout for all its chunks)."""
+    groups = _groups([1500, 900, 600], seed=18, nan=2)
+    values = torch.from_numpy(np.random.default_rng(18).integers(0, 9, len(groups)).astype(np.uint8))
+    keys = trng.spawn_keys(18, 7)
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 3)
+    made = []
+    tiles = trng._group_tiles
+    monkeypatch.setattr(trng, "_group_tiles", lambda starts: made.append(1) or tiles(starts))
+    lay = trng.group_layout(groups)
+    vsorted = values[torch.from_numpy(lay.order)].contiguous()
+    outs = [torch.full((7, len(groups)), 7, dtype=torch.uint8) for _ in range(3)]
+    for out in outs[:2]:
+        trng._shuffle_grouped(keys, lay, vsorted, out, _CARD)
+    assert made == [1] and emulated.calls.count("ghist") == 6
+    assert {k[0] for k in lay.cache} == {"order", "tiles"}
+    cached = dict(lay.cache)
+    trng._shuffle_grouped(keys, trng.group_layout(groups), vsorted, outs[2], _CARD)
+    assert made == [1, 1] and all(lay.cache[k] is v for k, v in cached.items())
+    want = trng._shuffle_grouped_plain(keys, lay, vsorted, torch.empty_like(outs[0]))
+    assert all(torch.equal(out, want) for out in outs)
 
 
 @pytest.mark.parametrize("sizes", [[1], [2048], [2049], [4096, 1], [10_000, 3, 8193, 1], [1] * 40])

@@ -163,16 +163,17 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    unflipped, and with more keys than the grid's rows; on part f's own
    inputs: K10g on f1's first 500-permutation chunk (the sort path, K10's
    words + one ``torch.sort`` of the (section, word) keys + the gathers, as
-   its yardstick, held bitwise too), its ``[diag] grouped`` line (steps,
-   segments, tiles, buckets, the device layout alone, the fused write at
-   the original rows against a separate gather), then int32 values with a
-   one-cell and a NaN library, tied words, the capacity lowered and every
-   word equal (the overflow path); K11 on the route each shape
+   its yardstick, held bitwise too), its ``[diag] grouped`` line (the
+   route, the keys of one launch set, the scatter and the sort, segments,
+   tiles, bucket starts, coarse buckets, the device layout alone,
+   the fused write at the original rows against a separate gather, the
+   bound and the design's floor), then int32 and int64 values with a
+   one-cell and a NaN library, tied words, 500 sections of 2,000 cells,
+   one section of 1M, 3M and 7M cells (each route asserted), the capacity
+   lowered on both routes and every word equal (the overflow sort); K11 on the route each shape
    selects (asserted): f2's first 64 genes for the 300-step budget (the
    steps and the state after it) and f3's 316 x 316 x 256 (streaming), f3's
-   Visium section (resident), each with a ``[diag] sepal`` line that times
-   the earlier four-kernel design (``csrc/sepal_split.cu``) in turns with
-   the current one.
+   Visium section (resident), each with a ``[diag] sepal`` line.
    Integer kernels
    (K1-K4, K7, K9, K10), K11 (its steps and state), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
@@ -2710,6 +2711,14 @@ def _grouped_bound(rows: int, n: int, out_bytes: int, payload_bytes: int) -> tup
     return _bound(float(rows) * n * out_bytes + n * (payload_bytes + 4) + 8.0 * rows, WORD_OPS * rows * n)
 
 
+def _grouped_floor(rows: int, n: int, key_bytes: int, out_bytes: int, n_starts: int) -> tuple[float, str]:
+    # K10g's own floor: one word an item (the scatter), each key written
+    # once and read once, the output written once, the bucket starts
+    # written once and read once
+    nbytes = float(rows) * (n * (2.0 * key_bytes + out_bytes) + 8.0 * n_starts)
+    return _bound(nbytes, WORD_OPS * rows * n)
+
+
 def _library_grouped(keys, lay, vsorted):
     """The sort path of the grouped shuffle: K10's word entry, one
     ``torch.sort(stable=True)`` of the int64 keys (segment << 32) | word, the
@@ -2729,13 +2738,14 @@ def _library_grouped(keys, lay, vsorted):
 
 
 def check_grouped(name: str, keys, values, groups, library: bool = False, plain_warm: bool = True,
-                  mask: int | None = None) -> dict:
-    """K10's grouped entry (``_core/rng.py`` ``_shuffle_grouped``, chunked as
+                  mask: int | None = None, route: str | None = None) -> dict:
+    """K10g (``_core/rng.py`` ``_shuffle_grouped``, chunked as
     ``shuffle_group_columns`` chunks) against its plain version on the card,
     bitwise; with ``library`` the sort path as the yardstick, held bitwise
     too. Each timed call starts from a fresh layout cache, so it pays the
     device layout (the order's upload and the tile table) as a call with a
-    single chunk does."""
+    single chunk does. ``route`` (``packed`` or ``gathered``), when given, is
+    asserted."""
     import torch
 
     from squidpy_torch._core import rng
@@ -2744,6 +2754,10 @@ def check_grouped(name: str, keys, values, groups, library: bool = False, plain_
     lay = rng.group_layout(groups)
     vsorted = values[torch.from_numpy(lay.order).to(cuda)].contiguous()
     n = len(groups)
+    if route is not None:
+        taken = "packed" if rng._packed_route(vsorted, rng._grouped_device(lay, cuda)) else "gathered"
+        if taken != route:
+            raise AssertionError(f"{name}: K10g takes the {taken} route, not {route}")
     out_k = torch.empty((len(keys), n), dtype=values.dtype, device=cuda)
     out_p = torch.empty_like(out_k)
     m = rng._FULL_MASK if mask is None else mask
@@ -2758,12 +2772,15 @@ def check_grouped(name: str, keys, values, groups, library: bool = False, plain_
 
 
 def grouped_split(keys, values, groups) -> None:
-    """``[diag] grouped``: one chunk of K10's grouped entry (the chunk the
-    card's memory allows) with each step timed by CUDA events, its
-    segments, tiles, buckets, largest bucket and overflowing buckets; the
-    device layout alone (the order's upload and the tile table, made once a
-    call); and the sort's fused write at the original rows against a write
-    at the group-sorted slots followed by a separate gather."""
+    """``[diag] grouped``: one chunk of K10g (the chunk the card's memory
+    allows, asserted to hold all 500 keys: one launch set) with each step
+    timed by CUDA events (the scatter, the sort, and the overflow sort if a
+    bucket needed it), its route, segments, tiles, bucket starts a row,
+    coarse buckets, largest bucket and overflowing buckets; the device layout
+    alone (the order's upload and the tile table, made once a call); the
+    sort's fused write at the original rows against a write at the
+    group-sorted slots followed by a separate gather; the bound and this
+    design's floor."""
     import torch
 
     from squidpy_torch._core import rng
@@ -2772,10 +2789,13 @@ def grouped_split(keys, values, groups) -> None:
     lay = rng.group_layout(groups)
     vsorted = values[torch.from_numpy(lay.order).to(cuda)].contiguous()
     n = len(groups)
-    step = rng._keys_per_chunk(n, cuda)
-    chunk = np.ascontiguousarray(np.asarray(keys, np.uint32)[:step])
     _, layout_ms = _time_ms(lambda: rng._grouped_device(lay._replace(cache={}), cuda), 3)
     dev = rng._grouped_device(lay, cuda)
+    packed = rng._packed_route(vsorted, dev)
+    step = rng._keys_per_chunk(n, cuda, rng._grouped_bytes(n, dev, packed, values.element_size()))
+    if step < len(keys):
+        raise AssertionError(f"K10g: a chunk of {step} keys, fewer than the {len(keys)} of nhood_enrichment's chunk")
+    chunk = np.ascontiguousarray(np.asarray(keys, np.uint32))
     out = torch.empty((len(chunk), n), dtype=values.dtype, device=cuda)
     sorted_slots = torch.empty_like(out)
     order = torch.from_numpy(lay.order).to(cuda)
@@ -2793,24 +2813,32 @@ def grouped_split(keys, values, groups) -> None:
 
     got, apart_ms = _time_ms(apart, 3)
     if not torch.equal(got, out):
-        raise AssertionError("K10 grouped: the fused write and the separate gather differ")
-    steps = " ".join(f"{k}={stats[k][0]:.3f}" for k in ("hist_ms", "scan_ms", "scatter_ms", "sort_ms"))
+        raise AssertionError("K10g: the fused write and the separate gather differ")
+    steps = " ".join(f"{k}={stats[k][0]:.3f}" for k in ("scatter_ms", "sort_ms", "overflow_ms") if k in stats)
     bound = _grouped_bound(len(chunk), n, 1, 1)
-    print(f"[diag] grouped n={n} keys={len(chunk)} (a chunk) segments={len(lay.starts) - 1} tiles={dev.tiles.shape[0]} "
-          f"buckets={stats['buckets']} largest_bucket={stats['largest_bucket'][0]} overflow={stats['overflow'][0]} "
-          f"{steps} fused_ms={fused_ms:.3f} (each slot written at its original row) "
-          f"apart_ms={apart_ms:.3f} (group-sorted slots, then a gather) layout_ms={layout_ms:.3f} (the device "
-          f"layout, once a call); bound_ms={bound[0]:.4f} ({bound[1]})", flush=True)
+    floor = _grouped_floor(len(chunk), n, 4 if packed else 8, 1, dev.n_starts)
+    print(f"[diag] grouped n={n} keys={len(chunk)} (one launch set; a chunk holds up to {step}) route="
+          f"{'packed (4-byte keys)' if packed else 'gathered (8-byte keys)'} segments={len(lay.starts) - 1} "
+          f"tiles={dev.tiles.shape[0]} bucket_starts={dev.n_starts} (a row) coarse_buckets={stats['buckets']} "
+          f"largest_bucket={stats['largest_bucket'][0]} overflow={stats['overflow'][0]} {steps} "
+          f"fused_ms={fused_ms:.3f} (each slot written at its original row) apart_ms={apart_ms:.3f} (group-sorted "
+          f"slots, then a gather) layout_ms={layout_ms:.3f} (the device layout, once a call); "
+          f"bound_ms={bound[0]:.4f} ({bound[1]}: one word an item) design_floor_ms={floor[0]:.4f} ({floor[1]}: one "
+          f"word, the keys and bucket starts written and read once)", flush=True)
     if stats["overflow"][0]:
-        raise AssertionError("K10 grouped: a bucket of part f1's chunk overflowed")
+        raise AssertionError("K10g: a bucket of part f1's chunk overflowed")
 
 
 def grouped_kernel_checks(study: StandIn) -> list[dict]:
-    """K10's grouped entry on part f1's own inputs: the first 500-permutation
-    chunk of ``nhood_enrichment``'s keys over the study's labels (uint8) and
+    """K10g on part f1's own inputs: the first 500-permutation chunk of
+    ``nhood_enrichment``'s keys over the study's labels (uint8) and
     libraries, with the sort path as the yardstick, and its ``[diag]`` line;
-    then int32 values, a one-cell library and a NaN library, tied words,
-    every word equal, and the capacity lowered (the overflow path)."""
+    then int32 and int64 values (the gathered route) with a one-cell and a
+    NaN library, tied words (ties across tiles of a section), 500 sections
+    of 2,000 cells (256 fine buckets a coarse one), one section of 1M cells
+    (9 fine bits: tiles of two sub-tiles), of 3M (11 fine bits, the packed
+    route's last) and of 7M (12: uint8 gathered), every word equal, and the
+    capacity lowered (the overflow sort, on both routes)."""
     import torch
 
     from squidpy_torch._core import rng
@@ -2820,7 +2848,7 @@ def grouped_kernel_checks(study: StandIn) -> list[dict]:
     labels = torch.from_numpy(codes).cuda().to(torch.uint8)
     keys = rng.spawn_keys(0, N_PERMS)[:GROUPED_CHECK_KEYS]
     out = [check_grouped(f"threefry_grouped part f1 ({GROUPED_CHECK_KEYS} keys x {len(codes)}, {SECTIONS} sections, "
-                         f"uint8 labels)", keys, labels, libs, library=True, plain_warm=False)]
+                         f"uint8 labels)", keys, labels, libs, library=True, plain_warm=False, route="packed")]
     grouped_split(keys, labels, libs)
     g = np.random.default_rng(33)
     odd = g.integers(0, 5, 150_000).astype(np.int32)
@@ -2828,14 +2856,26 @@ def grouped_kernel_checks(study: StandIn) -> list[dict]:
     odd[7] = 9  # a library of one cell
     vals = torch.from_numpy(g.integers(0, 2**31 - 1, 150_000).astype(np.int32)).cuda()
     out.append(check_grouped("threefry_grouped int32 values, a one-cell and a NaN library", rng.spawn_keys(1, 64),
-                             vals, odd))
+                             vals, odd, route="gathered"))
+    out.append(check_grouped("threefry_grouped int64 values", rng.spawn_keys(5, 16), vals[:100_000].to(torch.int64),
+                             odd[:100_000], route="gathered"))
     out.append(check_grouped("threefry_grouped tied words (mask 0xFFF00000)", rng.spawn_keys(4, 16),
-                             labels[:200_000], libs[:200_000], mask=0xFFF00000))
+                             labels[:200_000], libs[:200_000], mask=0xFFF00000, route="packed"))
+    many = np.repeat(np.arange(500), 2000).astype(np.int32)
+    g.shuffle(many)
+    out.append(check_grouped("threefry_grouped 500 sections of 2,000 cells", rng.spawn_keys(6, 64), labels, many,
+                             route="packed"))
+    whole = labels.repeat(7)
+    for cells, route in ((1_000_000, "packed"), (3_000_000, "packed"), (7_000_000, "gathered")):
+        out.append(check_grouped(f"threefry_grouped one section of {cells} cells", rng.spawn_keys(cells, 8),
+                                 whole[:cells], np.zeros(cells, np.int8), route=route))
     old = rng._SORT_CAP
     try:
         rng._SORT_CAP = 64
-        out.append(check_grouped("threefry_grouped capacity lowered to 64 (the overflow path)", rng.spawn_keys(2, 16),
-                                 labels[:200_000], libs[:200_000]))
+        out.append(check_grouped("threefry_grouped capacity lowered to 64 (the overflow sort)", rng.spawn_keys(2, 16),
+                                 labels[:200_000], libs[:200_000], route="packed"))
+        out.append(check_grouped("threefry_grouped capacity lowered to 64, int32 values (the overflow sort)",
+                                 rng.spawn_keys(7, 8), vals, odd, route="gathered"))
     finally:
         rng._SORT_CAP = old
     lay = rng.group_layout(libs[:300_000])
@@ -2844,8 +2884,9 @@ def grouped_kernel_checks(study: StandIn) -> list[dict]:
     rng._shuffle_grouped(rng.spawn_keys(3, 8), lay, vs, got, torch.device("cuda"), mask=0)
     want = rng._shuffle_grouped_plain(rng.spawn_keys(3, 8), lay, vs, torch.empty_like(got), mask=0)
     if not torch.equal(got, want):
-        raise AssertionError("K10 grouped: every word equal differs from the plain version")
-    print("[kernel] threefry_grouped every word equal (one bucket a section, bitonic): max_abs_err=0.0", flush=True)
+        raise AssertionError("K10g: every word equal differs from the plain version")
+    print("[kernel] threefry_grouped every word equal (one bucket a section, the overflow sort): max_abs_err=0.0",
+          flush=True)
     return out
 
 
@@ -3018,51 +3059,12 @@ def _sepal_resident_bound(n: int, k: int, n_sat: int, n_unsat: int, n_genes: int
     return _bound(8.0 * n * n_genes, ((k + 4) * n + 24.0 * n_sat) * steps), 1e3 * t_smem, clock
 
 
-def _diffusion_split(conc0, tables, hexa: bool, n_iter: int, dt: float, thresh: float):
-    """K11's earlier design (``csrc/sepal_split.cu``: four kernels a step,
-    64 steps a call), timed beside the current routes; launches uncounted.
-    Its hex update multiplies by f32(1/3), then by dt, on every node."""
-    import torch
-
-    from squidpy_torch import _cuda
-    from squidpy_torch.ops.sepal import _constants, _next_pow2
-
-    sat, sat_idx, unsat, pos = tables
-    n_genes = conc0.shape[1]
-    n_sat, k = sat_idx.shape
-    dt_, thresh_, recip3, recip_sat, eps = _constants(torch.float32, n_sat, dt, thresh)
-    bufs = (conc0.clone(), torch.empty_like(conc0))
-    span = max(32, _next_pow2(-(-n_sat // 256)))
-    part_x = torch.empty((span, n_genes), dtype=torch.float32, device=conc0.device)
-    part_h = torch.empty_like(part_x)
-    total = torch.empty(n_genes, dtype=torch.float32, device=conc0.device)
-    active = torch.ones(n_genes, dtype=torch.uint8, device=conc0.device)
-    prev = torch.ones(n_genes, dtype=torch.float32, device=conc0.device)
-    done = torch.full((n_genes,), float("nan"), dtype=torch.float32, device=conc0.device)
-    lib = _cuda.library()
-    i = 0
-    while i < n_iter:
-        steps = min(64, n_iter - i)
-        _cuda.check(lib.sqt_sepal_steps(bufs[0].data_ptr(), bufs[1].data_ptr(), n_genes, n_genes, sat.data_ptr(),
-                                        sat_idx.data_ptr(), n_sat, k, unsat.data_ptr(), pos.data_ptr(),
-                                        unsat.shape[0], int(hexa), dt_, recip3, recip_sat, eps, thresh_, i, steps,
-                                        span, part_x.data_ptr(), part_h.data_ptr(), total.data_ptr(),
-                                        active.data_ptr(), prev.data_ptr(), done.data_ptr(), _cuda.stream_ptr()),
-                    "sepal_split")
-        i += steps
-        if not bool(active.any()):
-            break
-    return torch.cat([done[None, :], bufs[i % 2]])
-
-
 def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter: int, thresh: float,
                 route: str, plain_warm: bool = False) -> dict:
     """K11 against its plain version on the card on ``adata``'s genes, by
     the convergence steps and the state after the run (one tensor: the steps
     in row 0), bitwise, on the route the shape selects (asserted to be
-    ``route``); the earlier four-kernel design timed beside it, in turns
-    (``split_ms``; held bitwise too on the square lattice, where its
-    arithmetic is the current one)."""
+    ``route``)."""
     import torch
     from scipy import sparse as sp
 
@@ -3090,9 +3092,6 @@ def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter
         done, state = _diffusion_plain(conc, *tables, hexa, n_iter, SEPAL_DT, thresh)
         return torch.cat([done[None, :], state])
 
-    def split():
-        return _diffusion_split(conc, tables, hexa, n_iter, SEPAL_DT, thresh)
-
     done = kernel()[0].cpu().numpy()
     smem_note = ""
     if route == "resident":
@@ -3101,13 +3100,6 @@ def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter
                      f"{clock / 1e6:.0f} MHz, nvidia-smi clocks.max.sm);")
     else:
         bound = _sepal_bound(g.shape[0], k, len(sat), done, n_iter)
-    times = {"new": [], "split": []}
-    for which in ("new", "split", "new", "split"):  # in turns
-        out, ms = _time_ms(kernel if which == "new" else split, 1)
-        times[which].append(ms)
-        if which == "split" and not hexa and not torch.equal(torch.nan_to_num(out, nan=-1.0),
-                                                            torch.nan_to_num(kernel(), nan=-1.0)):
-            raise AssertionError(f"{name}: the earlier design and the current one differ on a square lattice")
     other = ""
     if route == "resident":  # the streaming route on the same shape, forced, for the choice's record
         from squidpy_torch.ops import sepal as ops_sepal
@@ -3124,12 +3116,9 @@ def check_sepal(name: str, adata: StandIn, hexa: bool, genes: np.ndarray, n_iter
     layout = f"{genes_a_block} genes a block" if genes_a_block else "64 genes x 256 rows a block, one pass a step"
     print(f"[diag] sepal {name}: route={route} ({layout}), steps run "
           f"{int(np.where(np.isnan(done), n_iter, done + 1).max())}, genes converged {int(np.isfinite(done).sum())} "
-          f"of {len(done)}, nodes {g.shape[0]} ({len(sat)} saturated); new_ms="
-          + "/".join(f"{t:.3f}" for t in times["new"]) + " split_ms=" + "/".join(f"{t:.3f}" for t in times["split"])
-          + f" (four kernels a step, in turns);{other}{smem_note} bound_ms={bound[0]:.4f} ({bound[1]})", flush=True)
-    res = _compare(name, kernel, plain, 2, bound, plain_warm=plain_warm)
-    res["split_ms"] = float(np.mean(times["split"]))
-    return res
+          f"of {len(done)}, nodes {g.shape[0]} ({len(sat)} saturated);{other}{smem_note} "
+          f"bound_ms={bound[0]:.4f} ({bound[1]})", flush=True)
+    return _compare(name, kernel, plain, 2, bound, plain_warm=plain_warm)
 
 
 def sepal_kernel_checks(data: dict) -> dict[str, list[dict]]:

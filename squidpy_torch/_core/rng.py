@@ -184,16 +184,17 @@ def random_bits_device(keys: np.ndarray, n: int, device: torch.device, *, sort_k
 _BYTES_PER_VALUE = 24
 
 
-def _keys_per_chunk(n: int, device: torch.device) -> int:
-    """Keys a chunk of :func:`permutation_batch`: K10's scratch and outputs
-    take :data:`_BYTES_PER_VALUE` bytes a value; a quarter of the card's free
+def _keys_per_chunk(n: int, device: torch.device, bytes_per_value: int = _BYTES_PER_VALUE) -> int:
+    """Keys a chunk of :func:`permutation_batch` (or, with its own
+    ``bytes_per_value``, of K10g): K10's scratch and outputs take
+    :data:`_BYTES_PER_VALUE` bytes a value; a quarter of the card's free
     memory (at most 8 GiB), or 512 MiB on the CPU. The chunking never
     changes a result."""
     if device.type == "cuda":
         budget = min(torch.cuda.mem_get_info(device)[0] // 4, 8 << 30)
     else:
         budget = 512 << 20
-    return max(1, int(budget // (_BYTES_PER_VALUE * max(n, 1))))
+    return max(1, int(budget // (bytes_per_value * max(n, 1))))
 
 
 def _rounds(n: int) -> int:
@@ -416,11 +417,27 @@ class GroupLayout(NamedTuple):
     cache: dict
 
 
+def _narrowest_codes(groups: np.ndarray) -> np.ndarray:
+    """Integer codes cast to the narrowest signed type that holds their range
+    (int8, int16, else int32; wider codes as they are): numpy's stable
+    argsort takes its radix path for 8- and 16-bit integers, and the same
+    values sort into the same stable order at any width."""
+    if not np.issubdtype(groups.dtype, np.integer) or not len(groups):
+        return groups
+    lo, hi = int(groups.min()), int(groups.max())
+    for dtype in (np.int8, np.int16, np.int32):
+        info = np.iinfo(dtype)
+        if info.min <= lo and hi <= info.max:
+            return groups.astype(dtype, copy=False)
+    return groups
+
+
 def group_layout(groups: np.ndarray) -> GroupLayout:
     """The :class:`GroupLayout` of ``groups`` (integer codes), as the JAX
-    package orders them: a stable argsort, the codes compared as int32."""
+    package orders them: a stable argsort, the codes compared as int32
+    (sorted at the narrowest width that holds them, the same order)."""
     groups = np.asarray(groups)
-    order = np.argsort(groups, kind="stable")
+    order = np.argsort(_narrowest_codes(groups), kind="stable")
     sorted_codes = groups[order].astype(np.int32)
     if np.any(sorted_codes[1:] < sorted_codes[:-1]):
         raise ValueError("Group codes must fit in int32.")
@@ -428,38 +445,71 @@ def group_layout(groups: np.ndarray) -> GroupLayout:
     return GroupLayout(order=order, starts=np.append(starts, len(groups)).astype(np.int64), cache={})
 
 
-_TILE = 4096  # items a block of K10's histogram and scatter (csrc/threefry.cu kTile)
+_TILE = 4096  # items a sub-tile of K10g's scatter (csrc/threefry.cu kTile)
+_MIN_FINE_BITS = 8  # a segment's fine buckets: at least 2^8, so a 32-bit key has 8 free bits
+_PACKED_MAX_BITS = 11  # the packed route's fine bits, at most (csrc/threefry.cu kPackedMaxBits)
+_GROUP_BUCKET_MEAN = 3072  # items a coarse bucket of K10g on average, at most: far below its 4096-key sort
+_TILES_MAX = 256  # tiles a segment, at most (csrc/threefry.cu kTilesMax)
+_BOUNDS_MAX = 768  # a coarse bucket's (fine buckets + 1) x tiles, at most (csrc/threefry.cu kBoundsMax)
 
 
 class _GroupedDevice(NamedTuple):
-    """K10's grouped layout on the card: ``tiles`` (n_tiles, 3) int32, each
-    block's (segment, first position, count <= 4096); ``segs`` (S, 2) int32,
-    each segment's first bucket and bucket bits; ``order`` (n,) int32; the
-    row's buckets ``nb`` and the largest bits ``max_bits``."""
+    """K10g's layout on the card (:func:`_group_tiles`): ``tiles`` (n_tiles,
+    4), ``segs`` (S, 4) and ``coarse`` (nbc, 2) int32; ``order`` (n,)
+    int32; a row's bucket starts ``n_starts`` and the largest fine bits
+    ``max_bits``."""
 
     tiles: torch.Tensor
     segs: torch.Tensor
+    coarse: torch.Tensor
     order: torch.Tensor
-    nb: int
+    n_starts: int
     max_bits: int
 
 
-def _group_tiles(starts: np.ndarray) -> tuple[np.ndarray, np.ndarray, int, int]:
-    """K10's grouped host layout from the segment bounds: ``(tiles, segs, nb,
-    max_bits)``. A segment of L items gets :func:`_bucket_bits` (L) bits, its
-    buckets follow the previous segment's, and its items are cut into tiles
-    of at most 4096."""
+def _coarse_bits(n: int) -> int:
+    """K10g's coarse bits of a segment of n items: the fewest (at most
+    :data:`_MAX_BITS`) that leave a bucket at most :data:`_GROUP_BUCKET_MEAN`
+    items on average."""
+    bits = 0
+    while (_GROUP_BUCKET_MEAN << bits) < n and bits < _MAX_BITS:
+        bits += 1
+    return bits
+
+
+def _group_tiles(starts: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """K10g's host layout from the segment bounds: ``(tiles, segs, coarse,
+    n_starts, max_bits)``. A segment of L items has :func:`_coarse_bits` (L)
+    coarse bits ``nat`` (a block of the sort each coarse bucket) and ``fb =
+    max(nat, 8)`` fine bits (the buckets of the scatter); its items are cut
+    into tiles of ``4096 << (fb - 8)`` (more, in sub-tiles of 4096, where
+    that leaves more than 256 tiles), so a row holds about one bucket start
+    a 16 items. ``tiles`` (n_tiles, 4): segment, first position, count, the
+    tile's first bucket start in a row (2^fb + 1 a tile); ``segs`` (S, 4):
+    first tile, tiles, ``fb``, ``nat``; ``coarse`` (nbc, 2): segment, coarse
+    bucket of it."""
     lengths = np.diff(starts)
-    bits = np.array([_bucket_bits(int(length)) for length in lengths], dtype=np.int64)
-    widths = np.left_shift(1, bits)
-    base = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(np.int64)
-    per_seg = -(-lengths // _TILE)
+    nat = np.array([_coarse_bits(int(length)) for length in lengths], dtype=np.int64)
+    fb = np.maximum(nat, _MIN_FINE_BITS)
+    tile = np.maximum(np.left_shift(_TILE, fb - _MIN_FINE_BITS), -(-lengths // (_TILES_MAX * _TILE)) * _TILE)
+    per_seg = -(-lengths // tile)
     seg = np.repeat(np.arange(len(lengths)), per_seg)
     within = np.arange(len(seg)) - np.repeat(np.cumsum(per_seg) - per_seg, per_seg)
-    first = starts[seg] + _TILE * within
-    count = np.minimum(_TILE, starts[seg + 1] - first)
-    tiles = np.stack([seg, first, count], axis=1).astype(np.int32)
-    return tiles, np.stack([base, bits], axis=1).astype(np.int32), int(widths.sum()), int(bits.max(initial=0))
+    first = starts[seg] + tile[seg] * within
+    count = np.minimum(tile[seg], starts[seg + 1] - first)
+    width = np.left_shift(1, fb[seg]) + 1
+    sbase = np.cumsum(width) - width
+    if width.sum() >= 2**31 - 1:
+        raise ValueError(f"K10g keeps {int(width.sum())} bucket starts a row: more than int32 holds.")
+    if np.any(per_seg * (np.left_shift(1, fb - nat) + 1) > _BOUNDS_MAX):
+        raise ValueError("K10g: a coarse bucket's tiles and fine buckets overflow the sort's shared bounds.")
+    tiles = np.stack([seg, first, count, sbase], axis=1).astype(np.int32)
+    segs = np.stack([np.cumsum(per_seg) - per_seg, per_seg, fb, nat], axis=1).astype(np.int32)
+    widths = np.left_shift(1, nat)
+    coarse_seg = np.repeat(np.arange(len(lengths)), widths)
+    coarse = np.stack([coarse_seg, np.arange(len(coarse_seg)) - np.repeat(np.cumsum(widths) - widths, widths)],
+                      axis=1).astype(np.int32)
+    return tiles, segs, coarse, int(width.sum()), int(fb.max(initial=_MIN_FINE_BITS))
 
 
 def _cached(layout: GroupLayout, key: tuple, make):
@@ -469,21 +519,32 @@ def _cached(layout: GroupLayout, key: tuple, make):
     return layout.cache[key]
 
 
-def _device_order(layout: GroupLayout, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The group-sorted order on ``device``, int64 (to gather with) and int32
-    (for the kernels), made once a layout."""
-    def make():
-        order = torch.from_numpy(layout.order).to(device)
-        return order, order.to(torch.int32)
-    return _cached(layout, ("order", str(device)), make)
+def _device_order(layout: GroupLayout, device: torch.device) -> torch.Tensor:
+    """The group-sorted order on ``device`` as int32 (the kernels' type; it
+    indexes as well), narrowed there, made once a layout."""
+    return _cached(layout, ("order", str(device)), lambda: torch.from_numpy(layout.order).to(device).to(torch.int32))
 
 
 def _grouped_device(layout: GroupLayout, device: torch.device) -> _GroupedDevice:
     def make():
-        tiles, segs, nb, max_bits = _group_tiles(layout.starts)
-        return _GroupedDevice(torch.from_numpy(tiles).to(device), torch.from_numpy(segs).to(device),
-                              _device_order(layout, device)[1], nb, max_bits)
+        tiles, segs, coarse, n_starts, max_bits = _group_tiles(layout.starts)
+        return _GroupedDevice(*(torch.from_numpy(a).to(device) for a in (tiles, segs, coarse)),
+                              _device_order(layout, device), n_starts, max_bits)
     return _cached(layout, ("tiles", str(device)), make)
+
+
+def _packed_route(vsorted: torch.Tensor, dev: _GroupedDevice) -> bool:
+    """K10g's route: uint8 values ride in 32-bit keys below 2^24 items when
+    every segment's fine bits are at most 11 (segments up to 2^22 items);
+    other payloads (int32, int64, uint8 past those limits) are gathered at
+    the positions that 64-bit keys carry."""
+    return vsorted.element_size() == 1 and vsorted.shape[0] < _PACKED_MAX_N and dev.max_bits <= _PACKED_MAX_BITS
+
+
+def _grouped_bytes(n: int, dev: _GroupedDevice, packed: bool, out_bytes: int) -> int:
+    """Bytes a shuffled value takes on the card in K10g: its key (4 or 8),
+    its output, and its share of the row's bucket starts."""
+    return (4 if packed else 8) + out_bytes + -(-4 * dev.n_starts // max(n, 1))
 
 
 def _shuffle_grouped_plain(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tensor, out: torch.Tensor,
@@ -505,31 +566,48 @@ def _shuffle_grouped_plain(keys: np.ndarray, layout: GroupLayout, vsorted: torch
 
 def _shuffle_grouped_k10(keys: np.ndarray, dev: _GroupedDevice, vsorted: torch.Tensor, out: torch.Tensor, mask: int,
                          cap: int, stats: dict | None = None, fused: bool = True) -> None:
-    """K10's grouped entry into ``out`` ``(rows, ld >= n)``: the histogram,
-    scan, scatter and sort of one round over every segment's buckets (four
-    launches). A uint8 payload rides in the sort keys (below 2^24 items),
-    others are gathered; the sort writes each slot at its original row (or,
-    with ``fused`` off, at its group-sorted slot). ``stats`` as in
-    :func:`_shuffle_k10`."""
+    """K10g into ``out`` ``(rows, ld >= n)``: the scatter and the sort (two
+    launches), then one read of the sort's overflow count (the one wait a
+    chunk) and, for coarse buckets past ``cap``, the overflow sort (a
+    third). The route is :func:`_packed_route`'s; the sort writes each slot
+    at its original row (or, with ``fused`` off, at its group-sorted slot).
+    Given ``stats``, each step is timed by CUDA events, and the coarse
+    buckets a row, the largest and the overflowing ones are recorded."""
     rows, n, device = out.shape[0], vsorted.shape[0], out.device
-    nb, n_tiles = dev.nb, dev.tiles.shape[0]
-    hist = torch.empty((rows, nb), dtype=torch.int32, device=device)
-    offs = torch.empty((rows, nb + 1), dtype=torch.int32, device=device)
-    overflow = torch.empty(rows * nb, dtype=torch.int32, device=device)
-    st = torch.empty(2, dtype=torch.int32, device=device)
-    tmp = torch.empty((rows, n), dtype=torch.int64, device=device)
+    packed = _packed_route(vsorted, dev)
+    starts = torch.empty((rows, dev.n_starts), dtype=torch.int32, device=device)
+    overflow = torch.empty((rows * dev.coarse.shape[0], 2), dtype=torch.int64, device=device)
+    st = torch.empty(4, dtype=torch.int64, device=device)
+    tmp = torch.empty((rows, n), dtype=torch.int32 if packed else torch.int64, device=device)
     keys_t = torch.from_numpy(keys.view(np.int32)).to(device)
-    packed = vsorted.element_size() == 1 and n < _PACKED_MAX_N
-    layout = (dev.tiles.data_ptr(), n_tiles, dev.segs.data_ptr(), dev.max_bits, nb)
-    steps = (("hist", ("sqt_shuffle_ghist", keys_t.data_ptr(), rows, n, mask, *layout, hist.data_ptr(), st.data_ptr())),
-             ("scan", ("sqt_shuffle_gscan", rows, n, nb, cap, hist.data_ptr(), offs.data_ptr(), overflow.data_ptr(),
-                       st.data_ptr())),
-             ("scatter", ("sqt_shuffle_gscatter", keys_t.data_ptr(), rows, n, mask, *layout,
-                          vsorted.data_ptr() if packed else None, hist.data_ptr(), tmp.data_ptr())),
-             ("sort", ("sqt_shuffle_gsort", tmp.data_ptr(), offs.data_ptr(), overflow.data_ptr(), st.data_ptr(), rows,
-                       n, nb, cap, dev.order.data_ptr() if fused else None, vsorted.data_ptr(),
-                       vsorted.element_size(), int(packed), out.data_ptr(), out.stride(0))))
-    _run_round(steps, st, nb, stats, "threefry_grouped")
+    layout = (dev.tiles.data_ptr(), dev.tiles.shape[0], dev.segs.data_ptr(), dev.coarse.data_ptr(),
+              dev.coarse.shape[0], dev.n_starts, dev.max_bits)
+    epilogue = (dev.order.data_ptr() if fused else None, vsorted.data_ptr(), vsorted.element_size(), int(packed),
+                out.data_ptr(), out.stride(0))
+    steps = (("scatter", ("sqt_shuffle_gscatter", keys_t.data_ptr(), rows, n, mask, *layout,
+                          vsorted.data_ptr() if packed else None, starts.data_ptr(), tmp.data_ptr())),
+             ("sort", ("sqt_shuffle_gsort", tmp.data_ptr(), starts.data_ptr(), *layout, rows, n, cap, *epilogue,
+                       overflow.data_ptr(), st.data_ptr())))
+    events = [_event()] if stats is not None else None
+    for _, call in steps:
+        _launch(*call, kernel="threefry_grouped")
+        if events is not None:
+            events.append(_event())
+    n_over, largest, total, _ = st.tolist()  # waits for the chunk
+    if n_over:
+        scratch = torch.empty(total, dtype=torch.int64, device=device)
+        _launch("sqt_shuffle_goverflow", tmp.data_ptr(), starts.data_ptr(), *layout, rows, n, overflow.data_ptr(),
+                n_over, scratch.data_ptr(), *epilogue, kernel="threefry_grouped")
+    if stats is not None:
+        if n_over:
+            events.append(_event())
+        torch.cuda.synchronize(device)
+        stats.setdefault("overflow", []).append(n_over)
+        stats.setdefault("largest_bucket", []).append(largest)
+        stats["buckets"] = dev.coarse.shape[0]
+        names = [name for name, _ in steps] + (["overflow"] if n_over else [])
+        for name, a, b in zip(names, events, events[1:]):
+            stats.setdefault(f"{name}_ms", []).append(a.elapsed_time(b))
 
 
 def _shuffle_grouped(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tensor, out: torch.Tensor,
@@ -538,11 +616,12 @@ def _shuffle_grouped(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tenso
     """Each row of ``out`` ``(n_keys, ld >= n)``: ``vsorted`` (the values in
     group-sorted order) sorted within each segment by the words of its key,
     written at the original rows. K10's grouped entry on a CUDA device, keys
-    in chunks sized by the card's memory (``stats`` and ``fused`` as in
-    :func:`_shuffle_grouped_k10`); its plain version on the CPU. ``mask``
-    ands every word (ties, in tests)."""
+    in chunks sized by the card's memory and the route's bytes a value
+    (``stats`` and ``fused`` as in :func:`_shuffle_grouped_k10`); its plain
+    version on the CPU. ``mask`` ands every word (ties, in tests)."""
     n = vsorted.shape[0]
     dev = None
+    per_value = _BYTES_PER_VALUE
     if device.type == "cuda":
         if n >= 2**31 - 1:
             raise ValueError(f"K10 writes int32 positions: at most 2^31 - 2 items, found {n}.")
@@ -551,7 +630,8 @@ def _shuffle_grouped(keys: np.ndarray, layout: GroupLayout, vsorted: torch.Tenso
         _cuda.require(vsorted, "values", vsorted.dtype, (n,))
         _cuda.require(out, "out", vsorted.dtype)
         dev = _grouped_device(layout, out.device)
-    step = _keys_per_chunk(n, device)
+        per_value = _grouped_bytes(n, dev, _packed_route(vsorted, dev), out.element_size())
+    step = _keys_per_chunk(n, device, per_value)
     for c0 in range(0, keys.shape[0], step):
         if dev is None:
             _shuffle_grouped_plain(keys[c0 : c0 + step], layout, vsorted, out[c0 : c0 + step], mask)
@@ -587,7 +667,7 @@ def shuffle_group_columns(keys: np.ndarray, values: torch.Tensor, groups: np.nda
     out = torch.empty((keys.shape[0], n), dtype=values.dtype, device=device)
     if n and keys.shape[0]:
         with record_function("shuffle_group_columns.device_layout"):
-            order = _device_order(layout, device)[0]
+            order = _device_order(layout, device)
         with record_function("shuffle_group_columns.values_order"):
             vsorted = values[order].contiguous()
         with record_function("shuffle_group_columns.shuffle"):

@@ -13,7 +13,8 @@ it with :func:`reset_launches` and reads it afterwards to show which kernels
 the path went through. A kernel whose C interface has several entry points
 (``radius_pairs``: bounds, bin, scatter, the two passes, the order;
 ``threefry_shuffle``: the words, and a round's histogram, scan, scatter and
-sort; ``threefry_grouped``: the same four steps of its grouped entry;
+sort; ``threefry_grouped``: the scatter and the sort of its grouped entry
+(K10g), and its overflow sort where a bucket needs it;
 ``ligrec_perms``: its float and integral routes; ``sepal_diffusion``: a call
 of up to 64 streaming passes, one kernel each) counts each call into that
 interface, which may start more than one CUDA kernel. K11's two routes
@@ -105,16 +106,13 @@ _SIGNATURES = {
     "sqt_shuffle_scan": [_L, _L, _I, _I, _P, _P, _P, _P, _P],
     "sqt_shuffle_scatter": [_P, _L, _L, _U, _I, _P, _L, _P, _P, _P],
     "sqt_shuffle_sort": [_P, _P, _P, _P, _L, _L, _I, _I, _P, _L, _P, _I, _I, _P, _L, _P],
-    "sqt_shuffle_ghist": [_P, _L, _L, _U, _P, _L, _P, _I, _L, _P, _P, _P],
-    "sqt_shuffle_gscan": [_L, _L, _L, _I, _P, _P, _P, _P, _P],
-    "sqt_shuffle_gscatter": [_P, _L, _L, _U, _P, _L, _P, _I, _L, _P, _P, _P, _P],
-    "sqt_shuffle_gsort": [_P, _P, _P, _P, _L, _L, _L, _I, _P, _P, _I, _I, _P, _L, _P],
+    "sqt_shuffle_gscatter": [_P, _L, _L, _U, _P, _L, _P, _P, _L, _L, _I, _P, _P, _P, _P],
+    "sqt_shuffle_gsort": [_P, _P, _P, _L, _P, _P, _L, _L, _I, _L, _L, _I, _P, _P, _I, _I, _P, _L, _P, _P, _P],
+    "sqt_shuffle_goverflow": [_P, _P, _P, _L, _P, _P, _L, _L, _I, _L, _L, _P, _L, _P, _P, _P, _I, _I, _P, _L, _P],
     "sqt_sepal_passes": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P],
     "sqt_sepal_resident": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P],
     "sqt_device_info": [_P],
-    "sqt_sepal_steps": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P,
-                        _P, _P, _P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
 }

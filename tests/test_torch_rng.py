@@ -403,100 +403,157 @@ class _EmulatedK10:
         return 0
 
 
-    # --- the grouped entry: buckets (segment, top bits), tiles of one segment ---------
+    # --- K10g: coarse and fine buckets of a segment, tiles of one segment -----------------
 
-    def _grouped_layout(self, tiles, n_tiles, segs, max_bits, nb, n):
-        """The tile table and the segments read back, checked as the kernels
-        rely on them: tiles of at most 4096 positions, each inside one
-        segment, covering every position once in order; each segment's
-        buckets following the previous one's."""
-        t = _view(tiles, np.int32, 3 * n_tiles).reshape(n_tiles, 3)
+    def _glayout(self, tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, n):
+        """The layout read back, checked as the kernels rely on it: tiles of
+        one segment each, of 4096 << (fb - 8) positions (more where a
+        segment would have more than 256 tiles), covering every position
+        once in order; each segment's fine bits max(nat, 8), its tiles'
+        bucket starts after the previous tile's; every segment's coarse
+        buckets listed in order; the sort's shared arrays large enough."""
+        t = _view(tiles, np.int32, 4 * n_tiles).reshape(n_tiles, 4).astype(np.int64)
         n_seg = int(t[:, 0].max()) + 1
-        sg = _view(segs, np.int32, 2 * n_seg).reshape(n_seg, 2)
-        assert np.all(t[:, 2] >= 1) and np.all(t[:, 2] <= 4096)
+        sg = _view(segs, np.int32, 4 * n_seg).reshape(n_seg, 4).astype(np.int64)
+        cs = _view(coarse, np.int32, 2 * nbc).reshape(nbc, 2)
+        first_tile, per_seg, fb, nat = sg.T
+        assert np.all(fb == np.maximum(nat, 8)) and fb.max() == max_bits <= 13
         assert t[0, 1] == 0 and np.all(t[1:, 1] == t[:-1, 1] + t[:-1, 2]) and t[-1, 1] + t[-1, 2] == n
-        assert np.all(np.diff(t[:, 0]) >= 0) and np.all(np.diff(t[:, 0]) <= 1)
-        widths = np.left_shift(1, sg[:, 1].astype(np.int64))
-        assert sg[0, 0] == 0 and np.all(sg[1:, 0] == np.cumsum(widths)[:-1]) and widths.sum() == nb
-        assert sg[:, 1].max() == max_bits <= 13
-        seg_of = np.repeat(t[:, 0], t[:, 2])
-        return seg_of, sg[seg_of, 1].astype(np.int64), sg[seg_of, 0].astype(np.int64)
+        assert np.all(t[:, 2] >= 1) and np.all(np.diff(t[:, 0]) >= 0) and np.all(np.diff(t[:, 0]) <= 1)
+        np.testing.assert_array_equal(np.bincount(t[:, 0], minlength=n_seg), per_seg)
+        np.testing.assert_array_equal(first_tile, np.cumsum(per_seg) - per_seg)
+        width = np.left_shift(1, fb[t[:, 0]]) + 1
+        np.testing.assert_array_equal(t[:, 3], np.cumsum(width) - width)
+        assert width.sum() == n_starts and per_seg.max() <= 256
+        assert np.all(per_seg * (np.left_shift(1, fb - nat) + 1) <= 768)
+        widths = np.left_shift(1, nat)
+        np.testing.assert_array_equal(cs[:, 0], np.repeat(np.arange(n_seg), widths))
+        np.testing.assert_array_equal(cs[:, 1], np.arange(nbc) - np.repeat(np.cumsum(widths) - widths, widths))
+        return t, sg, cs
 
-    def sqt_shuffle_ghist(self, keys, rows, n, mask, tiles, n_tiles, segs, max_bits, nb, hist, stats, stream):
-        self.calls.append("ghist")
-        _, bits, base = self._grouped_layout(tiles, n_tiles, segs, max_bits, nb, n)
-        w = self._words(keys, rows, n, mask).astype(np.int64)
-        h = _view(hist, np.int32, rows * nb).reshape(rows, nb)
-        for r in range(rows):
-            h[r] = np.bincount(base + np.where(bits > 0, w[r] >> (32 - bits), 0), minlength=nb)
-        _view(stats, np.int32, 2)[:] = 0
-        return 0
-
-    def sqt_shuffle_gscan(self, rows, n, nb, cap, hist, offs, overflow, stats, stream):
-        self.calls.append("gscan")
-        h = _view(hist, np.int32, rows * nb).reshape(rows, nb)
-        o = _view(offs, np.int32, rows * (nb + 1)).reshape(rows, nb + 1)
-        assert np.all(h.sum(axis=1) == n)
-        o[:, 0] = 0
-        o[:, 1:] = np.cumsum(h, axis=1)
-        over = np.flatnonzero(h.ravel() > cap)
-        self.rng.shuffle(over)
-        _view(overflow, np.int32, rows * nb)[: len(over)] = over
-        _view(stats, np.int32, 2)[:] = len(over), h.max()
-        h[:] = o[:, :-1]
-        return 0
-
-    def sqt_shuffle_gscatter(self, keys, rows, n, mask, tiles, n_tiles, segs, max_bits, nb, vals, hist, tmp, stream):
+    def sqt_shuffle_gscatter(self, keys, rows, n, mask, tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, vals,
+                             starts, tmp, stream):
+        """Each tile's keys over its own positions in fine-bucket order (in
+        item order within a bucket on the packed route, the stable scatter;
+        in any order with positions), and its bucket starts."""
         self.calls.append("gscatter")
-        _, bits, base = self._grouped_layout(tiles, n_tiles, segs, max_bits, nb, n)
-        w = self._words(keys, rows, n, mask)
-        cur = _view(hist, np.int32, rows * nb).reshape(rows, nb)
-        t = _view(tmp, np.uint64, rows * n).reshape(rows, n)
-        v = _view(vals, np.uint8, n) if vals is not None else None
-        for r in range(rows):
-            for i in self.rng.permutation(n):  # in any order, as atomics leave them
-                b = int(base[i]) + (int(w[r, i]) >> (32 - int(bits[i])) if bits[i] else 0)
-                low = (int(i) << 8) | int(v[i]) if v is not None else int(i)
-                t[r, cur[r, b]] = (((int(w[r, i]) << int(bits[i])) & 0xFFFFFFFF) << 32) | low
-                cur[r, b] += 1
-        self.packed = v is not None
+        t, sg, _ = self._glayout(tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, n)
+        self.packed = vals is not None
+        if self.packed:
+            assert n < 1 << 24 and max_bits <= 11
+        w = self._words(keys, rows, n, mask).astype(np.uint64)
+        st = _view(starts, np.int32, rows * n_starts).reshape(rows, n_starts)
+        st[:] = -7  # every entry is the kernel's to write
+        dst = _view(tmp, np.uint32 if self.packed else np.uint64, rows * n).reshape(rows, n)
+        v = _view(vals, np.uint8, n).astype(np.uint64) if self.packed else None
+        for s, first, count, sbase in t:
+            fb = int(sg[s, 2])
+            for r in range(rows):
+                idx = np.arange(count) if self.packed else self.rng.permutation(count)
+                words = w[r, first : first + count]
+                srt = idx[np.argsort(words[idx] >> np.uint64(32 - fb), kind="stable")]
+                b = (words[srt] >> np.uint64(32 - fb)).astype(np.int64)
+                st[r, sbase : sbase + (1 << fb) + 1] = np.searchsorted(b, np.arange((1 << fb) + 1))
+                low = (words[srt] << np.uint64(fb)) & np.uint64(0xFFFFFFFF)
+                pos = (first + srt).astype(np.uint64)
+                dst[r, first : first + count] = low | v[pos] if self.packed else (low << np.uint64(32)) | pos
         return 0
 
-    def sqt_shuffle_gsort(self, tmp, offs, overflow, stats, rows, n, nb, cap, order, payload, payload_bytes, packed,
-                          out, out_ld, stream):
-        self.calls.append("gsort")
-        t = _view(tmp, np.uint64, rows * n).reshape(rows, n)
-        o = _view(offs, np.int32, rows * (nb + 1)).reshape(rows, nb + 1)
+    def _runs(self, t, sg, cs, c, st_row, src_row):
+        """Coarse bucket c's keys as the sort reads them, one run a tile of
+        its segment: the sort keys (csrc/threefry.cu sort_key) in (tile,
+        fine bucket, slot) order, the bucket's first group-sorted slot, and
+        the segment's coarse bits."""
+        s, cl = (int(v) for v in cs[c])
+        first_tile, per_seg, fb, nat = (int(v) for v in sg[s])
+        nf = 1 << (fb - nat)
+        keys, fines = [], []
+        before = 0
+        for tl in range(first_tile, first_tile + per_seg):
+            first, sbase = int(t[tl, 1]), int(t[tl, 3])
+            bounds = st_row[sbase + (cl * nf) : sbase + (cl * nf) + nf + 1].astype(np.int64)
+            before += int(bounds[0])
+            keys.append(src_row[first + bounds[0] : first + bounds[-1]].astype(np.uint64))
+            fines.append(np.repeat(cl * nf + np.arange(nf), np.diff(bounds)))
+        keys, fine = np.concatenate(keys), np.concatenate(fines).astype(np.uint64)
+        j = np.arange(len(keys), dtype=np.uint64)
+        if self.packed:
+            word = (fine << np.uint64(32 - fb)) | (keys >> np.uint64(fb))
+            low = (j << np.uint64(8)) | (keys & np.uint64(0xFF))
+        else:
+            word = (fine << np.uint64(32 - fb)) | ((keys >> np.uint64(32)) >> np.uint64(fb))
+            low = keys & np.uint64(0xFFFFFFFF)
+        return (word << np.uint64(32)) | low, int(t[first_tile, 1]) + before, nat
+
+    def _gepilogue(self, n, rows, order, payload, payload_bytes, packed, out, out_ld):
+        assert bool(packed) == self.packed and payload_bytes in (1, 4, 8) and (payload_bytes == 1 or not packed)
         dtype = _PAYLOAD[payload_bytes]
-        pay = _view(payload, dtype, n)
         at = _view(order, np.int32, n) if order is not None else np.arange(n)
-        dst = _view(out, dtype, rows * out_ld).reshape(rows, out_ld)
-        listed = set(_view(overflow, np.int32, rows * nb)[: _view(stats, np.int32, 2)[0]].tolist())
+        return _view(payload, dtype, n), at, _view(out, dtype, rows * out_ld).reshape(rows, out_ld)
+
+    def _gemit(self, sorted_keys, r, off, at, pay, dst):
+        slots = at[off : off + len(sorted_keys)]
+        if self.packed:
+            dst[r, slots] = (sorted_keys & np.uint64(0xFF)).astype(np.uint8)
+        else:
+            dst[r, slots] = pay[(sorted_keys & np.uint64(0xFFFFFFFF)).astype(np.int64)]
+
+    def sqt_shuffle_gsort(self, tmp, starts, tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, rows, n, cap,
+                          order, payload, payload_bytes, packed, out, out_ld, overflow, stats, stream):
+        """A coarse bucket up to ``cap`` a block: its keys placed by the next
+        11 bits of the word in any order, then each key at its sub-bucket's
+        start plus its count of the smaller keys there; larger buckets
+        listed in any order, their scratch offsets in that order."""
+        self.calls.append("gsort")
+        t, sg, cs = self._glayout(tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, n)
+        src = _view(tmp, np.uint32 if self.packed else np.uint64, rows * n).reshape(rows, n)
+        st = _view(starts, np.int32, rows * n_starts).reshape(rows, n_starts)
+        assert np.all(st >= 0)
+        pay, at, dst = self._gepilogue(n, rows, order, payload, payload_bytes, packed, out, out_ld)
+        listed, largest = [], 0
         for r in range(rows):
-            for b in range(nb):
-                off, m = o[r, b], o[r, b + 1] - o[r, b]
-                seg = t[r, off : off + m]
+            for c in range(nbc):
+                keys, off, nat = self._runs(t, sg, cs, c, st[r], src[r])
+                m = len(keys)
+                largest = max(largest, m)
                 if m > cap:
-                    assert r * nb + b in listed
-                    _bitonic(seg)
-                    self.sorted_by["overflow"] += 1
-                elif m:
-                    sub = (seg >> np.uint64(53)).astype(np.int64)
-                    placed = self.rng.permutation(m)
-                    placed = placed[np.argsort(sub[placed], kind="stable")]
-                    keys = seg[placed]
-                    starts = np.searchsorted(np.sort(sub), np.arange(0, 2049, 4))
-                    for lo, hi in zip(starts[:-1], starts[1:]):
-                        keys[lo:hi] = np.sort(keys[lo:hi])
-                    seg[:] = keys
-                    self.sorted_by["local"] += 1
-                else:
+                    listed.append((r * nbc + c, m))
                     continue
-                if packed:
-                    assert self.packed and payload_bytes == 1
-                    dst[r, at[off : off + m]] = (seg & np.uint64(0xFF)).astype(np.uint8)
-                else:
-                    dst[r, at[off : off + m]] = pay[(seg & np.uint64(0xFFFFFFFF)).astype(np.int64)]
+                if not m:
+                    continue
+                sub = (((keys >> np.uint64(32)) << np.uint64(nat)) & np.uint64(0xFFFFFFFF)) >> np.uint64(21)
+                placed = self.rng.permutation(m)
+                placed = placed[np.argsort(sub[placed], kind="stable")]
+                pk, ps = keys[placed], sub[placed]  # each key goes to its sub-bucket's start plus its rank
+                self._gemit(pk[np.lexsort((pk, ps))], r, off, at, pay, dst)  # there, as ordered by (sub, key)
+                self.sorted_by["local"] += 1
+        order_ = self.rng.permutation(len(listed))
+        listed = [listed[i] for i in order_]
+        ov = _view(overflow, np.int64, 2 * rows * nbc).reshape(rows * nbc, 2)
+        sizes = np.array([m for _, m in listed], dtype=np.int64)
+        ov[: len(listed), 0] = [code for code, _ in listed]
+        ov[: len(listed), 1] = np.cumsum(sizes) - sizes
+        _view(stats, np.int64, 4)[:3] = len(listed), largest, sizes.sum()
+        return 0
+
+    def sqt_shuffle_goverflow(self, tmp, starts, tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, rows, n,
+                              overflow, n_over, scratch, order, payload, payload_bytes, packed, out, out_ld, stream):
+        """Each listed coarse bucket's sort keys in the scratch at its offset,
+        sorted by the bitonic network."""
+        self.calls.append("goverflow")
+        t, sg, cs = self._glayout(tiles, n_tiles, segs, coarse, nbc, n_starts, max_bits, n)
+        src = _view(tmp, np.uint32 if self.packed else np.uint64, rows * n).reshape(rows, n)
+        st = _view(starts, np.int32, rows * n_starts).reshape(rows, n_starts)
+        ov = _view(overflow, np.int64, 2 * n_over).reshape(n_over, 2)
+        pay, at, dst = self._gepilogue(n, rows, order, payload, payload_bytes, packed, out, out_ld)
+        for code, soff in ov:
+            r, c = divmod(int(code), nbc)
+            keys, off, _ = self._runs(t, sg, cs, c, st[r], src[r])
+            scr = _view(scratch, np.uint64, soff + len(keys))[soff:]
+            scr[:] = keys
+            _bitonic(scr)
+            self._gemit(scr, r, off, at, pay, dst)
+            self.sorted_by["overflow"] += 1
         return 0
 
 
@@ -508,7 +565,7 @@ def emulated(monkeypatch):
     monkeypatch.setattr(_cuda, "require", lambda *args, **kwargs: None)
     monkeypatch.setitem(_cuda.launches, "threefry_shuffle", 0)
     monkeypatch.setitem(_cuda.launches, "threefry_grouped", 0)
-    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 1 << 20)  # no card to ask
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device, *_: 1 << 20)  # no card to ask
     return emu
 
 
@@ -662,8 +719,8 @@ def test_emulated_grouped_matches_plain_and_jax(grouping, emulated):
     keys = trng.spawn_keys(n % 13, 3)
     got, want = _grouped_both(keys, values, groups)
     assert torch.equal(got, want)
-    assert emulated.calls == ["ghist", "gscan", "gscatter", "gsort"] and emulated.packed
-    assert _cuda.launches["threefry_grouped"] == 4 and _cuda.launches["threefry_shuffle"] == 0
+    assert emulated.calls == ["gscatter", "gsort"] and emulated.packed
+    assert _cuda.launches["threefry_grouped"] == 2 and _cuda.launches["threefry_shuffle"] == 0
     jax_cols = jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values.numpy()), groups)
     np.testing.assert_array_equal(got.T.numpy(), np.asarray(jax_cols))
 
@@ -712,7 +769,9 @@ def test_emulated_grouped_overflow_path(cap, mask, emulated, monkeypatch):
     groups = _groups([3000, 40, 1, 2500], seed=9, nan=5)
     values = torch.from_numpy(np.random.default_rng(9).integers(0, 250, len(groups)).astype(np.uint8))
     got, want = _grouped_both(trng.spawn_keys(9, 2), values, groups, mask=mask)
-    assert torch.equal(got, want) and emulated.sorted_by["overflow"] > 0
+    assert torch.equal(got, want) and emulated.sorted_by["overflow"] > 0 and emulated.packed
+    assert emulated.calls == ["gscatter", "gsort", "goverflow"]
+    assert _cuda.launches["threefry_grouped"] == 3
 
 
 def test_emulated_grouped_chunks(emulated, monkeypatch):
@@ -720,9 +779,9 @@ def test_emulated_grouped_chunks(emulated, monkeypatch):
     groups = _groups([1500, 900, 600], seed=10)
     values = torch.from_numpy(np.random.default_rng(10).integers(0, 9, len(groups)).astype(np.uint8))
     keys = trng.spawn_keys(10, 7)
-    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 3)
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device, *_: 3)
     got, want = _grouped_both(keys, values, groups)
-    assert torch.equal(got, want) and emulated.calls.count("ghist") == 3
+    assert torch.equal(got, want) and emulated.calls.count("gscatter") == 3
 
 
 def test_emulated_grouped_chunks_reuse_the_device_layout(emulated, monkeypatch):
@@ -732,7 +791,7 @@ def test_emulated_grouped_chunks_reuse_the_device_layout(emulated, monkeypatch):
     groups = _groups([1500, 900, 600], seed=18, nan=2)
     values = torch.from_numpy(np.random.default_rng(18).integers(0, 9, len(groups)).astype(np.uint8))
     keys = trng.spawn_keys(18, 7)
-    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device: 3)
+    monkeypatch.setattr(trng, "_keys_per_chunk", lambda n, device, *_: 3)
     made = []
     tiles = trng._group_tiles
     monkeypatch.setattr(trng, "_group_tiles", lambda starts: made.append(1) or tiles(starts))
@@ -741,7 +800,7 @@ def test_emulated_grouped_chunks_reuse_the_device_layout(emulated, monkeypatch):
     outs = [torch.full((7, len(groups)), 7, dtype=torch.uint8) for _ in range(3)]
     for out in outs[:2]:
         trng._shuffle_grouped(keys, lay, vsorted, out, _CARD)
-    assert made == [1] and emulated.calls.count("ghist") == 6
+    assert made == [1] and emulated.calls.count("gscatter") == 6
     assert {k[0] for k in lay.cache} == {"order", "tiles"}
     cached = dict(lay.cache)
     trng._shuffle_grouped(keys, trng.group_layout(groups), vsorted, outs[2], _CARD)
@@ -750,21 +809,152 @@ def test_emulated_grouped_chunks_reuse_the_device_layout(emulated, monkeypatch):
     assert all(torch.equal(out, want) for out in outs)
 
 
-@pytest.mark.parametrize("sizes", [[1], [2048], [2049], [4096, 1], [10_000, 3, 8193, 1], [1] * 40])
+@pytest.mark.parametrize("sizes", [[1], [2048], [2049], [4096, 1], [10_000, 3, 8193, 1], [1] * 40,
+                                   [300_000, 600_000, 5_000_000], [40_000_000, 7]])
 def test_group_tiles(sizes):
-    """K10's grouped host layout: each segment's bucket bits from its length
-    (as a row's), its buckets after the previous segment's, its positions in
-    tiles of at most 4096 that never cross a segment."""
+    """K10g's host layout: each segment's coarse bits from its length (a
+    coarse bucket holds at most 3072 items on average), its fine bits at
+    least 8, its positions in tiles of 4096 << (fine bits - 8) (larger
+    where that leaves more than 256) that never cross a segment, each tile's
+    2^fb + 1 bucket starts after the previous tile's (about one a 16 items),
+    its coarse buckets listed in order."""
     starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    tiles, segs, nb, max_bits = trng._group_tiles(starts)
-    bits = [trng._bucket_bits(s) for s in sizes]
-    np.testing.assert_array_equal(segs[:, 1], bits)
-    np.testing.assert_array_equal(segs[:, 0], np.concatenate([[0], np.cumsum(np.left_shift(1, bits))[:-1]]))
-    assert nb == sum(1 << b for b in bits) and max_bits == max(bits)
-    assert np.all(tiles[:, 2] <= 4096) and tiles[:, 2].sum() == sum(sizes)
-    np.testing.assert_array_equal(tiles[:, 1] - starts[tiles[:, 0]] >= 0, True)
+    tiles, segs, coarse, n_starts, max_bits = trng._group_tiles(starts)
+    nat = np.array([trng._coarse_bits(s) for s in sizes])
+    assert all(s <= 3072 << b or b == 13 for s, b in zip(sizes, nat))
+    assert all(b == 0 or s > 3072 << (b - 1) for s, b in zip(sizes, nat))
+    fb = np.maximum(nat, 8)
+    tile = np.maximum(np.left_shift(4096, fb - 8), -(-np.asarray(sizes) // (256 * 4096)) * 4096)
+    per_seg = -(-np.asarray(sizes) // tile)
+    assert per_seg.max() <= 256
+    np.testing.assert_array_equal(segs[:, 3], nat)
+    np.testing.assert_array_equal(segs[:, 2], fb)
+    np.testing.assert_array_equal(segs[:, 1], per_seg)
+    np.testing.assert_array_equal(segs[:, 0], np.cumsum(per_seg) - per_seg)
+    width = np.left_shift(1, fb[tiles[:, 0]]) + 1
+    np.testing.assert_array_equal(tiles[:, 3], np.cumsum(width) - width)
+    assert n_starts == int(width.sum()) and max_bits == fb.max()
+    assert np.all(tiles[:, 2] <= tile[tiles[:, 0]]) and tiles[:, 2].sum() == sum(sizes)
+    np.testing.assert_array_equal(tiles[:, 1] - starts[tiles[:, 0]], (np.arange(len(tiles)) - segs[tiles[:, 0], 0])
+                                  * tile[tiles[:, 0]])
     np.testing.assert_array_equal(tiles[:, 1] + tiles[:, 2] <= starts[tiles[:, 0] + 1], True)
-    assert len(tiles) == sum(-(-s // 4096) for s in sizes)
+    assert len(tiles) == per_seg.sum()
+    np.testing.assert_array_equal(coarse[:, 0], np.repeat(np.arange(len(sizes)), np.left_shift(1, nat)))
+    np.testing.assert_array_equal(coarse[:, 1], np.concatenate([np.arange(1 << b) for b in nat]))
+    assert n_starts <= sum(s // 16 + t + (1 << int(b)) + 1 for s, t, b in zip(sizes, per_seg, fb))
+    assert np.all(per_seg * (np.left_shift(1, fb - nat) + 1) <= 768)  # the sort's shared bounds
+
+
+def test_emulated_grouped_fine_buckets_and_ties_across_tiles(emulated):
+    """The packed route (uint8 values in 32-bit keys, the stable scatter)
+    on segments whose fine bits are raised to 8 above their coarse bits
+    (9000 items: 2 coarse bits, 64 fine buckets a coarse one, 3 tiles),
+    words and-ed to 4096 values: ties whose two items fall in different
+    tiles of one segment keep position order, bitwise the plain version and
+    JAX."""
+    groups = _groups([9000, 4100, 1], seed=17, nan=3)
+    lay = trng.group_layout(groups)
+    tiles, segs = trng._group_tiles(lay.starts)[:2]
+    assert list(segs[:, 2]) == [8, 8, 8, 8] and list(segs[:, 3]) == [0, 2, 1, 0] and list(segs[:, 1]) == [1, 3, 2, 1]
+    keys = trng.spawn_keys(19, 3)
+    words = trng.random_bits(keys, (len(groups),)) & np.uint32(0xFFF00000)
+    tile_of = np.repeat(np.arange(len(tiles)), tiles[:, 2])
+    seg_of = np.repeat(np.arange(len(segs)), np.diff(lay.starts))
+    first = {}
+    crossed = 0
+    for j, (s, w) in enumerate(zip(seg_of, words[0])):
+        if (s, w) in first and tile_of[first[s, w]] != tile_of[j]:
+            crossed += 1
+        first.setdefault((s, w), j)
+    assert crossed > 0
+    values = torch.from_numpy(np.random.default_rng(18).integers(0, 250, len(groups)).astype(np.uint8))
+    got, want = _grouped_both(keys, values, groups, mask=0xFFF00000)
+    assert torch.equal(got, want) and emulated.packed
+    want_jax = np.argsort(np.stack([seg_of.astype(np.int64) << 32 | words[p] for p in range(3)]), axis=1,
+                          kind="stable")
+    vs = values.numpy()[lay.order]
+    for p in range(3):
+        np.testing.assert_array_equal(got[p, lay.order].numpy(), vs[want_jax[p]])
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_emulated_grouped_segment_with_fine_bits_above_8(dtype, emulated):
+    """A segment of 800,000 items (9 coarse bits = 9 fine bits: one fine
+    bucket a coarse one, tiles of two sub-tiles), beside a small one, on
+    both routes: bitwise the plain version and JAX."""
+    groups = _groups([800_000, 3000], seed=21, nan=2)
+    segs = trng._group_tiles(trng.group_layout(groups).starts)[1]
+    assert list(segs[:, 2]) == [8, 9, 8] and list(segs[:, 3]) == [0, 9, 0]
+    values = torch.from_numpy(np.random.default_rng(22).integers(0, 250, len(groups))).to(dtype)
+    keys = trng.spawn_keys(23, 1)
+    got, want = _grouped_both(keys, values, groups)
+    assert torch.equal(got, want) and emulated.packed == (dtype == torch.uint8)
+    jax_cols = jrng.shuffle_group_columns(jnp.asarray(keys), jnp.asarray(values.numpy()), groups)
+    np.testing.assert_array_equal(got.T.numpy(), np.asarray(jax_cols))
+
+
+@pytest.mark.parametrize("cap,mask", [(64, trng._FULL_MASK), (16, 0)], ids=["capacity lowered", "every word equal"])
+def test_emulated_grouped_overflow_path_gathered(cap, mask, emulated, monkeypatch):
+    """The overflow sort on the gathered route (int64 values, 64-bit keys
+    carrying positions)."""
+    monkeypatch.setattr(trng, "_SORT_CAP", cap)
+    groups = _groups([3000, 40, 1, 2500], seed=24, nan=5)
+    values = torch.from_numpy(np.random.default_rng(24).permutation(len(groups)).astype(np.int64))
+    got, want = _grouped_both(trng.spawn_keys(24, 2), values, groups, mask=mask)
+    assert torch.equal(got, want) and not emulated.packed and emulated.sorted_by["overflow"] > 0
+    assert emulated.calls == ["gscatter", "gsort", "goverflow"]
+
+
+@pytest.mark.parametrize("itemsize,n,max_bits,packed", [(1, 1000, 8, True), (1, 1000, 11, True), (1, 1000, 12, False),
+                                                        (1, 1 << 24, 8, False), (4, 1000, 8, False),
+                                                        (8, 1000, 8, False)])
+def test_grouped_route(itemsize, n, max_bits, packed):
+    """The packed route takes uint8 values below 2^24 items while every
+    segment's fine bits are at most 11 (segments up to 2^22 items); the
+    others are gathered through 64-bit keys."""
+    dtype = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[itemsize]
+    vsorted = torch.empty(n, dtype=dtype)
+    dev = trng._GroupedDevice(*(torch.empty(0),) * 4, n_starts=100, max_bits=max_bits)
+    assert trng._packed_route(vsorted, dev) == packed
+
+
+def test_grouped_chunk_of_part_f1_fits_one_launch_set():
+    """1M cells in 8 sections of 70k-181k: K10g's bytes a value (a 4-byte
+    key, the uint8 output, the bucket starts' share) let an 8 GiB budget
+    take a 500-key chunk whole."""
+    sizes = [70_000, 181_000, 120_000, 95_000, 160_000, 130_000, 110_000, 134_000]
+    starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    tiles, segs, coarse, n_starts, max_bits = trng._group_tiles(starts)
+    dev = trng._GroupedDevice(*(torch.empty(0),) * 4, n_starts=n_starts, max_bits=max_bits)
+    n = sum(sizes)
+    per_value = trng._grouped_bytes(n, dev, True, 1)
+    assert per_value == 6 and (8 << 30) // (per_value * n) >= 500
+    assert trng._grouped_bytes(n, dev, False, 4) == 13
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "interleaved"])
+@pytest.mark.parametrize("nan", [False, True], ids=["no -1", "with -1"])
+@pytest.mark.parametrize("dtype,span,narrow", [(np.int8, 100, np.int8), (np.int32, 120, np.int8),
+                                               (np.int64, 127, np.int8), (np.int32, 300, np.int16),
+                                               (np.int64, 30_000, np.int16), (np.int32, 70_000, np.int32),
+                                               (np.int64, 2**31 - 1, np.int32), (np.int16, 100, np.int8)])
+def test_group_layout_narrow_codes(dtype, span, narrow, nan, layout):
+    """``group_layout`` sorts the codes at the narrowest signed width that
+    holds their range, -1 included (numpy's radix path for 8 and 16 bits):
+    ``order`` and ``starts`` equal the stable argsort of the codes as int64."""
+    rng = np.random.default_rng(span % 97)
+    n = 5000
+    codes = np.sort(rng.integers(0, 8, n)) if layout == "contiguous" else rng.integers(0, 8, n)
+    codes = (codes * (span // 7)).astype(dtype)
+    if nan:
+        codes[rng.choice(n, 50, replace=False)] = -1
+    narrowed = trng._narrowest_codes(codes)
+    assert narrowed.dtype == narrow and np.array_equal(narrowed.astype(np.int64), codes.astype(np.int64))
+    lay = trng.group_layout(codes)
+    want = np.argsort(codes.astype(np.int64), kind="stable")
+    np.testing.assert_array_equal(lay.order, want)
+    sorted_codes = codes.astype(np.int64)[want]
+    np.testing.assert_array_equal(lay.starts, np.append(np.flatnonzero(np.r_[True, np.diff(sorted_codes) != 0]), n))
 
 
 @pytest.mark.cuda

@@ -60,6 +60,24 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       spatial genes must score above the background; streaming) and on a
       Visium section of 4,992 hexagonal spots x 2000 genes (K11's resident
       route);
+   g. (run last, after steps 4-5 of parts a-f, so it changes none of
+      their measurements, then its own kernel checks and its card-vs-CPU
+      check) niches (``calculate_niche``) on planted spatial domains: a Voronoi
+      partition of the section into 12 domains, each with its own mix of 16
+      cell types and its own expression (300 genes of Poisson counts, a
+      domain program times a type program), and ``spatial_neighbors_knn``
+      at k = 6; g1: ``neighborhood`` at 200,000 cells, ``n_neighbors=15``,
+      ``resolutions=[0.5]``, ``distance=3``, ``n_hop_weights=[1, 0.5,
+      0.25]`` (K13's reach, K5a, K12 on 16 features, host
+      ``symmetrize_knn`` and Leiden); g2: ``utag`` on the same cells x 300
+      genes (K5a, PCA, K12 on 50 components); g3: ``cellcharter`` at 1M
+      cells x 300 genes, ``distance=3``, ``aggregation="mean"``,
+      ``n_components=10`` (K13's rings, K5a, PCA, the GMM); each flavor a
+      first call (K12's and K13's inputs recorded), a timed second call
+      and a third under the CPU profiler, whose ``[host] niche`` line
+      splits it (hops, profiles or features, z-scores, PCA, the kNN search,
+      ``symmetrize_knn``, Leiden, the GMM) beside the niches found and
+      their purity against the planted domains;
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -173,13 +191,23 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    lowered on both routes and every word equal (the overflow sort); K11 on the route each shape
    selects (asserted): f2's first 64 genes for the 300-step budget (the
    steps and the state after it) and f3's 316 x 316 x 256 (streaming), f3's
-   Visium section (resident), each with a ``[diag] sepal`` line.
+   Visium section (resident), each with a ``[diag] sepal`` line; on part
+   g's own inputs: K12 on g1's 200k x 16 z-scored profiles and g2's 200k x
+   50 embedding (its plain version on the first 20,000 rows; ``torch.cdist``
+   + ``torch.topk`` in row chunks as the yardstick), K13 on every hop of g1
+   (reach) and g3 (rings, 1M rows) in full; then K12 above its register list
+   (k = 40), at 100 and 256 features (the chunked sum) with duplicate and
+   NaN rows, and K13 with its warp capacity lowered to 64 (the block
+   route), on a weighted graph, and on a k = 20 graph's hop 3, whose rows
+   pass the warp's shared memory; K5a on an ELL 1024 slots wide (the
+   widest hop bucket).
    Integer kernels
    (K1-K4, K7, K9, K10), K11 (its steps and state), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
-   relative tolerance would mean nothing);
+   relative tolerance would mean nothing); K12's neighbours and distances
+   and every output of K13 bitwise;
 5. the same public calls on the card and on the CPU (plain torch) must
    agree, at 3000 cells (brute-force kNN, sort shuffles, dense sweep, K2)
    and at 100k cells (cipher shuffles, binned sweep): counts, z-scores and
@@ -199,7 +227,9 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    float64 route, FDR along the clusters) and 70,000 cells x 64 genes of
    counts (the float32 route through the device expression handle); and
    ``nhood_enrichment(library_key=...)`` bitwise on a ~100k-cell band of
-   part f1's study across its 8 sections.
+   part f1's study across its 8 sections; and ``calculate_niche`` g1 on a
+   20,000-cell corner of part g's cells: the clustering graphs asserted
+   equal (no near tie at the 15th neighbour), then the labels bitwise.
 
 Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -3138,6 +3168,330 @@ def sepal_kernel_checks(data: dict) -> dict[str, list[dict]]:
     return {"sepal_diffusion": streaming, "sepal_resident": resident}
 
 
+NICHE_CELLS = 200_000  # g1, g2: the largest section the JAX package clusters on its exact kNN graph
+NICHE_BIG_CELLS = 1_000_000  # g3: cellcharter builds no kNN graph
+NICHE_GENES, NICHE_TYPES, NICHE_DOMAINS = 300, 16, 12
+NICHE_CUT = 20_000  # g1 card vs CPU: a corner of the 200k cells, at the device branches' threshold
+K12_PLAIN_ROWS = 20_000  # K12's plain version on the first rows of its full-size input
+K12_LIBRARY_ROWS = 4096  # torch.cdist + torch.topk in row chunks
+NICHE_CALLS = {
+    "g1": dict(flavor="neighborhood", groups="cluster", n_neighbors=15, resolutions=[0.5], distance=3,
+               n_hop_weights=[1, 0.5, 0.25]),
+    "g2": dict(flavor="utag", n_neighbors=15, resolutions=[0.5]),
+    "g3": dict(flavor="cellcharter", distance=3, aggregation="mean", n_components=10),
+}
+NICHE_COLUMN = {"g1": "nhood_niche_res=0.5", "g2": "utag_niche_res=0.5", "g3": "cellcharter_niche"}
+
+
+def _niche_dataset(n: int, seed: int) -> StandIn:
+    """``n`` cells in :data:`NICHE_DOMAINS` planted spatial domains (a Voronoi
+    partition of the section), each with its own mix of 16 cell types and its
+    own expression: Poisson counts of 300 genes whose means are a domain
+    program times a cell-type program (uint8, drawn on the card), and the
+    kNN graph of 6."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    import squidpy_torch as sqt
+
+    rng = np.random.default_rng(seed)
+    side = 10.0 * np.sqrt(n)
+    coords = rng.uniform(0.0, side, size=(n, 2))
+    domain = cKDTree(rng.uniform(0.0, side, size=(NICHE_DOMAINS, 2))).query(coords)[1]
+    mix = np.cumsum(rng.dirichlet(np.full(NICHE_TYPES, 0.3), NICHE_DOMAINS), axis=1)
+    types = np.minimum((rng.random(n)[:, None] > mix[domain]).sum(axis=1), NICHE_TYPES - 1)
+    adata = StandIn(coords, types, NICHE_TYPES)
+    dom_prog = rng.lognormal(-1.0, 0.8, (NICHE_DOMAINS, NICHE_GENES)).astype(np.float32)
+    type_prog = rng.lognormal(0.0, 0.6, (NICHE_TYPES, NICHE_GENES)).astype(np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    counts = np.empty((n, NICHE_GENES), dtype=np.uint8)
+    for r0 in range(0, n, 250_000):
+        d = torch.from_numpy(domain[r0 : r0 + 250_000]).cuda()
+        t = torch.from_numpy(types[r0 : r0 + 250_000]).cuda()
+        rates = torch.from_numpy(dom_prog).cuda()[d] * torch.from_numpy(type_prog).cuda()[t]
+        counts[r0 : r0 + 250_000] = torch.poisson(rates, generator=gen).clamp_(max=255).to(torch.uint8).cpu().numpy()
+    adata.set_expression(counts)
+    adata.obs["domain"] = domain
+    sqt.gr.spatial_neighbors_knn(adata, n_neighs=N_NEIGHS)
+    return adata
+
+
+class _Recorder:
+    """Copies of the inputs K12 and K13 get in a call (their wrappers called
+    through), so the kernels can be held to their plain versions on them."""
+
+    def __init__(self) -> None:
+        self.knn: list = []
+        self.hops: list = []
+
+    def __enter__(self):
+        from squidpy_torch.ops import hops, knn
+
+        self._knn, self._hop = knn.feature_knn, hops.hop_expand
+
+        def feature_knn(x, k):
+            self.knn.append((x.clone(), k))
+            return self._knn(x, k)
+
+        def hop_expand(*args):
+            self.hops.append(tuple(a.clone() if a is not None else None for a in args))
+            return self._hop(*args)
+
+        knn.feature_knn, hops.hop_expand = feature_knn, hop_expand
+        return self
+
+    def __exit__(self, *exc):
+        from squidpy_torch.ops import hops, knn
+
+        knn.feature_knn, hops.hop_expand = self._knn, self._hop
+
+
+def _check_niches(part: str, adata: StandIn) -> int:
+    labels = np.asarray(adata.obs[NICHE_COLUMN[part]])
+    if labels.shape != (adata.n_obs,):
+        raise AssertionError(f"part {part}: niche labels of shape {labels.shape}")
+    niches = np.unique(labels)
+    if part == "g3" and (labels.dtype.kind != "i" or niches.min() < 0 or niches.max() >= 10):
+        raise AssertionError(f"part g3: GMM labels outside [0, 10): {niches}")
+    if len(niches) < 2:
+        raise AssertionError(f"part {part}: one niche only")
+    return len(niches)
+
+
+def _purity(labels: np.ndarray, truth: np.ndarray) -> float:
+    """Share of cells in their niche's most frequent planted domain."""
+    _, lab = np.unique(labels, return_inverse=True)
+    table = np.zeros((lab.max() + 1, truth.max() + 1), dtype=np.int64)
+    np.add.at(table, (lab, truth), 1)
+    return float(table.max(axis=1).sum() / len(labels))
+
+
+def niche_path() -> tuple[dict, dict, dict, dict]:
+    """Part g: ``calculate_niche`` on planted domains, each flavor a first
+    call (its K12/K13 inputs recorded), a timed second call and a third under
+    the CPU profiler (a ``[host]`` line); g1 and g2 at 200k cells x 300
+    genes, g3 at 1M. Returns the launches a part, the seconds, the recorded
+    inputs and the 200k container."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+
+    secs, launches, inputs = {}, {}, {}
+    data, secs["g_data_200k_s"] = _sync_time(lambda: _niche_dataset(NICHE_CELLS, seed=41))
+    big, secs["g_data_1m_s"] = _sync_time(lambda: _niche_dataset(NICHE_BIG_CELLS, seed=43))
+    for part, adata in (("g1", data), ("g2", data), ("g3", big)):
+        call = NICHE_CALLS[part]
+        _cuda.reset_launches()
+        with _Recorder() as rec:
+            _, secs[f"{part}_first_s"] = _sync_time(lambda: sqt.gr.calculate_niche(adata, **call))
+        first = adata.obs[NICHE_COLUMN[part]].copy()
+        _, secs[f"{part}_second_s"] = _sync_time(lambda: sqt.gr.calculate_niche(adata, **call))
+        launches[part] = dict(_cuda.launches)
+        if not np.array_equal(first, adata.obs[NICHE_COLUMN[part]]):
+            raise AssertionError(f"part {part}: two calls gave different niches")
+        _cuda.reset_launches()
+        _, wall, host = _profiled(lambda: sqt.gr.calculate_niche(adata, **call), "calculate_niche")
+        launches[part] = {k: launches[part][k] + _cuda.launches[k] for k in launches[part]}
+        niches = _check_niches(part, adata)
+        purity = _purity(np.asarray(adata.obs[NICHE_COLUMN[part]]), adata.obs["domain"])
+        print(f"[host] niche {part} (profiled call): wall {wall:.4f} s; "
+              + " ".join(f"{k}={v:.1f}" for k, v in sorted(host.items())) + " (host ms); "
+              f"niches={niches} purity={purity:.3f}", flush=True)
+        inputs[part] = rec
+    return launches, secs, inputs, data
+
+
+def _k12_bound(n: int, d: int, k: int) -> tuple[float, str]:
+    # three operations a feature a pair; the input read once, the outputs written once
+    return _bound(4.0 * n * d + 8.0 * n * k, 3.0 * d * float(n) * n)
+
+
+def _k12_library(x, k: int):
+    """``torch.cdist`` + ``torch.topk`` in row chunks: the nearest k + 1 rows
+    (the row itself among them)."""
+    import torch
+
+    out = []
+    for r0 in range(0, x.shape[0], K12_LIBRARY_ROWS):
+        out.append(torch.topk(torch.cdist(x[r0 : r0 + K12_LIBRARY_ROWS], x), k + 1, dim=1, largest=False).indices)
+    return torch.cat(out)
+
+
+def check_feature_knn(name: str, x, k: int, plain_rows: int | None = None, library: bool = False) -> dict:
+    """K12 on ``x`` (n, d) against its plain version, bitwise, on the first
+    ``plain_rows`` rows (all by default); with ``library``, the time of
+    ``torch.cdist`` + ``torch.topk`` on the same input."""
+    import torch
+
+    from squidpy_torch.ops import knn
+
+    n, d = x.shape
+    (dist, idx), ms = _time_ms(lambda: knn.feature_knn(x, k), 3)
+    (pd_, pi), plain_ms = _time_ms(lambda: knn._feature_knn_plain(x, k, stop=plain_rows), 1, warm=False)
+    m = pd_.shape[0]
+    both_nan = torch.isnan(dist[:m]) & torch.isnan(pd_)
+    err = float(torch.where(both_nan, 0.0, (dist[:m].double() - pd_.double()).abs()).max()) if m else 0.0
+    if not (torch.equal(idx[:m], pi) and bool(((dist[:m] == pd_) | both_nan).all())):
+        raise AssertionError(f"{name}: K12 and its plain version differ (max abs err {err})")
+    library_ms = _time_ms(lambda: _k12_library(x, k), 1)[1] if library else None
+    bound = _k12_bound(n, d, k)
+    print(f"[kernel] {name}: max_abs_err={err} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (rows {m} of {n}) "
+          f"bound_ms={bound[0]:.4f} ({bound[1]})" + (f" library_ms={library_ms:.3f}" if library else ""), flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
+def _k13_bound(args, out) -> tuple[float, str]:
+    """Bytes the hop must move once: the ring and visited rows and each base
+    row that a live ring entry reaches (indices and weights), read once; the
+    degrees and the output rows written once. Repeat gathers of a base row
+    are not counted (the kernel line gives their total apart)."""
+    import torch
+
+    base_idx, _, ring_idx, _, vis_idx, _ = args
+    n, k1 = base_idx.shape
+    reached = torch.unique(ring_idx[ring_idx < n]).numel()
+    nbytes = 8.0 * ring_idx.numel() + 8.0 * reached * k1 + (8.0 * vis_idx.numel() if vis_idx is not None else 0.0)
+    nbytes += 4.0 * out[0].numel() + 4.0 * n + (8.0 * out[2].numel() + 4.0 * n if out[2] is not None else 0.0)
+    return _bound(nbytes, 0.0)
+
+
+def check_hops(name: str, args, cap: int | None = None) -> dict:
+    """K13 on one hop's inputs ``args`` against its plain version: every
+    output bitwise (the ring, its degrees, the visited ELL and its values)."""
+    import torch
+
+    from squidpy_torch.ops import hops
+
+    kw = {} if cap is None else {"cap": cap}
+    got, ms = _time_ms(lambda: hops._hop_k13(*args, **kw), 3)
+    want, plain_ms = _time_ms(lambda: hops._hop_plain(*args), 1, warm=False)
+    for g, w in zip(got, want):
+        if (g is None) != (w is None) or (g is not None and (g.shape != w.shape or not torch.equal(g, w))):
+            raise AssertionError(f"{name}: K13 and its plain version differ")
+    bound = _k13_bound(args, got)
+    n = args[0].shape[0]
+    elems = int((args[2] < n).sum()) * args[0].shape[1]
+    print(f"[kernel] {name}: max_abs_err=0.0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound[0]:.4f} "
+          f"({bound[1]}) rows={n} ring_width={args[2].shape[1]} visited_width="
+          f"{args[4].shape[1] if args[4] is not None else 0} out_widths={got[0].shape[1]},"
+          f"{got[2].shape[1] if got[2] is not None else 0} candidates={elems} "
+          f"gathered_mb={8.0 * elems / 1e6:.1f} (every candidate's base entry; the bound reads each base row once)",
+          flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
+def _knn_ell(n: int, k: int, seed: int, weighted: bool = False):
+    """A symmetrised kNN graph of ``n`` uniform points as a sentinel ELL on the card."""
+    import torch
+    from scipy import sparse as sp
+    from scipy.spatial import cKDTree
+
+    from squidpy_torch.ops import hops
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 10 * np.sqrt(n), (n, 2))
+    _, nb = cKDTree(pts).query(pts, k=k + 1, workers=-1)
+    w = rng.uniform(0.5, 2.0, n * k) if weighted else np.ones(n * k)
+    adj = sp.csr_matrix((w, (np.repeat(np.arange(n), k), nb[:, 1:].ravel())), shape=(n, n))
+    bi, bw = hops.ell_sentinel(adj.maximum(adj.T))
+    return torch.from_numpy(bi).cuda(), torch.from_numpy(bw).cuda()
+
+
+def _ring1_args(bi, bw, visited: bool):
+    import torch
+
+    n = bi.shape[0]
+    self_idx = torch.arange(n, dtype=torch.int32, device=bi.device)[:, None]
+    off = torch.where(bi == self_idx, n, bi)
+    ring_w = torch.where(off < n, bw, 0.0)
+    if not visited:
+        return bi, bw, bi, (bi < n).to(torch.float32), None, None
+    vis_idx = torch.cat([self_idx, off], dim=1).contiguous()
+    vis_val = torch.cat([torch.ones((n, 1), device=bi.device), ring_w], dim=1).contiguous()
+    return bi, bw, off.contiguous(), ring_w.contiguous(), vis_idx, vis_val
+
+
+def niche_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
+    """K12 and K13 against their plain versions: first on part g's own
+    inputs (K12 on g1's z-scored profiles and g2's PCA embedding, at 200k
+    rows, its plain version on the first 20,000; K13 on every hop of g1 and
+    g3 in full), then in the branches the path does not take; and K5a on
+    an ELL of the widest hop bucket (1024)."""
+    checks = {"feature_knn": [], "hops": []}
+    for part in ("g1", "g2"):
+        x, k = inputs[part].knn[0]
+        checks["feature_knn"].append(check_feature_knn(f"feature_knn {part} {tuple(x.shape)} k={k}", x, k,
+                                                       plain_rows=K12_PLAIN_ROWS, library=True))
+    for part in ("g1", "g3"):
+        for i, args in enumerate(inputs[part].hops):
+            checks["hops"].append(check_hops(f"hops {part} hop {i + 2} "
+                                             f"({'rings' if args[4] is not None else 'reach'})", args))
+    import torch
+
+    x, k = inputs["g1"].knn[0]
+    # branches: the global list (k > 32), 100 and 256 features (a chunked
+    # sum), duplicate rows, non-finite rows; K13 with the warp capacity
+    # lowered (the block route), weighted rows, and rows past shared memory
+    checks["feature_knn"].append(check_feature_knn("feature_knn k=40", x[:20_000].contiguous(), 40))
+    rng = np.random.default_rng(5)
+    for n, d in ((20_000, 100), (5000, 256)):
+        y = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+        y[7] = y[3]
+        y[11, 5] = float("nan")
+        checks["feature_knn"].append(check_feature_knn(f"feature_knn {n}x{d} k=15", y, 15))
+    g1_hop3 = inputs["g1"].hops[-1]
+    checks["hops"].append(check_hops("hops g1 hop 3, warp capacity 64 (block route)", g1_hop3, cap=64))
+    bi, bw = _knn_ell(50_000, 6, 9, weighted=True)
+    checks["hops"].append(check_hops("hops weighted 50k rings hop 2", _ring1_args(bi, bw, True)))
+    bi, bw = _knn_ell(50_000, 20, 10)
+    args = _ring1_args(bi, bw, True)
+    from squidpy_torch.ops import hops
+
+    out = hops._hop_k13(*args)
+    args3 = (bi, bw, out[0], (out[0] < bi.shape[0]).to(torch.float32), out[2], out[3])
+    checks["hops"].append(check_hops("hops 50k k=20 rings hop 3 (rows past the warp's shared memory)", args3))
+    # K5a takes the hops' ELLs at any bucketed width (it walks a row's slots
+    # 32 at a time): the widest bucket, 1024, a quarter of each row padded
+    n, k = 20_000, 1024
+    idx = torch.from_numpy(rng.integers(0, n, (n, k)).astype(np.int32)).cuda()
+    live = torch.arange(k, device="cuda")[None, :] < 768
+    idx = torch.where(live, idx, 0).contiguous()
+    w = torch.where(live, 1.0 / 768, 0.0).to(torch.float32).expand(n, k).contiguous()
+    x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).cuda()
+    checks["ell_autocorr"] = check_ell_autocorr("hop width 1024", idx, w, x, x - x.mean(dim=0))
+    return checks
+
+
+def niche_reference_check(data: StandIn) -> None:
+    """g1 on a 20,000-cell corner of the 200k cells, on the card and on the
+    CPU (plain torch): the clustering graphs asserted equal (no near tie at
+    the 15th neighbour on this cut), then the labels bitwise."""
+    import squidpy_torch as sqt
+    from squidpy_torch.models import clustering
+
+    t0 = time.perf_counter()
+    coords = data.obsm["spatial"]
+    keep = np.sort(np.argsort(np.maximum(coords[:, 0], coords[:, 1]), kind="stable")[:NICHE_CUT])
+    cut = StandIn(coords[keep], np.asarray(data.obs["cluster"].cat.codes)[keep], NICHE_TYPES)
+    sqt.gr.spatial_neighbors_knn(cut, n_neighs=N_NEIGHS)
+    graphs, labels = {}, {}
+    real = clustering.knn_graph
+    for device in ("cuda", "cpu"):
+        clustering.knn_graph = lambda X, k, device=device: graphs.setdefault(device, real(X, k))
+        try:
+            with sqt.set_device(device):
+                sqt.gr.calculate_niche(cut, **NICHE_CALLS["g1"])
+        finally:
+            clustering.knn_graph = real
+        labels[device] = np.asarray(cut.obs[NICHE_COLUMN["g1"]])
+    if (graphs["cuda"] != graphs["cpu"]).nnz:
+        raise AssertionError("g1 cut: the card's and the CPU's clustering graphs differ (a near tie)")
+    np.testing.assert_array_equal(labels["cuda"], labels["cpu"])
+    print(f"[reference] calculate_niche neighborhood at {NICHE_CUT} cells: clustering graphs equal, labels "
+          f"bitwise ({len(np.unique(labels['cuda']))} niches, {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3255,6 +3609,7 @@ def main() -> int:
         launches = {k: launches[k] + counts[k] for k in launches}
     phases["main_path_f"] = time.perf_counter() - t_phase
 
+
     # the main path's own inputs first (their times go into the JSON line),
     # then the fixed shapes and the branches the main path does not take
     t_phase = time.perf_counter()
@@ -3301,6 +3656,32 @@ def main() -> int:
     ligrec_reference_check()
     sections_reference_check(study)
     phases["card_vs_cpu"] = time.perf_counter() - t_phase
+
+    # part g last, so it leaves every earlier measurement as it was: its
+    # path, its kernels on its own inputs and in their branches, card vs CPU
+    del study
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    launches_g, secs_g, niche_inputs, niche_data = niche_path()
+    print(f"[main path g] g1/g2: {NICHE_CELLS} cells, g3: {NICHE_BIG_CELLS} cells; {NICHE_GENES} genes, "
+          f"{NICHE_TYPES} types, {NICHE_DOMAINS} domains " + " ".join(f"{k}={v:.4f}" for k, v in secs_g.items()),
+          flush=True)
+    wanted_g = {"g1": ("hops", "ell_autocorr", "feature_knn"), "g2": ("ell_autocorr", "feature_knn"),
+                "g3": ("hops", "ell_autocorr")}
+    for part, counts in launches_g.items():
+        print(f"[launches {part}] {counts}", flush=True)
+        missing = [k for k in wanted_g[part] if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"part {part}: {missing} not launched")
+        launches = {k: launches[k] + counts[k] for k in launches}
+    phases["main_path_g"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    for name, extra in niche_kernel_checks(niche_inputs).items():
+        checks[name] = checks.get(name, []) + extra
+    del niche_inputs
+    torch.cuda.empty_cache()
+    niche_reference_check(niche_data)
+    phases["niche_checks"] = time.perf_counter() - t_phase
     print("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()), flush=True)
 
     kernels = []

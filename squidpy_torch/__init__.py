@@ -6,8 +6,9 @@ radius, Delaunay, grid and builder variants, ``gr.mask_graph``),
 ``gr.co_occurrence`` (also with ``use_pallas=True``),
 ``gr.spatial_autocorr`` (Moran's I, Geary's C), ``gr.ripley`` (F, G and L
 with their envelopes), ``gr.interaction_matrix``,
-``gr.centrality_scores``, ``gr.ligrec`` with ``gr.PermutationTest``, and
-``gr.sepal``. It
+``gr.centrality_scores``, ``gr.ligrec`` with ``gr.PermutationTest``,
+``gr.sepal``, and ``gr.calculate_niche`` (its ``neighborhood``, ``utag``
+and ``cellcharter`` flavors). It
 imports torch, numpy and scipy, never jax or squidpy_tpu. The device is
 explicit: ``cuda`` by default, ``set_device("cpu")`` (or
 ``with set_device("cpu"):``) for the CPU.

@@ -138,6 +138,10 @@ class DeviceExpression:
         out[self._rows[gather], col_ids] = _as_float(self._data[gather])
         return out
 
+    def full_dense(self, cols: np.ndarray | None = None) -> torch.Tensor:
+        """The whole matrix (or the columns ``cols``) as a dense float32 device tensor."""
+        return self.dense_block(np.arange(self.n_vars) if cols is None else np.asarray(cols))
+
 
 def device_expression(
     adata: Any, *, layer: str | None = None, use_raw: bool = False, create: bool = True

@@ -152,6 +152,37 @@ class SpatialGraph:
             out.append((rows_dev, self.indices[sel, :hi].contiguous(), self.weights[sel, :hi].contiguous()))
         return out if len(out) > 1 else None
 
+    def to_csr(self) -> tuple[sp.csr_matrix, sp.csr_matrix | None]:
+        """The graph back as scipy CSR ``(adjacency, distances)``."""
+        n = self.indices.shape[0]
+        mask = self.mask.cpu().numpy()
+        rows, pos = np.nonzero(mask)
+        cols = self.indices.cpu().numpy()[rows, pos]
+        adj = sp.csr_matrix((self.weights.cpu().numpy()[rows, pos], (rows, cols)), shape=(n, n))
+        dst = None
+        if self.distances is not None:
+            dst = sp.csr_matrix((self.distances.cpu().numpy()[rows, pos], (rows, cols)), shape=(n, n))
+        return adj, dst
+
+    def row_normalize(self) -> SpatialGraph:
+        """The graph with each row's weights divided by their sum (rows that
+        sum to 0 keep weight 0): sklearn's ``normalize(g, 'l1')``."""
+        s = self.weights.sum(dim=1, keepdim=True)
+        w = torch.where(s > 0, self.weights / torch.where(s == 0, 1.0, s), 0.0)
+        return SpatialGraph(self.indices, w, self.mask, self.distances)
+
+    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        """``W @ x`` for ``x`` of shape ``(n,)`` or ``(n, g)``, in the result
+        type of ``x`` and the weights. A matrix goes through kernel K5a
+        (:func:`squidpy_torch.ops.autocorr.spmv_genes`), whose padded slots
+        point at row 0 with weight 0; a vector is one gather."""
+        dt = torch.result_type(x, self.weights)
+        if x.ndim == 2:
+            from squidpy_torch.ops.autocorr import spmv_genes
+
+            return spmv_genes(self.indices, self.weights.to(dt).contiguous(), x.to(dt).contiguous())
+        return torch.sum(self.weights.to(dt) * x.to(dt)[self.indices.long()], dim=1)
+
 
 def _spread_bits(q: torch.Tensor, masks: tuple[int, ...], shifts: tuple[int, ...]) -> torch.Tensor:
     for shift, mask in zip(shifts, masks):

@@ -19,7 +19,9 @@ sort; ``threefry_grouped``: the scatter and the sort of its grouped entry
 of up to 64 streaming passes, one kernel each) counts each call into that
 interface, which may start more than one CUDA kernel. K11's two routes
 count under their own names (``sepal_diffusion``, the streaming route, and
-``sepal_resident``). K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
+``sepal_resident``). K13 (``hops``) counts each call into its C
+interface: a hop's count and emit passes by the warp route, and by the
+block route when a row needs it. K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
 and those calls count as K6's.
 """
 
@@ -64,6 +66,8 @@ KERNELS = {
     "threefry_grouped": ("squidpy_torch/csrc/threefry.cu", "squidpy_tpu/_core/rng.py:98"),
     "sepal_diffusion": ("squidpy_torch/csrc/sepal.cu", "squidpy_tpu/ops/sepal.py:35"),
     "sepal_resident": ("squidpy_torch/csrc/sepal.cu", "squidpy_tpu/ops/sepal.py:35"),
+    "feature_knn": ("squidpy_torch/csrc/feature_knn.cu", "squidpy_tpu/ops/knn.py:259"),
+    "hops": ("squidpy_torch/csrc/hops.cu", "squidpy_tpu/ops/hops.py:145"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -112,6 +116,10 @@ _SIGNATURES = {
     "sqt_sepal_passes": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P],
     "sqt_sepal_resident": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P],
+    "sqt_feature_knn": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "sqt_hops_rows": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "sqt_hops_overflow": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                          _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

@@ -8,6 +8,9 @@ selects the CPU, either for good or, used as a context manager, for the
 
 from __future__ import annotations
 
+import threading
+from collections.abc import Iterator
+from contextlib import contextmanager
 from typing import Any
 
 import numpy as np
@@ -15,9 +18,13 @@ import torch
 
 NDArrayA = np.ndarray
 
-__all__ = ["NDArrayA", "assert_positive", "get_device", "set_device", "to_host"]
+__all__ = ["NDArrayA", "assert_positive", "full_float32", "get_device", "set_device", "to_host"]
 
 _DEVICE = torch.device("cuda")
+
+# the TF32 switch is process-wide; graphs built in threads (library_key with
+# n_jobs > 1) must not restore it under each other's products
+_TF32_LOCK = threading.Lock()
 
 
 def _checked(device: torch.device) -> torch.device:
@@ -55,6 +62,19 @@ class set_device:  # noqa: N801 - a function-like name, usable as a context mana
 def get_device() -> torch.device:
     """The selected device; raises ``RuntimeError`` for ``cuda`` without a card."""
     return _checked(_DEVICE)
+
+
+@contextmanager
+def full_float32() -> Iterator[None]:
+    """Matrix products in full float32 (TF32 off) for the block, under
+    :data:`_TF32_LOCK`: the switch is process-wide."""
+    with _TF32_LOCK:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def to_host(x: torch.Tensor, dtype: Any = None) -> np.ndarray:

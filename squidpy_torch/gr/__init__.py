@@ -1,6 +1,6 @@
 """The graph module of the port: spatial graphs (kNN, radius, Delaunay, grid, a custom builder, polygon
 masking), neighbourhood enrichment, interaction matrix, group centralities, co-occurrence, spatial
-autocorrelation, Ripley's statistics, the receptor-ligand permutation test and sepal."""
+autocorrelation, Ripley's statistics, the receptor-ligand permutation test, sepal and niches."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from squidpy_torch.gr._build import (
     spatial_neighbors_radius,
 )
 from squidpy_torch.gr._ligrec import LigrecFrame, LigrecResult, PermutationTest, PermutationTestABC, ligrec
+from squidpy_torch.gr._niche import calculate_niche
 from squidpy_torch.gr._nhood import (
     CentralityResult,
     NhoodEnrichmentResult,
@@ -26,9 +27,11 @@ from squidpy_torch.gr._nhood import (
 from squidpy_torch.gr._ppatterns import AutocorrResult, co_occurrence, spatial_autocorr
 from squidpy_torch.gr._ripley import RipleyTable, ripley
 from squidpy_torch.gr._sepal import SepalResult, sepal
+from squidpy_torch.gr.neighbors import GraphMatrixT
 
 __all__ = [
     "AutocorrResult",
+    "GraphMatrixT",
     "CentralityResult",
     "LigrecFrame",
     "LigrecResult",
@@ -38,6 +41,7 @@ __all__ = [
     "RipleyTable",
     "SepalResult",
     "SpatialNeighborsResult",
+    "calculate_niche",
     "centrality_scores",
     "co_occurrence",
     "interaction_matrix",

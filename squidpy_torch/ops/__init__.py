@@ -12,5 +12,10 @@
 - :mod:`squidpy_torch.ops.knn` — K8, the cross nearest-neighbour search (``csrc/cross_knn.cu``),
   :func:`squidpy_torch.ops.knn.nearest_points`;
 - :mod:`squidpy_torch.ops.ligrec` — K9, ligrec's permutation counts (``csrc/ligrec_perms.cu``);
-- :mod:`squidpy_torch._core.rng` — K10, the threefry shuffles (``csrc/threefry.cu``).
+- :mod:`squidpy_torch._core.rng` — K10, the threefry shuffles (``csrc/threefry.cu``);
+- :mod:`squidpy_torch.ops.sepal` — K11, sepal's diffusion (``csrc/sepal.cu``);
+- :mod:`squidpy_torch.ops.knn` — K12, the exact feature-space kNN of the niches (``csrc/feature_knn.cu``),
+  :func:`squidpy_torch.ops.knn.feature_knn`;
+- :mod:`squidpy_torch.ops.hops` — K13, the k-hop ring and reach expansion (``csrc/hops.cu``);
+- :mod:`squidpy_torch.ops.pca`, :mod:`squidpy_torch.ops.gmm` — the niches' PCA and GMM, torch library calls.
 """

@@ -10,13 +10,14 @@ distances for the winners. The radius search is kernel K6 on the card
 points (:func:`cross_knn`, and Ripley's batches of simulated clouds) is
 kernel K8 on the card (``csrc/cross_knn.cu``, :func:`nearest_points`): an
 exact search of a cell grid that K6's kernels build, on the card, or for
-small inputs a scan of every point.
+small inputs a scan of every point. The exact search of the niche
+features' nearest other rows (:func:`feature_knn`) is kernel K12 on the
+card (``csrc/feature_knn.cu``).
 """
 
 from __future__ import annotations
 
 import math
-import threading
 from typing import Any
 
 import numpy as np
@@ -24,7 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from squidpy_torch import _cuda
-from squidpy_torch._device import get_device, to_host
+from squidpy_torch._device import full_float32, get_device, to_host
 from squidpy_torch.ops.radius import (_GAP_MARGIN, _bin_k6, _event, _grid_bounds_k6, _knn_grid_geometry,
                                      _sqrt_rn, radius_pairs)
 
@@ -32,6 +33,7 @@ __all__ = [
     "auto_knn",
     "brute_force_knn",
     "cross_knn",
+    "feature_knn",
     "nearest_points",
     "pairwise_sq_dists",
     "pairwise_sq_dists_exact",
@@ -56,11 +58,6 @@ _K8_SCAN_MAX_POINTS = 4096
 _K8_SCAN_MAX_PAIRS = 1 << 28
 _NAN_D2_BITS = 0x7FC00000  # the key bits of a NaN d2, after +inf
 _PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 26}  # (rows, n) temporaries of K8's plain version
-
-# the TF32 switch is process-wide; graphs built in threads (library_key with
-# n_jobs > 1) must not restore it under each other's products
-_TF32_LOCK = threading.Lock()
-
 
 def auto_knn(coords: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     """Exact kNN: device brute force for n <= 50k, host KDTree beyond."""
@@ -87,13 +84,8 @@ def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     runs in full float32 (TF32 off for the call)."""
     a2 = (a * a).sum(dim=1, keepdim=True)
     b2 = (b * b).sum(dim=1, keepdim=True)
-    with _TF32_LOCK:
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            cross = a @ b.T
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
+    with full_float32():
+        cross = a @ b.T
     return torch.clamp_min(a2 + b2.T - 2.0 * cross, 0.0)
 
 
@@ -243,6 +235,75 @@ def _nearest_grid(queries: torch.Tensor, data: torch.Tensor, k: int, stats: dict
         tests, most, rings, most_rings, scanning = (int(v) for v in counters.cpu())
         stats.update(side=side, dims=dims, cells=math.prod(dims), points=finite, tests=tests, most_tests=most,
                      rings=rings, most_rings=most_rings, scanning=scanning, queries=m * n_sets)
+    return dist, idx
+
+
+def _feature_pad(d: int) -> int:
+    """K12's padded feature width: a multiple of 8 up to 64, of 32 above."""
+    return -(-max(d, 1) // 8) * 8 if d <= 64 else -(-d // 32) * 32
+
+
+def _feature_knn_plain(x: torch.Tensor, k: int, stop: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K12: row tiles of difference-form ``d2``
+    against every row, the row itself excluded, the k least keys
+    ``bits(d2) << 32 | index`` by ``torch.topk``, correctly rounded roots;
+    for the rows before ``stop`` only, if given."""
+    n = x.shape[0]
+    m = n if stop is None else min(stop, n)
+    dev = x.device
+    dist = torch.empty((m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    rows = max(1, _PLAIN_PAIRS[dev.type] // max(n, 1))
+    col = torch.arange(n, dtype=torch.int64, device=dev)
+    for r0 in range(0, m, rows):
+        d2 = pairwise_sq_dists_exact(x[r0 : min(r0 + rows, m)], x)
+        bits = torch.where(torch.isnan(d2), _NAN_D2_BITS, d2.view(torch.int32)).to(torch.int64)
+        keys = (bits << 32) | col
+        own = torch.arange(d2.shape[0], device=dev)
+        keys[own, r0 + own] = torch.iinfo(torch.int64).max
+        keys = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
+        idx[r0 : r0 + rows] = (keys & 0xFFFFFFFF).to(torch.int32)
+        dist[r0 : r0 + rows] = _sqrt_rn((keys >> 32).to(torch.int32).view(torch.float32))
+    return dist, idx
+
+
+def feature_knn(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K12: the ``k`` nearest other rows of the feature matrix ``x``
+    (n, d), ascending: distances (n, k) float32 and indices (n, k) int32.
+
+    Rows rank by difference-form ``d2`` in axis order (each operation
+    rounded), ties to the lowest index, the row itself excluded by index;
+    distances are correctly rounded roots. A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel on ``x`` padded with zero
+    columns to K12's width (a zero column adds exactly +0 to every d2). A k
+    above 32 takes a slower branch."""
+    if x.ndim != 2:
+        raise ValueError(f"Expected a feature matrix (n, d), found shape {tuple(x.shape)}.")
+    n, d = x.shape
+    if not 1 <= k < n:
+        raise ValueError(f"Expected `n_neighs` < number of observations ({n}), found `{k}`.")
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        return _feature_knn_plain(x.contiguous(), k)
+    return _feature_knn_k12(x, k)
+
+
+def _feature_knn_k12(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12's launch on the float32 (n, d) CUDA tensor ``x``, zero-padded to
+    the kernel's width, with a scratch list a row for k above 32."""
+    n, d = x.shape
+    dp = _feature_pad(d)
+    if n >= 2**31 or n * max(k, dp) >= 2**40:
+        raise ValueError("K12 takes fewer than 2^31 rows.")
+    xp = x.contiguous() if dp == d else torch.nn.functional.pad(x, (0, dp - d)).contiguous()
+    _cuda.require(xp, "x", torch.float32, (n, dp))
+    dist = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((n, k), dtype=torch.int32, device=x.device)
+    scratch = torch.full((n, k), -1, dtype=torch.int64, device=x.device) if k > _K8_REGISTER_K else None
+    code = _cuda.library().sqt_feature_knn(xp.data_ptr(), n, dp, k, None if scratch is None else scratch.data_ptr(),
+                                           dist.data_ptr(), idx.data_ptr(), _cuda.stream_ptr())
+    _cuda.check(code, "feature_knn")
+    _cuda.launches["feature_knn"] += 1
     return dist, idx
 
 

@@ -151,3 +151,36 @@ def test_library_key_graph_matches_jax(n_jobs):
     codes = libs.codes
     assert all(codes[i] == codes[j] for i, j in zip(*cb.nonzero()))
     np.testing.assert_allclose(b.obsp["spatial_distances"].data, a.obsp["spatial_distances"].data, rtol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_row_normalize_spmv_and_to_csr_match_jax(weighted):
+    """``row_normalize``, ``spmv`` (a matrix through K5a's plain version, and
+    a vector) and ``to_csr`` against the JAX package's, float32. The
+    normalised weights are bitwise on binary graphs (exact row sums), and
+    on weighted ones within 4 ulps (each package sums a row in its own
+    order); the products within 1e-6 (XLA on the CPU fuses ``w * x`` into
+    the sum's adds, K5a rounds each)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(3)
+    n = 300
+    pts = rng.uniform(0, 100, (n, 2))
+    _, nb = cKDTree(pts).query(pts, k=7)
+    w = rng.uniform(0.5, 2.0, n * 6) if weighted else np.ones(n * 6)
+    adj = sp.csr_matrix((w, (np.repeat(np.arange(n), 6), nb[:, 1:].ravel())), shape=(n, n))
+    adj = adj.maximum(adj.T).tocsr()
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    gt = SpatialGraph.from_csr(adj, dtype=np.float32).row_normalize()
+    gj = JaxSpatialGraph.from_csr(adj, dtype=jnp.float32).row_normalize()
+    tol = {} if not weighted else dict(rtol=4 * np.finfo(np.float32).eps)
+    assert_close = np.testing.assert_allclose if weighted else np.testing.assert_array_equal
+    assert_close(gt.weights.numpy(), np.asarray(gj.weights), **tol)
+    mat_t, mat_j = gt.spmv(torch.from_numpy(x)).numpy(), np.asarray(gj.spmv(jnp.asarray(x)))
+    vec_t, vec_j = gt.spmv(torch.from_numpy(x[:, 0])).numpy(), np.asarray(gj.spmv(jnp.asarray(x[:, 0])))
+    np.testing.assert_allclose(mat_t, mat_j, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(vec_t, vec_j, rtol=1e-6, atol=1e-6)
+    at, _ = gt.to_csr()
+    aj, _ = gj.to_csr()
+    assert (at != aj).nnz == 0 or np.allclose(at.toarray(), aj.toarray(), rtol=4 * np.finfo(np.float32).eps)
+    assert at.shape == (n, n) and at.nnz == adj.nnz

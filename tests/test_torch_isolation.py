@@ -57,6 +57,11 @@ _SLICE = textwrap.dedent(
     sqt.gr.spatial_autocorr(adata, mode="geary")
     assert np.isfinite(adata.uns["moranI"].columns["pval_sim"]).all()
     assert sorted(adata.uns["gearyC"].index) == adata.var_names
+    sqt.gr.calculate_niche(adata, flavor="neighborhood", groups="cl", n_neighbors=10, resolutions=0.5, distance=2)
+    sqt.gr.calculate_niche(adata, flavor="utag", n_neighbors=10, resolutions=[0.5])
+    sqt.gr.calculate_niche(adata, flavor="cellcharter", n_components=3)
+    assert adata.obs["nhood_niche_res=0.5"].shape == adata.obs["utag_niche_res=0.5"].shape == (n,)
+    assert adata.obs["cellcharter_niche"].dtype.kind == "i"
     sqt.gr.spatial_neighbors_radius(adata, radius=(2.0, 15.0), key_added="radius")
     sqt.gr.nhood_enrichment(adata, "cl", connectivity_key="radius", n_perms=20, seed=0)
     sqt.gr.spatial_autocorr(adata, connectivity_key="radius_connectivities", mode="moran", n_perms=10, seed=0)

@@ -194,13 +194,22 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    Visium section (resident), each with a ``[diag] sepal`` line; on part
    g's own inputs: K12 on g1's 200k x 16 z-scored profiles and g2's 200k x
    50 embedding (its plain version on the first 20,000 rows; ``torch.cdist``
-   + ``torch.topk`` in row chunks as the yardstick), K13 on every hop of g1
-   (reach) and g3 (rings, 1M rows) in full; then K12 above its register list
-   (k = 40), at 100 and 256 features (the chunked sum) with duplicate and
-   NaN rows, and K13 with its warp capacity lowered to 64 (the block
-   route), on a weighted graph, and on a k = 20 graph's hop 3, whose rows
-   pass the warp's shared memory; K5a on an ELL 1024 slots wide (the
-   widest hop bucket).
+   + ``torch.topk`` in row chunks as the yardstick), timed in turns with its
+   exact route on every row (the earlier design), with a ``[diag]
+   feature_knn`` line (the route, candidates a row, rows on the exact
+   route), K13 on every hop of g1 (reach; ``torch.sparse.mm`` of the CSR
+   ring by the CSR base as the yardstick) and g3 (rings, 1M rows) in full,
+   with a ``[diag] hops`` line (read-backs a hop, counted as host syncs by
+   ``torch.cuda.set_sync_debug_mode`` and asserted 1, key width, listed
+   rows); then K12 with
+   shared lists (k = 40), at 100 and 256 features (the exact route, a
+   chunked sum) with duplicate and NaN rows, on g1's rows plus a common
+   offset of 1000, on exact ties in {0, 1, 2}^8 and on ~5000 copies of each
+   row (the exact route, asserted), and K13 with its warp capacity lowered
+   to 64 (the block route), with 64-bit keys on g3's hop 3, with a staging
+   width of 8 (late rows, asserted), on a weighted graph, and on a k = 20
+   graph's hop 3, whose rows pass the warp's shared memory (asserted); K5a
+   on an ELL 1024 slots wide (the widest hop bucket).
    Integer kernels
    (K1-K4, K7, K9, K10), K11 (its steps and state), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
@@ -270,6 +279,7 @@ LIGREC_CELLS, LIGREC_GENES, LIGREC_CLS, LIGREC_PERMS = 1_000_000, 380, 16, 1000 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; 32-bit integer ops are counted at it too
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core operations (K12's filter runs its products in bf16)
 SUM_TOL = 1e-5  # float sums: |kernel - plain| <= SUM_TOL * sum |terms|
 
 
@@ -3171,7 +3181,7 @@ def sepal_kernel_checks(data: dict) -> dict[str, list[dict]]:
 NICHE_CELLS = 200_000  # g1, g2: the largest section the JAX package clusters on its exact kNN graph
 NICHE_BIG_CELLS = 1_000_000  # g3: cellcharter builds no kNN graph
 NICHE_GENES, NICHE_TYPES, NICHE_DOMAINS = 300, 16, 12
-NICHE_CUT = 20_000  # g1 card vs CPU: a corner of the 200k cells, at the device branches' threshold
+NICHE_CUT = 20_000  # g1 card vs CPU: a corner of the 200k cells, above the device branches' threshold
 K12_PLAIN_ROWS = 20_000  # K12's plain version on the first rows of its full-size input
 K12_LIBRARY_ROWS = 4096  # torch.cdist + torch.topk in row chunks
 NICHE_CALLS = {
@@ -3301,8 +3311,13 @@ def niche_path() -> tuple[dict, dict, dict, dict]:
 
 
 def _k12_bound(n: int, d: int, k: int) -> tuple[float, str]:
-    # three operations a feature a pair; the input read once, the outputs written once
-    return _bound(4.0 * n * d + 8.0 * n * k, 3.0 * d * float(n) * n)
+    """Least milliseconds of any route: the n^2 products of d features (2 d n^2)
+    at the dense bf16 tensor rate (the operand type of K12's filter), one key
+    compare a pair at the float32 rate, or the input read once and the
+    outputs written once."""
+    t_ops = max(2.0 * d * float(n) * n / BF16_OPS_PER_S, float(n) * n / F32_OPS_PER_S)
+    t_bytes = (4.0 * n * d + 8.0 * n * k) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _k12_library(x, k: int):
@@ -3316,16 +3331,62 @@ def _k12_library(x, k: int):
     return torch.cat(out)
 
 
-def check_feature_knn(name: str, x, k: int, plain_rows: int | None = None, library: bool = False) -> dict:
+def _turns(new, old, repeats: int) -> tuple[object, list[float], list[float]]:
+    """Two designs of a kernel in turns (old, new, new, old), each turn
+    ``repeats`` calls timed by CUDA events, a turn's first after one
+    warm-up call: the new design's last result, and both designs' ms."""
+    new_ms, old_ms = [], []
+    old_out, t = _time_ms(old, repeats)
+    old_ms.append(t)
+    for warm in (True, False):
+        out, t = _time_ms(new, repeats, warm=warm)
+        new_ms.append(t)
+    _, t = _time_ms(old, repeats, warm=False)
+    old_ms.append(t)
+    return (out, old_out), new_ms, old_ms
+
+
+def _same(a, b) -> bool:
+    """Equal tuples of tensors (or Nones), NaN equal to NaN."""
+    import torch
+
+    for g, w in zip(a, b):
+        if g is None or w is None:
+            if (g is None) != (w is None):
+                return False
+            continue
+        if g.shape != w.shape:
+            return False
+        eq = (g == w) | (torch.isnan(g) & torch.isnan(w)) if g.is_floating_point() else g == w
+        if not bool(eq.all()):
+            return False
+    return True
+
+
+def check_feature_knn(name: str, x, k: int, plain_rows: int | None = None, library: bool = False,
+                      turns: bool = False, exact_rows: bool | None = None) -> dict:
     """K12 on ``x`` (n, d) against its plain version, bitwise, on the first
-    ``plain_rows`` rows (all by default); with ``library``, the time of
-    ``torch.cdist`` + ``torch.topk`` on the same input."""
+    ``plain_rows`` rows (all by default); with ``turns``, timed in turns
+    with its exact route on every row (the earlier single-route design),
+    which must agree too; with ``library``, the time of ``torch.cdist`` +
+    ``torch.topk`` on the same input. A ``[diag] feature_knn`` line gives
+    the route, the candidates a row re-ranked (mean, largest) and the rows
+    on the exact route (``exact_rows`` asserts whether there are any)."""
     import torch
 
     from squidpy_torch.ops import knn
 
     n, d = x.shape
-    (dist, idx), ms = _time_ms(lambda: knn.feature_knn(x, k), 3)
+    stats: dict = {}
+    knn._feature_knn_k12(x, k, stats=stats)
+    if turns:
+        ((dist, idx), old), new_ms, old_ms = _turns(lambda: knn.feature_knn(x, k),
+                                                    lambda: knn._feature_knn_k12(x, k, route="exact"), 2)
+        ms = sum(new_ms) / len(new_ms)
+        if not _same((dist, idx), old):
+            raise AssertionError(f"{name}: K12's routes differ")
+    else:
+        (dist, idx), ms = _time_ms(lambda: knn.feature_knn(x, k), 3)
     (pd_, pi), plain_ms = _time_ms(lambda: knn._feature_knn_plain(x, k, stop=plain_rows), 1, warm=False)
     m = pd_.shape[0]
     both_nan = torch.isnan(dist[:m]) & torch.isnan(pd_)
@@ -3336,6 +3397,17 @@ def check_feature_knn(name: str, x, k: int, plain_rows: int | None = None, libra
     bound = _k12_bound(n, d, k)
     print(f"[kernel] {name}: max_abs_err={err} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (rows {m} of {n}) "
           f"bound_ms={bound[0]:.4f} ({bound[1]})" + (f" library_ms={library_ms:.3f}" if library else ""), flush=True)
+    line = f"[diag] feature_knn {name}: route={stats['route']}"
+    if stats["route"] == "filter":
+        line += (f" candidates_a_row_mean={stats['candidates_mean']:.1f} candidates_a_row_max={stats['candidates_max']}"
+                 f" exact_route_rows={stats['exact_rows']}")
+        if exact_rows is not None and (stats["exact_rows"] > 0) != exact_rows:
+            raise AssertionError(f"{name}: {stats['exact_rows']} rows on the exact route, expected "
+                                 f"{'some' if exact_rows else 'none'}")
+    if turns:
+        line += " turns (old, new, new, old): exact_route_ms=" + "/".join(f"{t:.3f}" for t in old_ms) + \
+                " filter_ms=" + "/".join(f"{t:.3f}" for t in new_ms)
+    print(line, flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms}
 
@@ -3355,19 +3427,66 @@ def _k13_bound(args, out) -> tuple[float, str]:
     return _bound(nbytes, 0.0)
 
 
-def check_hops(name: str, args, cap: int | None = None) -> dict:
+def _ell_csr(idx, w):
+    """A padded ELL (index n pads) as a torch CSR tensor (n, n)."""
+    import torch
+
+    n = idx.shape[0]
+    live = idx < n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    crow[1:] = torch.cumsum(live.sum(dim=1), dim=0)
+    return torch.sparse_csr_tensor(crow, idx[live].to(torch.int64), w[live], size=(n, n))
+
+
+def _host_syncs(fn) -> tuple[object, int]:
+    """``fn()``'s result and the host syncs it made, as
+    ``torch.cuda.set_sync_debug_mode`` counts them: one warning "called a
+    synchronizing CUDA operation" each synchronizing torch call (a
+    read-back). The mode does not see syncs inside the C interfaces, which
+    call no synchronizing CUDA function. The count is checked on one
+    ``tolist`` first."""
+    import warnings
+
+    import torch
+
+    def counted(f):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = f()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    if counted(lambda: torch.ones(1, device="cuda").tolist())[1] != 1:
+        raise AssertionError("torch.cuda.set_sync_debug_mode did not count one read-back as one sync")
+    return counted(fn)
+
+
+def check_hops(name: str, args, library: bool = False, **kw) -> dict:
     """K13 on one hop's inputs ``args`` against its plain version: every
-    output bitwise (the ring, its degrees, the visited ELL and its values)."""
+    output bitwise (the ring, its degrees, the visited ELL and its values);
+    ``kw`` go to the wrapper (``cap``, ``key_bits``, ``stage_width``). With
+    ``library`` (a reach hop), the time of ``torch.sparse.mm`` of the CSR
+    ring by the CSR base (its output is a CSR, not the bucketed ELL). A
+    ``[diag] hops`` line gives the read-backs of one hop (host syncs,
+    :func:`_host_syncs`), the key width and the listed rows."""
     import torch
 
     from squidpy_torch.ops import hops
 
-    kw = {} if cap is None else {"cap": cap}
+    stats: dict = {}
+    hops._hop_k13(*args, stats=stats, **kw)
+    _, syncs = _host_syncs(lambda: hops._hop_k13(*args, **kw))
     got, ms = _time_ms(lambda: hops._hop_k13(*args, **kw), 3)
     want, plain_ms = _time_ms(lambda: hops._hop_plain(*args), 1, warm=False)
-    for g, w in zip(got, want):
-        if (g is None) != (w is None) or (g is not None and (g.shape != w.shape or not torch.equal(g, w))):
-            raise AssertionError(f"{name}: K13 and its plain version differ")
+    if not _same(got, want):
+        raise AssertionError(f"{name}: K13 and its plain version differ")
+    library_ms = None
+    if library:
+        ring, base = _ell_csr(args[2], args[3]), _ell_csr(args[0], args[1])
+        library_ms = _time_ms(lambda: torch.sparse.mm(ring, base), 3)[1]
     bound = _k13_bound(args, got)
     n = args[0].shape[0]
     elems = int((args[2] < n).sum()) * args[0].shape[1]
@@ -3375,10 +3494,13 @@ def check_hops(name: str, args, cap: int | None = None) -> dict:
           f"({bound[1]}) rows={n} ring_width={args[2].shape[1]} visited_width="
           f"{args[4].shape[1] if args[4] is not None else 0} out_widths={got[0].shape[1]},"
           f"{got[2].shape[1] if got[2] is not None else 0} candidates={elems} "
-          f"gathered_mb={8.0 * elems / 1e6:.1f} (every candidate's base entry; the bound reads each base row once)",
-          flush=True)
+          f"gathered_mb={8.0 * elems / 1e6:.1f} (every candidate's base entry; the bound reads each base row once)"
+          + (f" library_ms={library_ms:.3f} (torch.sparse.mm, CSR out)" if library else ""), flush=True)
+    print(f"[diag] hops {name}: readbacks_a_hop={syncs} (host syncs) key_bits={stats['key_bits']} "
+          f"rows_past_warp={stats['over_rows']} late_rows={stats['late_rows']} w_stage={stats['w_stage']} "
+          f"v_stage={stats['v_stage']}", flush=True)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None}
+            "library_ms": library_ms, "stats": {**stats, "readbacks": syncs}}
 
 
 def _knn_ell(n: int, k: int, seed: int, weighted: bool = False):
@@ -3415,42 +3537,66 @@ def _ring1_args(bi, bw, visited: bool):
 def niche_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
     """K12 and K13 against their plain versions: first on part g's own
     inputs (K12 on g1's z-scored profiles and g2's PCA embedding, at 200k
-    rows, its plain version on the first 20,000; K13 on every hop of g1 and
-    g3 in full), then in the branches the path does not take; and K5a on
-    an ELL of the widest hop bucket (1024)."""
+    rows, its plain version on the first 20,000, in turns with its exact
+    route on every row; K13 on every hop of g1 and g3 in full, one read-back
+    a hop asserted), then in the branches the path does not take;
+    and K5a on an ELL of the widest hop bucket (1024)."""
+    import torch
+
     checks = {"feature_knn": [], "hops": []}
     for part in ("g1", "g2"):
         x, k = inputs[part].knn[0]
         checks["feature_knn"].append(check_feature_knn(f"feature_knn {part} {tuple(x.shape)} k={k}", x, k,
-                                                       plain_rows=K12_PLAIN_ROWS, library=True))
+                                                       plain_rows=K12_PLAIN_ROWS, library=True, turns=True))
     for part in ("g1", "g3"):
         for i, args in enumerate(inputs[part].hops):
-            checks["hops"].append(check_hops(f"hops {part} hop {i + 2} "
-                                             f"({'rings' if args[4] is not None else 'reach'})", args))
-    import torch
+            mode = "rings" if args[4] is not None else "reach"
+            check = check_hops(f"hops {part} hop {i + 2} ({mode})", args, library=mode == "reach")
+            if check["stats"]["readbacks"] != 1 or check["stats"]["late_rows"]:
+                raise AssertionError(f"hops {part} hop {i + 2}: more than one read-back, or late rows")
+            checks["hops"].append(check)
 
     x, k = inputs["g1"].knn[0]
-    # branches: the global list (k > 32), 100 and 256 features (a chunked
-    # sum), duplicate rows, non-finite rows; K13 with the warp capacity
-    # lowered (the block route), weighted rows, and rows past shared memory
-    checks["feature_knn"].append(check_feature_knn("feature_knn k=40", x[:20_000].contiguous(), 40))
+    # branches: shared lists (k = 40), 100 and 256 features (the exact
+    # route, a chunked sum) with duplicate and non-finite rows, a common
+    # offset (centred away), exact ties (rows past the cap: the exact
+    # route); K13 with the warp capacity lowered (the block route), 64-bit
+    # keys, rows past the staging widths, weighted rows, rows past shared memory
+    checks["feature_knn"].append(check_feature_knn("feature_knn k=40", x[:20_000].contiguous(), 40,
+                                                   exact_rows=False))
     rng = np.random.default_rng(5)
     for n, d in ((20_000, 100), (5000, 256)):
         y = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
         y[7] = y[3]
         y[11, 5] = float("nan")
         checks["feature_knn"].append(check_feature_knn(f"feature_knn {n}x{d} k=15", y, 15))
-    g1_hop3 = inputs["g1"].hops[-1]
+    y = x[:20_000] + 1000.0
+    checks["feature_knn"].append(check_feature_knn("feature_knn g1 cut + 1000 (a common offset) k=15", y, 15,
+                                                   exact_rows=False))
+    y = torch.from_numpy(rng.integers(0, 3, size=(20_000, 8)).astype(np.float32)).cuda()
+    checks["feature_knn"].append(check_feature_knn("feature_knn 20000x8 in {0,1,2} (exact ties) k=15", y, 15))
+    y = torch.from_numpy(rng.integers(0, 2, size=(20_000, 2)).astype(np.float32)).cuda()
+    checks["feature_knn"].append(check_feature_knn("feature_knn 20000x2 in {0,1} (~5000 copies a row: past the "
+                                                   "cap) k=15", y, 15, exact_rows=True))
+    from squidpy_torch.ops import hops
+
+    g1_hop3, g3_hop3 = inputs["g1"].hops[-1], inputs["g3"].hops[-1]
     checks["hops"].append(check_hops("hops g1 hop 3, warp capacity 64 (block route)", g1_hop3, cap=64))
+    checks["hops"].append(check_hops("hops g3 hop 3, 64-bit keys", g3_hop3, key_bits=64))
+    late = check_hops("hops g1 hop 3, staging width 8 (late rows)", g1_hop3, stage_width=8)
+    if not late["stats"]["late_rows"]:
+        raise AssertionError("hops: no late rows at a staging width of 8")
+    checks["hops"].append(late)
     bi, bw = _knn_ell(50_000, 6, 9, weighted=True)
     checks["hops"].append(check_hops("hops weighted 50k rings hop 2", _ring1_args(bi, bw, True)))
     bi, bw = _knn_ell(50_000, 20, 10)
     args = _ring1_args(bi, bw, True)
-    from squidpy_torch.ops import hops
-
     out = hops._hop_k13(*args)
     args3 = (bi, bw, out[0], (out[0] < bi.shape[0]).to(torch.float32), out[2], out[3])
-    checks["hops"].append(check_hops("hops 50k k=20 rings hop 3 (rows past the warp's shared memory)", args3))
+    past = check_hops("hops 50k k=20 rings hop 3 (rows past the warp's shared memory)", args3)
+    if not past["stats"]["over_rows"]:
+        raise AssertionError("hops: no row past the warp's shared memory on the k = 20 graph's hop 3")
+    checks["hops"].append(past)
     # K5a takes the hops' ELLs at any bucketed width (it walks a row's slots
     # 32 at a time): the widest bucket, 1024, a quarter of each row padded
     n, k = 20_000, 1024
@@ -3510,7 +3656,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.library()
-    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] {time.perf_counter() - t0:.1f} s; seconds to each source's end (all started together): "
+          + " ".join(f"{k}={v:.1f}" for k, v in sorted(_cuda.build_seconds.items(), key=lambda kv: -kv[1])),
+          flush=True)
     func = ""
     for line in _cuda.build_log.splitlines():
         if "Function properties for" in line:

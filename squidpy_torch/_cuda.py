@@ -19,10 +19,17 @@ sort; ``threefry_grouped``: the scatter and the sort of its grouped entry
 of up to 64 streaming passes, one kernel each) counts each call into that
 interface, which may start more than one CUDA kernel. K11's two routes
 count under their own names (``sepal_diffusion``, the streaming route, and
-``sepal_resident``). K13 (``hops``) counts each call into its C
-interface: a hop's count and emit passes by the warp route, and by the
-block route when a row needs it. K8's wrapper bins its points and queries by K6's bounds, bin and scatter,
-and those calls count as K6's.
+``sepal_resident``). K12 (``feature_knn``) counts its filter's call and
+the exact route's call on the rows the filter listed (one call on the
+exact route alone above 64 features). K13 (``hops``) counts each call into its C
+interface: a hop's warp route, its block route over the rows past a
+warp's capacity (launched every hop, on the device's count), the copy into
+the bucketed ELLs, and the block route over the late rows when there are
+any. K8's wrapper bins its points and queries by K6's bounds, bin and
+scatter, and those calls count as K6's.
+
+``build_seconds`` gives, after a build in this process, each source's
+seconds from the start of all compiles to the end of its own, and the link's.
 """
 
 from __future__ import annotations
@@ -33,11 +40,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build_log", "check", "device_info", "launches", "library", "require", "reset_launches",
+__all__ = ["KERNELS", "build_log", "build_seconds", "check", "device_info", "launches", "library", "require", "reset_launches",
            "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent
@@ -75,6 +83,7 @@ launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 build_log = ""
+build_seconds: dict[str, float] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,10 +125,13 @@ _SIGNATURES = {
     "sqt_sepal_passes": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P],
     "sqt_sepal_resident": [_P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P],
-    "sqt_feature_knn": [_P, _I, _I, _I, _P, _P, _P, _P],
-    "sqt_hops_rows": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "sqt_hops_overflow": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
-                          _P, _P],
+    "sqt_feature_knn": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sqt_feature_knn_filter": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
+    "sqt_hops_warp": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P],
+    "sqt_hops_block": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _L, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _I, _I, _P, _P, _P, _P],
+    "sqt_hops_place": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],
@@ -148,25 +160,34 @@ def _compile(sources: list[Path], so: Path) -> str:
     objs = _BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
     objs.mkdir(exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = [(src, subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
              for src in sources]
-    logs = []
+    logs, done = {}, {}
+
+    def wait(src: Path, proc: subprocess.Popen) -> None:
+        logs[src] = proc.communicate()[1]
+        done[src.name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=pair) for pair in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     for src, proc in procs:
-        err = proc.communicate()[1]
         if proc.returncode != 0:
-            for _, other in procs:
-                other.kill()
-                other.wait()
-            raise RuntimeError(f"nvcc failed on {src.name} with exit code {proc.returncode}:\n{err}")
-        logs.append(err)
+            raise RuntimeError(f"nvcc failed on {src.name} with exit code {proc.returncode}:\n{logs[src]}")
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(objs / f"{src.stem}.o") for src in sources)],
                           capture_output=True, text=True, check=False)
+    done["link"] = time.perf_counter() - t0
     shutil.rmtree(objs, ignore_errors=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc failed to link with exit code {link.returncode}:\n{link.stderr}")
+    build_seconds.clear()
+    build_seconds.update(done)
     os.replace(tmp, so)
-    return "".join(logs)
+    return "".join(logs[src] for src, _ in procs)
 
 
 def _load(so: Path) -> ctypes.CDLL:

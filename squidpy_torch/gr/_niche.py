@@ -4,7 +4,7 @@ Flavors: ``neighborhood`` (n-hop weighted neighbour-category profiles ->
 Leiden on their kNN graph), ``utag`` (row-normalised ``A @ X`` -> PCA ->
 Leiden), ``cellcharter`` (k-hop mean or variance aggregation -> PCA -> GMM)
 and ``spatialleiden`` (gated on the optional package). From
-``_DEVICE_HOPS_MIN_N`` cells the hop patterns come from kernel K13
+``_DEVICE_HOPS_MIN_N`` (1,000) cells the hop patterns come from kernel K13
 (:mod:`squidpy_torch.ops.hops`) and every sparse product from kernel K5a;
 the kNN search is kernel K12; below, the JAX package's scipy host branches
 run here too.
@@ -37,8 +37,15 @@ __all__ = ["calculate_niche"]
 logger = logging.getLogger(__name__)
 
 # below this many cells the profiles and hop features take the scipy host
-# branches, as in the JAX package
-_DEVICE_HOPS_MIN_N = 20_000
+# branches (the JAX package switches at 20,000, its TPU setting). On one
+# H100 (NVIDIA H100 80GB HBM3, 700.00 W; examples/niche_crossover.py, 10
+# calls a branch and size) the device branch took 11.7 / 19.5 / 33.6 / 78.5
+# ms a neighborhood call at 1k / 2k / 5k / 10k cells against the host
+# branch's 13.1 / 25.2 / 48.2 / 117.8 ms, and 0.405 / 0.543 s a cellcharter
+# call at 5k / 10k against 0.588 / 0.865 s (its float32 GMM fails at 1k and
+# 2k cells of that data in both branches). The device branch is ahead from
+# the smallest size measured, 1,000 cells; smaller sections are unmeasured.
+_DEVICE_HOPS_MIN_N = 1_000
 _NOT_A_NICHE = "not_a_niche"
 
 

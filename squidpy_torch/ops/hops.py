@@ -17,12 +17,17 @@ graphs a ring set may differ only where ``run_w`` and ``run_v`` lie
 within a few ulps, and a visited value, which the port keeps as it is,
 by a few ulps of the row's total.
 
-Each hop runs as in the JAX package: a count pass, one read-back of the
-maximum degrees (and of the rows past a warp's shared memory, which a
-block each then takes through device memory), and an emit pass.
+On the card each row is gathered and sorted once a hop: K13's warp route
+stages each row's kept entries at widths chosen from the input widths, the
+rows past a warp's shared memory take a block each through device memory
+in the same stream, one read-back gives the maximum degrees and the count
+of rows past the staging widths, and a copy places the staged rows into
+the bucketed ELLs (:func:`_hop_k13`).
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
@@ -36,9 +41,14 @@ __all__ = ["ell_sentinel", "hop_expand", "hop_reach", "hop_rings"]
 _WIDTH_BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 
 # K13's warp route keeps up to this many of a row's candidates and visited
-# entries in shared memory (csrc/hops.cu kCapMax); a longer row takes the
-# block route through device memory
-_K13_WARP_CAP = 512
+# entries in shared memory as one packed word each (csrc/hops.cu
+# kCapPacked), or this many 64-bit keys and weights (kCapWide); a longer
+# row takes the block route through device memory, a few hundred blocks at
+# a time
+_K13_WARP_CAP = 1024
+_K13_WARP_CAP_64 = 512
+_K13_BLOCKS = 264
+_K13_SCRATCH_BYTES = 1 << 28
 _PLAIN_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}  # (rows, W) temporaries of the plain version
 
 
@@ -162,62 +172,120 @@ def _launch(entry: str, *args) -> None:
     _cuda.launches["hops"] += 1
 
 
-def _hop_k13(base_idx, base_w, ring_idx, ring_w, vis_idx, vis_val, cap: int = _K13_WARP_CAP):
-    """K13: one hop of every row on the card. The count pass writes each
-    row's degrees, or lists the row when its candidates and visited entries
-    exceed ``cap``; one read-back gives the maximum degrees and the count
-    of listed rows, which a block each then counts through device memory
-    (one more read-back for their scratch); the emit pass writes the ELLs
-    at the bucketed widths."""
+def _check_hop_args(base_idx, base_w, ring_idx, ring_w, vis_idx, vis_val) -> None:
     n, k1 = base_idx.shape
     r_width = ring_idx.shape[1]
-    use_vis = vis_idx is not None
-    v_width = vis_idx.shape[1] if use_vis else 0
-    if not 1 <= cap <= _K13_WARP_CAP:
-        raise ValueError(f"K13's warp capacity must lie in [1, {_K13_WARP_CAP}], found {cap}.")
     for t, name, dt in ((base_idx, "base_idx", torch.int32), (base_w, "base_w", torch.float32),
                         (ring_idx, "ring_idx", torch.int32), (ring_w, "ring_w", torch.float32)):
         _cuda.require(t, name, dt)
     _cuda.require(ring_idx, "ring_idx", torch.int32, (n, r_width))
     _cuda.require(base_w, "base_w", torch.float32, (n, k1))
     _cuda.require(ring_w, "ring_w", torch.float32, (n, r_width))
-    if use_vis:
-        _cuda.require(vis_idx, "vis_idx", torch.int32, (n, v_width))
-        _cuda.require(vis_val, "vis_val", torch.float32, (n, v_width))
+    if vis_idx is not None:
+        _cuda.require(vis_idx, "vis_idx", torch.int32, (n, vis_idx.shape[1]))
+        _cuda.require(vis_val, "vis_val", torch.float32, (n, vis_idx.shape[1]))
+    v_width = vis_idx.shape[1] if vis_idx is not None else 0
     if n >= 2**31 - 1 or r_width * k1 + v_width >= 2**31:
         raise ValueError("K13 takes fewer than 2^31 - 1 rows and candidates a row.")
+
+
+def _pad4(idx: torch.Tensor, val: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """An ELL padded with index ``n`` (value 0) to a width that is a
+    multiple of 4, for K13's 16-byte loads. Positions keep their order
+    (``r * k1 + j`` orders (r, j) alike at any ``k1``), so no result moves."""
+    pad = -idx.shape[1] % 4
+    if not pad:
+        return idx, val
+    fill_i = torch.full((idx.shape[0], pad), n, dtype=idx.dtype, device=idx.device)
+    fill_v = torch.zeros((idx.shape[0], pad), dtype=val.dtype, device=val.device)
+    return torch.cat([idx, fill_i], dim=1).contiguous(), torch.cat([val, fill_v], dim=1).contiguous()
+
+
+def _k13_keys(n: int, positions: int) -> tuple[int, int]:
+    """The position bits ``p`` of a row's ``positions`` and the key width:
+    32 where ``(n + 1) << p`` fits in 32 bits (one packed word an element),
+    else 64."""
+    p = max(1, (positions - 1).bit_length())
+    return p, (32 if ((n + 1) << p) < 2**32 else 64)
+
+
+def _k13_stage_width(r_width: int, k1: int) -> int:
+    """The staging ring width of a hop, from its input widths alone: four
+    ring widths (at least 32), at most the row's candidate slots. A row
+    past it (or past ``V`` more for its visited entries) is placed by the
+    block route after the hop's read-back."""
+    return min(r_width * k1, max(4 * r_width, 32))
+
+
+def _hop_k13(base_idx, base_w, ring_idx, ring_w, vis_idx, vis_val, cap: int | None = None,
+             key_bits: int | None = None, stage_width: int | None = None, stats: dict[str, Any] | None = None):
+    """K13: one hop of every row on the card, each row gathered and sorted
+    once. The warp route stages each row's kept entries (32-bit packed keys
+    where they fit, or ``key_bits=64``), the block route takes the rows past
+    the warp's capacity ``cap`` through the device's count, one read-back
+    gives the maximum degrees and the count of rows past the staging widths
+    (``stage_width``, by default :func:`_k13_stage_width`), then a copy
+    places the staged rows into the bucketed ELLs and the block route
+    writes the late rows into them. Given ``stats``, it fills it with the
+    key width, the staging widths and the listed rows (read back apart: a
+    second read-back)."""
+    if (vis_idx is None) != (vis_val is None):
+        raise ValueError("`vis_idx` and `vis_val` come together.")
+    n = base_idx.shape[0]
+    use_vis = vis_idx is not None
+    k1, r_width = -(-base_idx.shape[1] // 4) * 4, ring_idx.shape[1]
+    v_width = -(-vis_idx.shape[1] // 4) * 4 if use_vis else 0
+    pbits, fit = _k13_keys(n, r_width * k1 + v_width)
+    key_bits = key_bits or fit
+    if key_bits not in (32, 64) or (key_bits == 32 and fit == 64):
+        raise ValueError(f"K13 cannot take {key_bits}-bit keys for {n} rows of {r_width * k1 + v_width} positions.")
+    limit = _K13_WARP_CAP if key_bits == 32 else _K13_WARP_CAP_64
+    cap = limit if cap is None else cap
+    if not 1 <= cap <= limit:
+        raise ValueError(f"K13's warp capacity must lie in [1, {limit}], found {cap}.")
+    _check_hop_args(base_idx, base_w, ring_idx, ring_w, vis_idx, vis_val)
+    base_idx, base_w = _pad4(base_idx, base_w, n)
+    if use_vis:
+        vis_idx, vis_val = _pad4(vis_idx, vis_val, n)
+    w_stage = stage_width or _k13_stage_width(r_width, k1)
+    v_stage = v_width + w_stage if use_vis else 0
     dev = ring_idx.device
-    r_deg = torch.empty(n, dtype=torch.int32, device=dev)
-    v_deg = torch.zeros(n, dtype=torch.int32, device=dev)
-    over_rows = torch.empty(n, dtype=torch.int32, device=dev)
-    over_cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    n_over = torch.zeros(1, dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    r_stage = torch.empty((n, w_stage), **i32)
+    v_stage_idx = torch.empty((n, v_stage), **i32) if use_vis else None
+    v_stage_val = torch.empty((n, v_stage), dtype=torch.float32, device=dev) if use_vis else None
+    r_deg, v_deg = torch.empty(n, **i32), torch.empty(n, **i32)
+    over_rows, late_rows = torch.empty(n, **i32), torch.empty(n, **i32)
+    counters = torch.zeros(2, **i32)  # rows past the warp's capacity; rows past the staging widths
     p = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     graph = (p(base_idx), p(base_w), n, k1, p(ring_idx), p(ring_w), r_width, p(vis_idx), p(vis_val), v_width)
-    _launch("sqt_hops_rows", 0, *graph, cap, p(r_deg), p(v_deg), p(over_rows), p(over_cnt), p(n_over),
-            0, 0, None, None, None, _cuda.stream_ptr())
-    max_r, max_v, listed = torch.stack([r_deg.max(), v_deg.max(), n_over[0]]).tolist()
-    over = None
-    if listed:
-        cnt = over_cnt[:listed].cpu().numpy().astype(np.int64)
-        span = np.left_shift(1, np.ceil(np.log2(np.maximum(cnt, 1))).astype(np.int64))
-        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(span)[:-1]])).to(dev)
-        keys = torch.empty(int(span.sum()), dtype=torch.int64, device=dev)
-        vals = torch.empty(int(span.sum()), dtype=torch.float32, device=dev)
-        over = (p(over_rows), p(over_cnt), p(offsets), listed, p(keys), p(vals))
-        _launch("sqt_hops_overflow", 0, *graph, *over, p(r_deg), p(v_deg), 0, 0, None, None, None,
-                _cuda.stream_ptr())
-        max_r, max_v = torch.stack([r_deg.max(), v_deg.max()]).tolist()
+    stage = (w_stage, v_stage, p(r_stage), p(v_stage_idx), p(v_stage_val))
+    n_over, n_late = counters[0:1], counters[1:2]
+    base_deg = (base_idx < n).sum(dim=1, dtype=torch.int32)  # a row's element count, read without its base rows
+    _launch("sqt_hops_warp", graph[0], graph[1], p(base_deg), *graph[2:], key_bits, pbits, cap, *stage, p(r_deg),
+            p(v_deg), p(over_rows), p(n_over), p(late_rows), p(n_late), _cuda.stream_ptr())
+    span = 1 << max(0, (r_width * k1 + v_width - 1).bit_length())
+    blocks = max(1, min(_K13_BLOCKS, _K13_SCRATCH_BYTES // (12 * span)))
+    keys = torch.empty(blocks * span, dtype=torch.int64, device=dev)
+    vals = torch.empty(blocks * span, dtype=torch.float32, device=dev)
+    block = lambda mode, rows, count, nb, outs: _launch(  # noqa: E731
+        "sqt_hops_block", mode, *graph, p(rows), p(count), nb, span, p(keys), p(vals), *stage, p(r_deg), p(v_deg),
+        p(late_rows), p(n_late), *outs, _cuda.stream_ptr())
+    block(0, over_rows, n_over, blocks, (0, 0, None, None, None))
+    max_r, max_v, late = torch.stack([r_deg.max(), v_deg.max(), n_late[0]]).tolist()  # the hop's one read-back
     w_out = _bucket(max(max_r, 1))
     v_out = _bucket(max(max_v, 1)) if use_vis else 0
-    r_idx = torch.empty((n, w_out), dtype=torch.int32, device=dev)
-    v_idx = torch.empty((n, v_out), dtype=torch.int32, device=dev) if use_vis else None
+    r_idx = torch.empty((n, w_out), **i32)
+    v_idx = torch.empty((n, v_out), **i32) if use_vis else None
     v_val = torch.empty((n, v_out), dtype=torch.float32, device=dev) if use_vis else None
     outs = (w_out, v_out, p(r_idx), p(v_idx), p(v_val))
-    _launch("sqt_hops_rows", 1, *graph, cap, p(r_deg), p(v_deg), p(over_rows), p(over_cnt), p(n_over), *outs,
-            _cuda.stream_ptr())
-    if over is not None:
-        _launch("sqt_hops_overflow", 1, *graph, *over, p(r_deg), p(v_deg), *outs, _cuda.stream_ptr())
+    _launch("sqt_hops_place", n, v_width, w_stage, v_stage, p(r_stage), p(v_stage_idx), p(v_stage_val), p(r_deg),
+            p(v_deg), *outs, _cuda.stream_ptr())
+    if late:
+        block(1, late_rows, n_late, min(blocks, late), outs)
+    if stats is not None:
+        stats.update(key_bits=key_bits, over_rows=int(n_over[0]), late_rows=late, w_stage=w_stage,
+                     v_stage=v_stage)
     if not use_vis:
         return r_idx, r_deg, None, None, None
     return r_idx, r_deg, v_idx, v_val, v_deg

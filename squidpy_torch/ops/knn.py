@@ -275,8 +275,9 @@ def feature_knn(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     rounded), ties to the lowest index, the row itself excluded by index;
     distances are correctly rounded roots. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel on ``x`` padded with zero
-    columns to K12's width (a zero column adds exactly +0 to every d2). A k
-    above 32 takes a slower branch."""
+    columns to K12's width (a zero column adds exactly +0 to every d2): up
+    to 64 padded features a tensor-core filter whose candidates are re-ranked
+    by the exact keys, wider features the exact route (:func:`_k12_route`)."""
     if x.ndim != 2:
         raise ValueError(f"Expected a feature matrix (n, d), found shape {tuple(x.shape)}.")
     n, d = x.shape
@@ -288,22 +289,97 @@ def feature_knn(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return _feature_knn_k12(x, k)
 
 
-def _feature_knn_k12(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K12's launch on the float32 (n, d) CUDA tensor ``x``, zero-padded to
-    the kernel's width, with a scratch list a row for k above 32."""
+# K12's filter route takes up to this many padded features (its rows' bf16
+# terms live in registers); a row past `_K12_CAP` re-ranked candidates, or
+# with an unbounded norm, leaves the filter for the exact route; lists of
+# up to `_K12_SHARED_K` keys live in shared memory, longer ones in a global
+# scratch row
+_K12_FILTER_MAX_DP = 64
+_K12_CAP = 4096
+_K12_SHARED_K = 64
+_K12_NORM_LIMIT = 2.0**124  # a centred norm at or above this is unbounded
+
+
+def _k12_route(dp: int) -> str:
+    """``filter`` (the tensor-core filter and exact re-rank) up to 64 padded
+    features, else ``exact`` (the exact keys of every pair)."""
+    return "filter" if dp <= _K12_FILTER_MAX_DP else "exact"
+
+
+def _k12_tile_cols(dp: int) -> int:
+    """Columns K12's filter stages a tile (csrc/feature_knn.cu ``tile_cols``)."""
+    return 128 if dp <= 32 else 64
+
+
+def _k12_filter_constants(dp: int) -> tuple[float, float]:
+    """The filter's error bound ``delta = c (n_i + n_j) + a`` at ``dp``
+    padded features: ``c = (dp + 20) 2^-19``, ``a = (dp + 1) 2^-120``
+    (derived in csrc/feature_knn.cu)."""
+    return (dp + 20) * 2.0**-19, (dp + 1) * 2.0**-120
+
+
+def _k12_centred(xp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The filter's inputs: the columns centred on the means of their finite
+    entries (float32, each value rounded once) and each row's float32
+    ``|xc|^2``, NaN where it is not finite or not below 2^124."""
+    finite = torch.isfinite(xp)
+    total = torch.where(finite, xp, 0.0).to(torch.float64).sum(dim=0)
+    mu = (total / finite.sum(dim=0).clamp_min(1)).to(torch.float32)
+    xc = (xp - mu).contiguous()
+    norms = (xc * xc).sum(dim=1)
+    norms = torch.where(torch.isfinite(norms) & (norms < _K12_NORM_LIMIT), norms, float("nan")).contiguous()
+    return xc, norms
+
+
+def _feature_knn_k12(x: torch.Tensor, k: int, *, route: str | None = None, cap: int = _K12_CAP,
+                     stats: dict[str, Any] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12's launches on the float32 (n, d) CUDA tensor ``x``, zero-padded to
+    the kernel's width: the route :func:`_k12_route` picks (or ``route``),
+    with a scratch list a row for k above 32. The filter route lists the
+    rows it cannot finish on the device and the exact route takes them at
+    once, so no count is read back. Given ``stats``, it fills it with the
+    route and, for the filter, the candidates a finished row re-ranked
+    (mean, largest) and the rows on the exact route (read back)."""
     n, d = x.shape
     dp = _feature_pad(d)
     if n >= 2**31 or n * max(k, dp) >= 2**40:
         raise ValueError("K12 takes fewer than 2^31 rows.")
+    route = route or _k12_route(dp)
+    if route not in ("filter", "exact") or (route == "filter" and dp > _K12_FILTER_MAX_DP):
+        raise ValueError(f"K12 has no route {route!r} at {dp} padded features.")
+    if cap < 1:
+        raise ValueError(f"K12's candidate cap must be positive, found {cap}.")
     xp = x.contiguous() if dp == d else torch.nn.functional.pad(x, (0, dp - d)).contiguous()
     _cuda.require(xp, "x", torch.float32, (n, dp))
-    dist = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    idx = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    scratch = torch.full((n, k), -1, dtype=torch.int64, device=x.device) if k > _K8_REGISTER_K else None
-    code = _cuda.library().sqt_feature_knn(xp.data_ptr(), n, dp, k, None if scratch is None else scratch.data_ptr(),
-                                           dist.data_ptr(), idx.data_ptr(), _cuda.stream_ptr())
-    _cuda.check(code, "feature_knn")
+    dev = x.device
+    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    scratch = torch.full((n, k), -1, dtype=torch.int64, device=dev) if k > _K8_REGISTER_K else None
+    p = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _cuda.library()
+    if route == "exact":
+        _cuda.check(lib.sqt_feature_knn(p(xp), n, dp, k, None, None, p(scratch), p(dist), p(idx), _cuda.stream_ptr()),
+                    "feature_knn")
+        _cuda.launches["feature_knn"] += 1
+        if stats is not None:
+            stats.update(route=route)
+        return dist, idx
+    xc, norms = _k12_centred(xp)
+    c, a = _k12_filter_constants(dp)
+    rows = torch.empty(n, dtype=torch.int32, device=dev)
+    n_rows = torch.zeros(1, dtype=torch.int32, device=dev)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    lists = scratch if k > _K12_SHARED_K else None
+    _cuda.check(lib.sqt_feature_knn_filter(p(xp), p(xc), p(norms), n, dp, k, c, a, cap, p(lists), p(rows),
+                                           p(n_rows), p(counts), p(dist), p(idx), _cuda.stream_ptr()), "feature_knn")
     _cuda.launches["feature_knn"] += 1
+    _cuda.check(lib.sqt_feature_knn(p(xp), n, dp, k, p(rows), p(n_rows), p(scratch), p(dist), p(idx),
+                                    _cuda.stream_ptr()), "feature_knn")
+    _cuda.launches["feature_knn"] += 1
+    if stats is not None:
+        done = counts[counts >= 0].to(torch.float64)
+        stats.update(route=route, candidates_mean=float(done.mean()) if done.numel() else 0.0,
+                     candidates_max=int(done.max()) if done.numel() else 0, exact_rows=int(n_rows[0]))
     return dist, idx
 
 

@@ -10,15 +10,21 @@ prefix sums, so a ring may differ only where ``run_w`` and ``run_v`` lie
 within a few ulps; the weighted fixtures are asserted free of such near
 ties (:func:`_assert_margin`), and then both agree bitwise too.
 
-K13 runs only on the card. Its wrapper (``_hop_k13``: the count pass, the
-read-back of the maximum degrees and of the rows past the warp's capacity,
-the block route's scratch spans, the emit pass) runs here around a numpy
-emulation of its C interface that sorts each row's (index << 32 |
-position) keys and sums its runs as the kernel does; the cuda-marked test
-holds the kernel itself to the plain version on the card.
+K13 runs only on the card. Its wrapper (``_hop_k13``: the ELLs padded to
+widths of multiples of 4, the key width, the warp route's staging, the
+block route over the rows past the warp's capacity, the hop's one
+read-back, the copy into the bucketed ELLs, the block route over the late
+rows) runs here around a numpy emulation of its C interface that sorts
+each row's (index, position) keys, packed into 32 bits where the wrapper
+says they fit, and sums its runs as the kernel does. The wrapper's host
+reads of tensors (each a read-back on the card) are counted, one a hop.
+The cuda-marked test holds the kernel itself to the plain version on the
+card.
 """
 
 from __future__ import annotations
+
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -186,15 +192,19 @@ def test_hop_expand_rejects_half_a_visited_ell():
 # -- K13's wrapper around an emulation of its C interface -------------------
 
 class _EmulatedK13:
-    """``sqt_hops_rows`` and ``sqt_hops_overflow`` in numpy, on the CPU
-    tensors the wrapper passes: each row's elements as (index << 32 |
-    position) keys, sorted, each run summed left to right in float32 from
-    0, the rows past ``cap`` listed in a shuffled order (as atomics leave
-    them) with their degrees left 0."""
+    """``sqt_hops_warp``, ``sqt_hops_block`` and ``sqt_hops_place`` in
+    numpy, on the CPU tensors the wrapper passes: each row's elements as
+    (index << 32 | position) keys, sorted, each run summed left to right in
+    float32 from 0; the warp route takes the rows in a shuffled order (as
+    atomics leave them) and lists those past ``cap``."""
 
     def __init__(self, seed: int = 0) -> None:
         self.calls: list[str] = []
         self.rng = np.random.default_rng(seed)
+        self.key_bits: list[int] = []
+        self.over: list[int] = []
+        self.late: list[int] = []
+        self.host_reads = 0  # counted by the ``emulated`` fixture
 
     @staticmethod
     def _graph(args):
@@ -242,13 +252,10 @@ class _EmulatedK13:
                 vis.append((idx, np.float32(run_v + np.float32(1.0 if keep else 0.0))))
         return len(keys), ring, vis
 
-    def _write(self, g, row, ring, vis, mode, r_deg, v_deg, outs):
+    @staticmethod
+    def _write(g, row, ring, vis, outs):
         w_out, v_out, r_out, v_out_idx, v_out_val = outs
         n = g["n"]
-        if mode == 0:
-            _view(r_deg, np.int32, n)[row] = len(ring)
-            _view(v_deg, np.int32, n)[row] = len(vis) if g["V"] else 0
-            return
         ro = _view(r_out, np.int32, n * w_out).reshape(n, w_out)
         ro[row] = n
         ro[row, : len(ring)] = ring
@@ -259,58 +266,116 @@ class _EmulatedK13:
             vo[row, : len(vis)] = [i for i, _ in vis]
             vl[row, : len(vis)] = [v for _, v in vis]
 
-    def sqt_hops_rows(self, mode, *rest):
-        self.calls.append(f"rows{mode}")
-        graph, cap, r_deg, v_deg, over_rows, over_cnt, n_over, outs = (rest[:10], rest[10], rest[11], rest[12],
-                                                                       rest[13], rest[14], rest[15], rest[16:21])
+    @staticmethod
+    def _push(view_count, view_rows, row):
+        slot = view_count[0]
+        view_rows[slot] = row
+        view_count[0] += 1
+
+    def _stage(self, g, row, ring, vis, stage, r_deg, v_deg, late_rows, n_late):
+        """A row's degrees and staged entries, cut at the staging widths; late if it passes them."""
+        w_stage, v_stage, r_stage, v_stage_idx, v_stage_val = stage
+        n = g["n"]
+        _view(r_deg, np.int32, n)[row] = len(ring)
+        _view(v_deg, np.int32, n)[row] = len(vis) if g["V"] else 0
+        rs = _view(r_stage, np.int32, n * w_stage).reshape(n, w_stage)
+        rs[row, : min(len(ring), w_stage)] = ring[:w_stage]
+        late = len(ring) > w_stage
+        if g["V"]:
+            vi = _view(v_stage_idx, np.int32, n * v_stage).reshape(n, v_stage)
+            vv = _view(v_stage_val, np.float32, n * v_stage).reshape(n, v_stage)
+            vi[row, : min(len(vis), v_stage)] = [i for i, _ in vis][:v_stage]
+            vv[row, : min(len(vis), v_stage)] = [v for _, v in vis][:v_stage]
+            late |= len(vis) > v_stage
+        if late:
+            self._push(_view(n_late, np.int32, 1), _view(late_rows, np.int32, n), row)
+
+    def sqt_hops_warp(self, base_idx, base_w, base_deg, *args):
+        graph, (key_bits, pbits, cap), stage = (base_idx, base_w, *args[:8]), args[8:11], args[11:16]
+        r_deg, v_deg, over_rows, n_over, late_rows, n_late = args[16:22]
+        self.calls.append(f"warp{key_bits}")
         g = self._graph(graph)
-        listed = []
+        assert np.array_equal(_view(base_deg, np.int32, g["n"]), (g["bi"] < g["n"]).sum(axis=1))
+        assert g["k1"] % 4 == 0 and g["V"] % 4 == 0
+        positions = g["R"] * g["k1"] + g["V"]
+        if key_bits == 32:  # every packed key and the pad word's key part fit, in order
+            assert positions <= 1 << pbits and (g["n"] + 1) << pbits < 2**32 and cap <= th._K13_WARP_CAP
+        else:
+            assert cap <= th._K13_WARP_CAP_64
+        self.key_bits.append(key_bits)
         for row in self.rng.permutation(g["n"]):
             cnt, ring, vis = self._row(g, row)
             if cnt > cap:
-                listed.append((row, cnt))
+                self._push(_view(n_over, np.int32, 1), _view(over_rows, np.int32, g["n"]), row)
                 continue
-            self._write(g, row, ring, vis, mode, r_deg, v_deg, outs)
-        if mode == 0:
-            for row, cnt in listed:
-                _view(r_deg, np.int32, g["n"])[row] = 0
-                _view(v_deg, np.int32, g["n"])[row] = 0
-                slot = _view(n_over, np.int32, 1)[0]
-                _view(over_rows, np.int32, g["n"])[slot], _view(over_cnt, np.int32, g["n"])[slot] = row, cnt
-                _view(n_over, np.int32, 1)[0] += 1
+            self._stage(g, row, ring, vis, stage, r_deg, v_deg, late_rows, n_late)
+        self.over.append(int(_view(n_over, np.int32, 1)[0]))
         return 0
 
-    def sqt_hops_overflow(self, mode, *rest):
-        self.calls.append(f"overflow{mode}")
-        graph, (over_rows, over_cnt, offsets, n_listed, keys, vals), (r_deg, v_deg), outs = (
-            rest[:10], rest[10:16], rest[16:18], rest[18:23])
+    def sqt_hops_block(self, mode, *args):
+        graph, (rows, n_rows, blocks, span, keys, vals), stage = args[:10], args[10:16], args[16:21]
+        (r_deg, v_deg, late_rows, n_late), outs = args[21:25], args[25:30]
+        self.calls.append(f"block{mode}")
         g = self._graph(graph)
-        rows, cnts = _view(over_rows, np.int32, n_listed), _view(over_cnt, np.int32, n_listed)
-        starts = _view(offsets, np.int64, n_listed)
-        spans = np.diff(starts)  # each listed row's scratch: the next power of two at or above its count
-        assert starts[0] == 0 and np.array_equal(spans, 1 << np.ceil(np.log2(cnts[:-1])).astype(np.int64))
-        for i in range(n_listed):
-            cnt, ring, vis = self._row(g, rows[i])
-            assert cnt == cnts[i]
-            self._write(g, rows[i], ring, vis, mode, r_deg, v_deg, outs)
+        assert blocks >= 1 and span >= g["R"] * g["k1"] + g["V"] and span & (span - 1) == 0
+        count = int(_view(n_rows, np.int32, 1)[0])
+        if mode == 1:
+            self.late.append(count)
+        for row in _view(rows, np.int32, g["n"])[:count].copy():
+            _, ring, vis = self._row(g, row)
+            if mode == 0:
+                self._stage(g, row, ring, vis, stage, r_deg, v_deg, late_rows, n_late)
+            else:
+                self._write(g, row, ring, vis, outs)
         return 0
+
+    def sqt_hops_place(self, n, V, w_stage, v_stage, r_stage, v_stage_idx, v_stage_val, r_deg, v_deg, w_out, v_out,
+                       r_out, v_out_idx, v_out_val, stream):
+        self.calls.append("place")
+        slot = np.arange(w_out)[None, :]
+        d = np.minimum(_view(r_deg, np.int32, n), w_stage)[:, None]
+        rs = _view(r_stage, np.int32, n * w_stage).reshape(n, w_stage)
+        ro = _view(r_out, np.int32, n * w_out).reshape(n, w_out)
+        ro[:] = np.where(slot < d, rs[:, np.minimum(slot[0], w_stage - 1)], n)
+        if V:
+            slot = np.arange(v_out)[None, :]
+            d = np.minimum(_view(v_deg, np.int32, n), v_stage)[:, None]
+            take = np.minimum(slot[0], v_stage - 1)
+            vi = _view(v_stage_idx, np.int32, n * v_stage).reshape(n, v_stage)[:, take]
+            vv = _view(v_stage_val, np.float32, n * v_stage).reshape(n, v_stage)[:, take]
+            _view(v_out_idx, np.int32, n * v_out).reshape(n, v_out)[:] = np.where(slot < d, vi, n)
+            _view(v_out_val, np.float32, n * v_out).reshape(n, v_out)[:] = np.where(slot < d, vv, 0.0)
+        return 0
+
+
+_HOST_READS = ("tolist", "item", "cpu", "numpy", "__int__", "__float__", "__bool__", "__index__")
 
 
 @pytest.fixture()
 def emulated(monkeypatch):
+    """The emulation in place of K13's library; ``emu.host_reads`` counts the
+    calls of :data:`_HOST_READS` on tensors made from ``ops/hops.py``."""
     emu = _EmulatedK13()
     monkeypatch.setattr(_cuda, "library", lambda: emu)
     monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
+    monkeypatch.setitem(_cuda.launches, "hops", 0)
+
+    def counted(real):
+        def read(self, *args, **kwargs):
+            if sys._getframe(1).f_code.co_filename == th.__file__:
+                emu.host_reads += 1
+            return real(self, *args, **kwargs)
+        return read
+
+    for name in _HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name, counted(getattr(torch.Tensor, name)))
     return emu
 
 
-@pytest.mark.parametrize(("weighted", "cap"), [(False, 512), (False, 20), (True, 30), (False, 1)])
-@pytest.mark.parametrize("visited", [True, False])
-def test_k13_wrapper_emulated(emulated, weighted, cap, visited):
-    """The wrapper's two passes, read-backs and block route (rows past
-    ``cap``) bitwise against the plain version, over two hops."""
-    n = 150
+def _two_hops(emulated, n, weighted, visited, **kw):
+    """Two hops of K13's wrapper from ring 1, each bitwise against the plain
+    version and each with one host read."""
     A = spatial_knn(n, 5, 8, weighted=weighted)
     bi, bw = th.ell_sentinel(A)
     r1, r1w, vi, vv = (torch.from_numpy(a) for a in _ring1(bi, bw, n))
@@ -318,20 +383,89 @@ def test_k13_wrapper_emulated(emulated, weighted, cap, visited):
     args = (bi, bw, r1, r1w, vi if visited else None, vv if visited else None)
     before = _cuda.launches["hops"]
     for _ in range(2):
-        got = th._hop_k13(*args, cap=cap)
+        reads = emulated.host_reads
+        got = th._hop_k13(*args, **kw)
+        assert emulated.host_reads - reads == 1
         want = th._hop_plain(*args)
         for g, w in zip(got, want):
             assert (g is None and w is None) or torch.equal(g, w)
         args = (bi, bw, got[0], (got[0] < n).to(torch.float32), got[2], got[3])
-    listed = any(c.startswith("overflow") for c in emulated.calls)
-    assert listed == (cap < 100)
     assert _cuda.launches["hops"] - before == len(emulated.calls)
+
+
+@pytest.mark.parametrize(("weighted", "cap"), [(False, 512), (False, 20), (True, 30), (False, 1)])
+@pytest.mark.parametrize("visited", [True, False])
+def test_k13_wrapper_emulated(emulated, weighted, cap, visited):
+    """The wrapper's single pass: packed 32-bit keys, the block route over
+    the rows past ``cap``, the hop's one read-back, the placement; bitwise
+    against the plain version over two hops."""
+    _two_hops(emulated, 150, weighted, visited, cap=cap)
+    assert emulated.key_bits == [32, 32]
+    assert (max(emulated.over) > 0) == (cap < 100)
+    assert emulated.calls.count("place") == 2 and emulated.calls.count("block0") == 2
+
+
+@pytest.mark.parametrize(("key_bits", "cap", "stage_width"), [(64, 512, None), (64, 25, 3), (32, 1024, 1),
+                                                              (32, 40, 6), (None, 1, 2)])
+@pytest.mark.parametrize("visited", [True, False])
+def test_k13_wrapper_keys_and_late_rows(emulated, key_bits, cap, stage_width, visited):
+    """The 64-bit key branch (forced), and rows past the staging widths
+    (lowered), placed by the block route after the hop's read-back, from
+    both routes; bitwise over two hops."""
+    _two_hops(emulated, 150, True, visited, cap=cap, key_bits=key_bits, stage_width=stage_width)
+    assert emulated.key_bits == [key_bits or 32] * 2
+    if stage_width is not None:
+        assert max(emulated.late) > 0 and emulated.calls.count("block1") >= 1
+    else:
+        assert "block1" not in emulated.calls
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("visited", [True, False])
+def test_k13_host_reads_counted(emulated, with_stats, visited):
+    """The count of host reads sees each one: a hop reads back once, and
+    once more for ``stats``' listed rows."""
+    n = 120
+    bi, bw = th.ell_sentinel(spatial_knn(n, 5, 3))
+    r1, r1w, vi, vv = (torch.from_numpy(a) for a in _ring1(bi, bw, n))
+    bi, bw = torch.from_numpy(bi), torch.from_numpy(bw)
+    th._hop_k13(bi, bw, r1, r1w, vi if visited else None, vv if visited else None, cap=8,
+                stats={} if with_stats else None)
+    assert emulated.host_reads == 1 + with_stats and max(emulated.over) > 0
+
+
+def test_k13_stats_and_widths(emulated):
+    """One read-back a hop, one more for the stats; the staging width from
+    the input widths; the ELLs padded to multiples of 4 (a visited ELL of
+    width 9)."""
+    n = 120
+    bi, bw = th.ell_sentinel(spatial_knn(n, 5, 3))
+    r1, r1w, vi, vv = (torch.from_numpy(a) for a in _ring1(bi, bw, n))
+    bi, bw = torch.from_numpy(bi), torch.from_numpy(bw)
+    stats = {}
+    got = th._hop_k13(bi, bw, r1, r1w, vi[:, :9].contiguous(), vv[:, :9].contiguous(), stats=stats)
+    assert emulated.host_reads == 2
+    want = th._hop_plain(bi, bw, r1, r1w, vi[:, :9].contiguous(), vv[:, :9].contiguous())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert stats["key_bits"] == 32 and stats["late_rows"] == 0
+    assert stats["w_stage"] == th._k13_stage_width(r1.shape[1], bi.shape[1])
+    assert stats["v_stage"] == 12 + stats["w_stage"]
+    assert th._k13_stage_width(8, 8) == 32 and th._k13_stage_width(24, 8) == 96 and th._k13_stage_width(2, 4) == 8
+
+
+@pytest.mark.parametrize(("n", "positions", "want"), [(1000, 1, (1, 32)), (200_000, 432, (9, 32)),
+                                                      (1_000_000, 432, (9, 32)), (2**22, 1024, (10, 64)),
+                                                      (2**22 - 2, 1024, (10, 32)), (2**21, 1025, (11, 64))])
+def test_k13_key_width(n, positions, want):
+    assert th._k13_keys(n, positions) == want
 
 
 def test_k13_rejects_a_capacity_past_shared_memory():
     z = torch.zeros((3, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="warp capacity"):
         th._hop_k13(z, z.float(), z, z.float(), None, None, cap=th._K13_WARP_CAP + 1)
+    with pytest.raises(ValueError, match="warp capacity"):
+        th._hop_k13(z, z.float(), z, z.float(), None, None, cap=th._K13_WARP_CAP_64 + 1, key_bits=64)
 
 
 @pytest.mark.cuda

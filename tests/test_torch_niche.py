@@ -2,8 +2,9 @@
 
 Tolerances. The labels are equal on every fixture, for the three flavors,
 with ``library_key``, ``mask``, ``min_niche_size`` and ``inplace=False``,
-on the host branches and (``_DEVICE_HOPS_MIN_N`` and ``_GMM_DEVICE_MIN_N``
-lowered in both packages by monkeypatching) on the device branches. That
+on the host branches (the port's ``_DEVICE_HOPS_MIN_N`` raised above the
+fixtures by monkeypatching) and (``_DEVICE_HOPS_MIN_N`` and
+``_GMM_DEVICE_MIN_N`` lowered in both packages) on the device branches. That
 holds because each fixture is asserted free of the packages' documented
 divergences: the clustering graphs both packages build are asserted equal
 (the kNN search ranks by another d2 in each package, so near ties at the
@@ -58,6 +59,13 @@ def _x64_off():
         yield
     finally:
         jax.config.update("jax_enable_x64", True)
+
+
+@pytest.fixture()
+def host_branches(monkeypatch):
+    """Both packages on their host branches at test size (the JAX package's
+    threshold lies above every fixture)."""
+    monkeypatch.setattr(tn, "_DEVICE_HOPS_MIN_N", 10**9)
 
 
 @pytest.fixture()
@@ -138,8 +146,7 @@ NHOOD = dict(flavor="neighborhood", groups="ct", n_neighbors=15)
     dict(resolutions=[1.0], distance=3, min_niche_size=150),
 ], ids=["weights", "default_weights", "abs_short_weights", "no_scale", "min_niche_size"])
 def test_neighborhood(request, graphs, branch, kw):
-    if branch == "device":
-        request.getfixturevalue("device_branches")
+    request.getfixturevalue(f"{branch}_branches")
     adata = _domains()
     rt, rj = _both(adata, **NHOOD, **kw)
     _assert_same_graphs(graphs)
@@ -152,8 +159,7 @@ def test_neighborhood(request, graphs, branch, kw):
 
 @pytest.mark.parametrize("branch", ["host", "device"])
 def test_neighborhood_library_and_mask(request, graphs, branch):
-    if branch == "device":
-        request.getfixturevalue("device_branches")
+    request.getfixturevalue(f"{branch}_branches")
     adata = _domains()
     mask = pd.Series(np.arange(adata.n_obs) % 5 != 0, index=adata.obs.index)
     rt, rj = _both(adata, **NHOOD, resolutions=[0.5], distance=3, library_key="lib", mask=mask)
@@ -201,8 +207,7 @@ def test_cellcharter_hop_features(aggregation):
 @pytest.mark.parametrize("branch", ["host", "device"])
 @pytest.mark.parametrize("library", [False, True])
 def test_utag(request, graphs, branch, library):
-    if branch == "device":
-        request.getfixturevalue("device_branches")
+    request.getfixturevalue(f"{branch}_branches")
     adata = _domains(seed=1)
     kw = dict(flavor="utag", n_neighbors=15, resolutions=[0.5, 1.0], library_key="lib" if library else None)
     with _x64_off():
@@ -214,8 +219,7 @@ def test_utag(request, graphs, branch, library):
 @pytest.mark.parametrize("branch", ["host", "device"])
 @pytest.mark.parametrize(("aggregation", "library"), [("mean", False), ("variance", False), ("mean", True)])
 def test_cellcharter(request, branch, aggregation, library):
-    if branch == "device":
-        request.getfixturevalue("device_branches")
+    request.getfixturevalue(f"{branch}_branches")
     adata = _domains(seed=2)
     kw = dict(flavor="cellcharter", distance=3, aggregation=aggregation, n_components=4,
               library_key="lib" if library else None)

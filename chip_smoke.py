@@ -77,7 +77,13 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       and a third under the CPU profiler, whose ``[host] niche`` line
       splits it (hops, profiles or features, z-scores, PCA, the kNN search,
       ``symmetrize_knn``, Leiden, the GMM) beside the niches found and
-      their purity against the planted domains;
+      their purity against the planted domains; then g1 and g2 on g3's 1M
+      cells, one call each under the profiler: past the exact search, the
+      clustering graph comes from the IVF index (K14's k-means and probes,
+      K15's search, K16's refine pass, K12 on the 256 rows of the recall
+      check, and K12 on every row if the recall falls below 0.92), whose
+      ``[host] niche`` line adds the IVF's phases, the sampled recall and
+      whether the fallback ran;
    then checks of what the calls returned (part c: the radius graph's
    density, symmetry and largest distance, the Delaunay graph's density,
    at least two degree buckets on each and a K5a launch on each radius
@@ -209,14 +215,23 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    to 64 (the block route), with 64-bit keys on g3's hop 3, with a staging
    width of 8 (late rows, asserted), on a weighted graph, and on a k = 20
    graph's hop 3, whose rows pass the warp's shared memory (asserted); K5a
-   on an ELL 1024 slots wide (the widest hop bucket).
+   on an ELL 1024 slots wide (the widest hop bucket); on the IVF inputs of
+   g1 and g2 at 1M rows: K14's assignment and probes on every row and its
+   update, K15 on every cluster (its plain version on the first 64
+   clusters; ``torch.cdist`` + ``torch.topk`` batched over chunks of 16
+   clusters as the yardstick), K16 on every row (its plain version on the
+   first 20,000; its bound from the distinct candidates other than the row,
+   counted on the card), with a ``[diag] ivf`` line (centroids, caps, the largest
+   cluster, spills, dropped replicas, each phase's ms, the sampled recall
+   and the fallback, the recall against K12's exact graph, and K12's time
+   on every row: the IVF's yardstick).
    Integer kernels
    (K1-K4, K7, K9, K10), K11 (its steps and state), K6's CSR (offsets, columns and distances), K8's indices
    and distances and K5a's ``u = W x`` must agree bitwise; the float sums of K5a's
    Moran/Geary numerators and of K5b to ``1e-5 * sum |terms|`` per output
    (they sum in another order, and a Moran numerator is near 0, so a
    relative tolerance would mean nothing); K12's neighbours and distances
-   and every output of K13 bitwise;
+   and every output of K13 and of K14-K16 bitwise;
 5. the same public calls on the card and on the CPU (plain torch) must
    agree, at 3000 cells (brute-force kNN, sort shuffles, dense sweep, K2)
    and at 100k cells (cipher shuffles, binned sweep): counts, z-scores and
@@ -238,10 +253,13 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    ``nhood_enrichment(library_key=...)`` bitwise on a ~100k-cell band of
    part f1's study across its 8 sections; and ``calculate_niche`` g1 on a
    20,000-cell corner of part g's cells: the clustering graphs asserted
-   equal (no near tie at the 15th neighbour), then the labels bitwise.
+   equal (no near tie at the 15th neighbour), then the labels bitwise; and
+   ``ivf_knn`` on the first 100,000 rows of g1's 1M profiles, distances
+   and indices bitwise.
 
-Prints one JSON line of kernels, the ``nvidia-smi`` name/power line, and as
-its last line ``{"ok": true, "device": {...}}``.
+Prints one JSON line of kernels (``plain_input`` names the share of the
+input that ``plain_ms`` was taken on, null where the check does not say), the ``nvidia-smi`` name/power line, and as its
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3227,33 +3245,53 @@ def _niche_dataset(n: int, seed: int) -> StandIn:
 
 
 class _Recorder:
-    """Copies of the inputs K12 and K13 get in a call (their wrappers called
-    through), so the kernels can be held to their plain versions on them."""
+    """Copies of the inputs K12, K13 and the IVF kNN get in a call (their
+    wrappers called through), so the kernels can be held to their plain
+    versions on them; and the IVF's sampled recalls and fallbacks."""
 
     def __init__(self) -> None:
         self.knn: list = []
         self.hops: list = []
+        self.ivf: list = []
+        self.recall: list = []
+        self.fallback = 0
 
     def __enter__(self):
-        from squidpy_torch.ops import hops, knn
+        from squidpy_torch.ops import hops, ivf_knn, knn
 
-        self._knn, self._hop = knn.feature_knn, hops.hop_expand
+        self._saved = (knn.feature_knn, hops.hop_expand, ivf_knn.ivf_knn, ivf_knn.sampled_recall,
+                       knn.brute_force_knn_approx)
+        real_knn, real_hop, real_ivf, real_recall, real_sweep = self._saved
 
         def feature_knn(x, k):
             self.knn.append((x.clone(), k))
-            return self._knn(x, k)
+            return real_knn(x, k)
 
         def hop_expand(*args):
             self.hops.append(tuple(a.clone() if a is not None else None for a in args))
-            return self._hop(*args)
+            return real_hop(*args)
 
-        knn.feature_knn, hops.hop_expand = feature_knn, hop_expand
+        def ivf(x, k, **kw):
+            self.ivf.append((x.clone(), k))
+            return real_ivf(x, k, **kw)
+
+        def recall(*args, **kw):
+            self.recall.append(real_recall(*args, **kw))
+            return self.recall[-1]
+
+        def sweep(*args, **kw):
+            self.fallback += 1
+            return real_sweep(*args, **kw)
+
+        knn.feature_knn, hops.hop_expand, ivf_knn.ivf_knn, ivf_knn.sampled_recall, knn.brute_force_knn_approx = (
+            feature_knn, hop_expand, ivf, recall, sweep)
         return self
 
     def __exit__(self, *exc):
-        from squidpy_torch.ops import hops, knn
+        from squidpy_torch.ops import hops, ivf_knn, knn
 
-        knn.feature_knn, hops.hop_expand = self._knn, self._hop
+        (knn.feature_knn, hops.hop_expand, ivf_knn.ivf_knn, ivf_knn.sampled_recall,
+         knn.brute_force_knn_approx) = self._saved
 
 
 def _check_niches(part: str, adata: StandIn) -> int:
@@ -3280,8 +3318,10 @@ def niche_path() -> tuple[dict, dict, dict, dict]:
     """Part g: ``calculate_niche`` on planted domains, each flavor a first
     call (its K12/K13 inputs recorded), a timed second call and a third under
     the CPU profiler (a ``[host]`` line); g1 and g2 at 200k cells x 300
-    genes, g3 at 1M. Returns the launches a part, the seconds, the recorded
-    inputs and the 200k container."""
+    genes, g3 at 1M; then g1 and g2 on g3's 1M cells, one call each under
+    the profiler (the IVF graph; its inputs, sampled recall and fallbacks
+    recorded). Returns the launches a part, the seconds, the recorded inputs
+    and the 200k container."""
     import squidpy_torch as sqt
     from squidpy_torch import _cuda
 
@@ -3307,6 +3347,23 @@ def niche_path() -> tuple[dict, dict, dict, dict]:
               + " ".join(f"{k}={v:.1f}" for k, v in sorted(host.items())) + " (host ms); "
               f"niches={niches} purity={purity:.3f}", flush=True)
         inputs[part] = rec
+    # g1 and g2 on g3's 1M cells: past the exact search, the IVF graph
+    # (K14-K16, K12 on the sampled rows); one profiled call each
+    for part in ("g1", "g2"):
+        call = NICHE_CALLS[part]
+        _cuda.reset_launches()
+        with _Recorder() as rec:
+            _, wall, host = _profiled(lambda: sqt.gr.calculate_niche(big, **call), "calculate_niche")
+        launches[f"{part}_1m"] = dict(_cuda.launches)
+        secs[f"{part}_1m_s"] = wall
+        niches = _check_niches(part, big)
+        purity = _purity(np.asarray(big.obs[NICHE_COLUMN[part]]), big.obs["domain"])
+        print(f"[host] niche {part} at {NICHE_BIG_CELLS} cells (one profiled call, the IVF graph): wall {wall:.4f} s; "
+              + " ".join(f"{k}={v:.1f}" for k, v in sorted(host.items())) + " (host ms); "
+              f"niches={niches} purity={purity:.3f} sampled_recall={rec.recall} fallback={rec.fallback}", flush=True)
+        if len(rec.ivf) != 1 or len(rec.recall) != 1:
+            raise AssertionError(f"part {part} at 1M: {len(rec.ivf)} IVF searches and {len(rec.recall)} recall checks")
+        inputs[f"{part}_1m"] = rec
     return launches, secs, inputs, data
 
 
@@ -3408,8 +3465,9 @@ def check_feature_knn(name: str, x, k: int, plain_rows: int | None = None, libra
         line += " turns (old, new, new, old): exact_route_ms=" + "/".join(f"{t:.3f}" for t in old_ms) + \
                 " filter_ms=" + "/".join(f"{t:.3f}" for t in new_ms)
     print(line, flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_input": f"the first {m} of {n} rows" if m < n else "all of it", "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def _k13_bound(args, out) -> tuple[float, str]:
@@ -3607,6 +3665,203 @@ def niche_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
     x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).cuda()
     checks["ell_autocorr"] = check_ell_autocorr("hop width 1024", idx, w, x, x - x.mean(dim=0))
     return checks
+
+
+IVF_PLAIN_CLUSTERS = 64  # K15's plain version on the first clusters of its full-size input
+IVF_PLAIN_ROWS = 20_000  # K16's plain version on the first rows
+IVF_LIBRARY_CLUSTERS = 16  # torch.cdist + torch.topk over this many clusters a call (K15's yardstick)
+IVF_LIBRARY_ROWS = 1 << 18  # torch.cdist + torch.topk in row chunks (K14's yardstick)
+IVF_CUT = 100_000  # ivf_knn card vs CPU on the first rows of g1's 1M profiles
+
+
+def _check_ivf(name: str, kernel, plain, bound: tuple[float, str], library=None, cut=None, repeats: int = 3,
+               plain_input: str = "all of it") -> dict:
+    """One of K14-K16 against its plain version: both return tuples of
+    tensors, compared bitwise after ``cut`` (the kernel's output cut to what
+    the plain version computed); the kernel timed over ``repeats`` calls,
+    the plain version once on ``plain_input`` (its share of the kernel's
+    input), ``library`` (the yardstick) once."""
+    got, ms = _time_ms(kernel, repeats)
+    want, plain_ms = _time_ms(plain, 1, warm=False)
+    if cut is not None:
+        got = tuple(cut(g) for g in got)
+    if not _same(got, want):
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    del got, want
+    library_ms = _time_ms(library, 1)[1] if library is not None else None
+    print(f"[kernel] {name}: max_abs_err=0.0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (on {plain_input}) "
+          f"bound_ms={bound[0]:.4f} ({bound[1]})" + (f" library_ms={library_ms:.3f}" if library is not None else ""),
+          flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain_input": plain_input, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def _nearest_library(x, cents, m: int):
+    """``torch.cdist`` + ``torch.topk`` in row chunks: each row's m nearest centroids."""
+    import torch
+
+    return torch.cat([torch.topk(torch.cdist(x[r0 : r0 + IVF_LIBRARY_ROWS], cents), m, dim=1, largest=False).indices
+                      for r0 in range(0, x.shape[0], IVF_LIBRARY_ROWS)])
+
+
+def _search_library(xp, index, k: int):
+    """``torch.cdist`` + ``torch.topk`` batched over chunks of clusters: each
+    replica's k nearest members (sentinels read the last row)."""
+    import torch
+
+    n = xp.shape[0]
+    out = []
+    for c0 in range(0, index.members.shape[0], IVF_LIBRARY_CLUSTERS):
+        q = xp[index.qtable[c0 : c0 + IVF_LIBRARY_CLUSTERS].clamp(max=n - 1).long()]
+        m = xp[index.members[c0 : c0 + IVF_LIBRARY_CLUSTERS].clamp(max=n - 1).long()]
+        out.append(torch.topk(torch.cdist(q, m), k, dim=2, largest=False).indices)
+    return out
+
+
+def _distinct_candidates(idx) -> tuple[int, int]:
+    """K16's candidates on the lists ``idx`` (n, k), on the card: the valid
+    entries of each row's k + k^2 candidates, and the distinct ones other
+    than the row itself (each needs one d2), counted over each row's sorted
+    ids."""
+    import torch
+
+    n, k = idx.shape
+    raw = distinct = 0
+    for r0 in range(0, n, 1 << 16):
+        base = idx[r0 : r0 + (1 << 16)].long()
+        ok = (base >= 0) & (base < n)
+        hop = torch.where(ok[:, :, None], idx[base.clamp(0, n - 1)].long(), -1).reshape(base.shape[0], k * k)
+        cand = torch.cat([base, hop], dim=1)
+        valid = (cand >= 0) & (cand < n)
+        raw += int(valid.sum())
+        row = torch.arange(r0, r0 + base.shape[0], device=idx.device)[:, None]
+        ids = torch.sort(torch.where(valid & (cand != row), cand, -1), dim=1).values
+        first = torch.ones_like(ids, dtype=torch.bool)
+        first[:, 1:] = ids[:, 1:] != ids[:, :-1]
+        distinct += int((first & (ids >= 0)).sum())
+    return raw, distinct
+
+
+def _set_recall(idx, exact) -> float:
+    """Share of the exact neighbours (n, k) found in ``idx`` (n, k), on the card."""
+    hits = 0
+    for r0 in range(0, idx.shape[0], 1 << 17):
+        a, b = idx[r0 : r0 + (1 << 17)].long(), exact[r0 : r0 + (1 << 17)].long()
+        hits += int((a[:, :, None] == b[:, None, :]).any(dim=2).sum())
+    return hits / exact.numel()
+
+
+def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
+    """K14-K16 on the IVF inputs of g1 and g2 at 1M rows, against their plain
+    versions, bitwise: K14's assignment and probes on every row and its
+    update, K15 on every cluster (its plain version on the first 64), K16
+    on every row (its plain version on the first 20,000). Each is timed
+    beside its bound and yardstick (``torch.cdist`` + ``torch.topk``: in row
+    chunks for K14, batched over chunks of clusters for K15; none for K16).
+    A ``[diag] ivf`` line gives the index (centroids, caps, the largest
+    cluster, spills, dropped replicas), each phase's ms, the call's sampled
+    recall and fallbacks, the recall against K12's exact graph and K12's
+    time on all rows (the IVF's yardstick)."""
+    import torch
+
+    from squidpy_torch.ops import ivf_knn as ivf
+    from squidpy_torch.ops import knn
+
+    checks = {"ivf_kmeans": [], "ivf_search": [], "ivf_refine": []}
+    for part in ("g1", "g2"):
+        rec = inputs[f"{part}_1m"]
+        x, k = rec.ivf[0]
+        n = x.shape[0]
+        stats: dict = {}
+        (_, idx, index), ivf_s = _sync_time(lambda: ivf._ivf_knn(x, k, stats=stats))
+        xp = ivf._padded(x)
+        dp = xp.shape[1]
+        xz = torch.where(torch.isfinite(xp), xp, 0.0)
+        cents = index.centroids
+        c, nprobe = cents.shape[0], index.slot_map.shape[1]
+        tag = f"{part} 1M ({n} x {x.shape[1]}, {c} centroids)"
+        t_phase = time.perf_counter()
+        checks["ivf_kmeans"].append(_check_ivf(
+            f"ivf_kmeans nearest {tag} m=1", lambda: ivf._nearest(xz, cents, 1), lambda: ivf._nearest_plain(xz, cents, 1),
+            _bound(4.0 * (n * dp + c * dp + 2 * n), float(n) * c * (3 * dp + 1)),
+            library=lambda: _nearest_library(xz, cents, 1)))
+        checks["ivf_kmeans"].append(_check_ivf(
+            f"ivf_kmeans nearest {tag} m={nprobe} (probes)", lambda: ivf._nearest(xz, cents, nprobe)[:1],
+            lambda: ivf._nearest_plain(xz, cents, nprobe)[:1],
+            _bound(4.0 * (n * dp + c * dp + n * nprobe), float(n) * c * (3 * dp + 1)),
+            library=lambda: _nearest_library(xz, cents, nprobe)))
+        codes = ivf._nearest(xz, cents, 1)[0][:, 0]
+        valid = torch.isfinite(xp[:, 0])
+        layout = ivf._update_layout(codes, valid, c)
+        # the rows, their order and the offsets read once, the centroids read
+        # and written once; an add a row and feature
+        checks["ivf_kmeans"].append(_check_ivf(
+            f"ivf_kmeans update {tag} (the stable sort of the codes included)",
+            lambda: (ivf._update(xz, codes, valid, cents),), lambda: (ivf._update_plain(xz, *layout, cents),),
+            _bound(4.0 * (n * dp + n + 2 * (c + 1) + 2 * c * dp), float(n) * dp)))
+        k14_s = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        cap, cap_q = index.members.shape[1], index.qtable.shape[1]
+        msize, qsize = (index.members < n).sum(dim=1), (index.qtable < n).sum(dim=1)
+        pairs, slots = int((msize.long() * qsize.long()).sum()), int(qsize.sum())
+        cut = IVF_PLAIN_CLUSTERS * cap_q
+        # every replica against its cluster's members: 3 dp operations and a key
+        # compare a pair; the rows and tables read once, the keys written once
+        checks["ivf_search"].append(_check_ivf(
+            f"ivf_search {tag} k={k} ({pairs} pairs; plain on the first {IVF_PLAIN_CLUSTERS} clusters)",
+            lambda: (ivf._search(xp, index.members, index.qtable, k, True),),
+            lambda: (ivf._search_plain(xp, index.members, index.qtable, k, True, clusters=IVF_PLAIN_CLUSTERS)[:cut],),
+            _bound(4.0 * (n * dp + c * cap + c * cap_q) + 8.0 * slots * k, float(pairs) * (3 * dp + 1)),
+            library=lambda: _search_library(xp, index, k), cut=lambda t: t[:cut], repeats=2,
+            plain_input=f"the first {IVF_PLAIN_CLUSTERS} of {c} clusters"))
+        keys = ivf._search(xp, index.members, index.qtable, k, True)
+        merged = ivf._merge_slots(keys, index.slot_map, k)
+        del keys
+        k15_s = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        raw, distinct = _distinct_candidates(merged)
+        # one d2 (3 dp operations and a compare) a distinct candidate other
+        # than the row; the rows and lists read once, the distances and
+        # indices written once
+        checks["ivf_refine"].append(_check_ivf(
+            f"ivf_refine {tag} k={k} ({raw} valid candidates, {distinct} distinct non-self; "
+            f"plain on the first {IVF_PLAIN_ROWS} rows)",
+            lambda: ivf._refine(xp, merged, k, True), lambda: ivf._refine_plain(xp, merged, k, True, stop=IVF_PLAIN_ROWS),
+            _bound(4.0 * (n * dp + n * k) + 8.0 * n * k, float(distinct) * (3 * dp + 1)),
+            cut=lambda t: t[:IVF_PLAIN_ROWS], plain_input=f"the first {IVF_PLAIN_ROWS} of {n} rows"))
+        k16_s = time.perf_counter() - t_phase
+        exact, k12_ms = _time_ms(lambda: knn.feature_knn(x, k), 1, warm=False)
+        full = _set_recall(idx, exact[1])
+        del exact, merged
+        torch.cuda.empty_cache()
+        phases = " ".join(f"{key}={v:.2f}" for key, v in stats.items() if key.endswith("_ms"))
+        print(f"[diag] ivf {part} 1M: rows={n} features={x.shape[1]} k={k} centroids={stats['n_clusters']} "
+              f"nprobe={stats['nprobe']} cap={stats['cap']} cap_q={stats['cap_q']} "
+              f"largest_cluster={stats['largest_cluster']} spilled={stats['spilled']} "
+              f"dropped_replicas={stats['dropped_replicas']} {phases} ivf_knn_s={ivf_s:.4f} "
+              f"sampled_recall={rec.recall[0]:.4f} fallback_ran={rec.fallback > 0} full_recall={full:.4f} "
+              f"k12_exact_ms={k12_ms:.1f} checks_s (K14, K15, K16)={k14_s:.1f}/{k15_s:.1f}/{k16_s:.1f}", flush=True)
+    return checks
+
+
+def ivf_reference_check(inputs: dict) -> None:
+    """``ivf_knn`` on the first 100,000 rows of g1's 1M profiles, on the card
+    and on the CPU (plain torch): distances and indices bitwise (the index
+    is deterministic: every ranking by exact keys, every sum in a fixed
+    order)."""
+    import squidpy_torch as sqt
+    from squidpy_torch.ops import ivf_knn as ivf
+
+    t0 = time.perf_counter()
+    x, k = inputs["g1_1m"].ivf[0]
+    cut = x[:IVF_CUT].contiguous()
+    d_card, i_card = ivf.ivf_knn(cut, k)
+    with sqt.set_device("cpu"):
+        d_cpu, i_cpu = ivf.ivf_knn(cut.cpu(), k)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_array_equal(d_card, d_cpu)
+    print(f"[reference] ivf_knn on {IVF_CUT} rows of g1's 1M profiles (k={k}): card and CPU bitwise "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def niche_reference_check(data: StandIn) -> None:
@@ -3811,11 +4066,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     launches_g, secs_g, niche_inputs, niche_data = niche_path()
-    print(f"[main path g] g1/g2: {NICHE_CELLS} cells, g3: {NICHE_BIG_CELLS} cells; {NICHE_GENES} genes, "
+    print(f"[main path g] g1/g2: {NICHE_CELLS} cells, g3 (and g1/g2 on the IVF graph): {NICHE_BIG_CELLS} cells; "
+          f"{NICHE_GENES} genes, "
           f"{NICHE_TYPES} types, {NICHE_DOMAINS} domains " + " ".join(f"{k}={v:.4f}" for k, v in secs_g.items()),
           flush=True)
+    ivf = ("ivf_kmeans", "ivf_search", "ivf_refine", "feature_knn")
     wanted_g = {"g1": ("hops", "ell_autocorr", "feature_knn"), "g2": ("ell_autocorr", "feature_knn"),
-                "g3": ("hops", "ell_autocorr")}
+                "g3": ("hops", "ell_autocorr"), "g1_1m": ("hops", "ell_autocorr", *ivf), "g2_1m": ("ell_autocorr", *ivf)}
     for part, counts in launches_g.items():
         print(f"[launches {part}] {counts}", flush=True)
         missing = [k for k in wanted_g[part] if counts[k] <= 0]
@@ -3826,6 +4083,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     for name, extra in niche_kernel_checks(niche_inputs).items():
         checks[name] = checks.get(name, []) + extra
+    checks.update(ivf_kernel_checks(niche_inputs))
+    ivf_reference_check(niche_inputs)
     del niche_inputs
     torch.cuda.empty_cache()
     niche_reference_check(niche_data)
@@ -3838,7 +4097,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in checks[name]),
-            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "plain_input": first.get("plain_input"),
+            "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))

@@ -25,8 +25,11 @@ exact route alone above 64 features). K13 (``hops``) counts each call into its C
 interface: a hop's warp route, its block route over the rows past a
 warp's capacity (launched every hop, on the device's count), the copy into
 the bucketed ELLs, and the block route over the late rows when there are
-any. K8's wrapper bins its points and queries by K6's bounds, bin and
-scatter, and those calls count as K6's.
+any. K14 (``ivf_kmeans``) counts each call into its nearest entry (the
+assignment, the probes, the spill ranking) and into its update entry (two
+CUDA kernels: the runs and the tree); K15 (``ivf_search``) and K16
+(``ivf_refine``) count each launch. K8's wrapper bins its points and
+queries by K6's bounds, bin and scatter, and those calls count as K6's.
 
 ``build_seconds`` gives, after a build in this process, each source's
 seconds from the start of all compiles to the end of its own, and the link's.
@@ -76,6 +79,9 @@ KERNELS = {
     "sepal_resident": ("squidpy_torch/csrc/sepal.cu", "squidpy_tpu/ops/sepal.py:35"),
     "feature_knn": ("squidpy_torch/csrc/feature_knn.cu", "squidpy_tpu/ops/knn.py:259"),
     "hops": ("squidpy_torch/csrc/hops.cu", "squidpy_tpu/ops/hops.py:145"),
+    "ivf_kmeans": ("squidpy_torch/csrc/ivf_kmeans.cu", "squidpy_tpu/ops/ivf_knn.py:57"),
+    "ivf_search": ("squidpy_torch/csrc/ivf_search.cu", "squidpy_tpu/ops/ivf_knn.py:251"),
+    "ivf_refine": ("squidpy_torch/csrc/ivf_refine.cu", "squidpy_tpu/ops/ivf_knn.py:312"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -132,6 +138,10 @@ _SIGNATURES = {
     "sqt_hops_block": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _L, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P, _I, _I, _P, _P, _P, _P],
     "sqt_hops_place": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "sqt_ivf_nearest": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
+    "sqt_ivf_update": [_P, _I, _I, _P, _P, _P, _I, _L, _P, _P, _P, _P],
+    "sqt_ivf_search": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

@@ -54,12 +54,12 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "knn_keys.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kStagePoints = 1024;  // the brute-force scan's points staged a round
-constexpr unsigned kNanBits = 0x7fc00000u;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Grid {
@@ -88,11 +88,6 @@ struct Search {
     float* out_d;
     int* out_i;
 };
-
-__device__ __forceinline__ unsigned long long make_key(float d2, int j) {
-    const unsigned bits = isnan(d2) ? kNanBits : __float_as_uint(d2);
-    return (static_cast<unsigned long long>(bits) << 32) | static_cast<unsigned>(j);
-}
 
 // KC > 0: a sorted register list of KC keys; KC = 0: `k` keys in a global scratch row.
 template <int KC>

@@ -121,6 +121,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "knn_keys.cuh"
 
 namespace {
 
@@ -128,7 +129,6 @@ constexpr int kThreads = 128;
 constexpr int kStageBytes = 32 * 1024;
 constexpr int kGroup = 32;  // rows a thread sums at once above 64 features
 constexpr int kChunk = 32;  // features a thread holds at once above 64 features
-constexpr unsigned kNanBits = 0x7fc00000u;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kNoKey = ~0ULL;
 
@@ -140,11 +140,6 @@ __host__ __device__ constexpr int tile_cols() { return DP <= 32 ? 128 : 64; }
 constexpr int kQueue = 128;        // a warp's queue of candidates
 constexpr int kSharedK = 64;       // lists in shared memory up to this k
 constexpr int kFilterMaxDp = 64;
-
-__device__ __forceinline__ unsigned long long make_key(float d2, int j) {
-    const unsigned bits = isnan(d2) ? kNanBits : __float_as_uint(d2);
-    return (static_cast<unsigned long long>(bits) << 32) | static_cast<unsigned>(j);
-}
 
 // KC > 0: a sorted register list of KC keys; KC = 0: `k` keys in a global scratch row.
 template <int KC>
@@ -199,11 +194,6 @@ struct TopK {
     }
 };
 
-__device__ __forceinline__ float add_sq(float d2, float a, float b) {
-    const float diff = __fsub_rn(a, b);
-    return __fadd_rn(d2, __fmul_rn(diff, diff));
-}
-
 // The exact route's query of thread slot `slot`: every row (rows null), or
 // the slot-th listed row while slot < the listed count.
 __device__ __forceinline__ int exact_query(const int* rows, int count, int slot) {
@@ -225,14 +215,7 @@ __global__ void __launch_bounds__(kThreads) knn_regs_kernel(const float* __restr
     const bool valid = q >= 0;
     const float4* x4 = reinterpret_cast<const float4*>(x);
     float xq[DP];
-#pragma unroll
-    for (int e = 0; e < kV; ++e) {
-        const float4 v = valid ? __ldg(x4 + static_cast<size_t>(q) * kV + e) : make_float4(0.f, 0.f, 0.f, 0.f);
-        xq[4 * e] = v.x;
-        xq[4 * e + 1] = v.y;
-        xq[4 * e + 2] = v.z;
-        xq[4 * e + 3] = v.w;
-    }
+    load_row<DP>(x4 + static_cast<size_t>(valid ? q : 0) * kV, valid, xq);
     TopK<KC> top;
     top.init(scratch + static_cast<size_t>(valid ? q : 0) * k, k);
     for (int t0 = 0; t0 < n; t0 += stage) {
@@ -242,15 +225,7 @@ __global__ void __launch_bounds__(kThreads) knn_regs_kernel(const float* __restr
         __syncthreads();
         if (!valid) continue;
         for (int p = 0; p < cnt; ++p) {
-            float d2 = 0.0f;
-#pragma unroll
-            for (int e = 0; e < kV; ++e) {
-                const float4 v = tile[p * kV + e];
-                d2 = add_sq(d2, xq[4 * e], v.x);
-                d2 = add_sq(d2, xq[4 * e + 1], v.y);
-                d2 = add_sq(d2, xq[4 * e + 2], v.z);
-                d2 = add_sq(d2, xq[4 * e + 3], v.w);
-            }
+            const float d2 = staged_d2<DP>(tile, p, kV, xq, nullptr);
             const int j = t0 + p;
             if (j != q) top.insert(make_key(d2, j));
         }

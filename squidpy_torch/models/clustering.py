@@ -2,9 +2,11 @@
 ``squidpy_tpu/models/clustering.py``).
 
 - graph clustering: the native C++ Leiden (:func:`squidpy_torch.native.leiden_csr`)
-  on the symmetrised exact kNN graph of the features, whose search is
-  kernel K12 on the card (:func:`squidpy_torch.ops.knn.feature_knn`);
-  communities are numbered largest first;
+  on the symmetrised kNN graph of the features: exact up to 200,000 rows,
+  whose search is kernel K12 on the card
+  (:func:`squidpy_torch.ops.knn.feature_knn`), above that from the IVF
+  index (:mod:`squidpy_torch.ops.ivf_knn`, kernels K14-K16); communities
+  are numbered largest first;
 - PCA and the GMM run on the device for tensors (and, as in the JAX
   package, for large host inputs); small host inputs keep sklearn's host
   paths, imported only there;
@@ -16,6 +18,7 @@ The port dispatches on ``torch.Tensor`` where the JAX package dispatches on
 
 from __future__ import annotations
 
+import logging
 from typing import Any
 
 import numpy as np
@@ -28,36 +31,53 @@ from squidpy_torch._device import get_device, to_host
 
 __all__ = ["gmm_cluster", "graph_cluster", "knn_graph", "pca_embed", "zscore"]
 
-# the JAX package's exact search ends here; above, its clustering graph
-# comes from an IVF index that the port does not have yet
+logger = logging.getLogger(__name__)
+
+# the exact search (K12) up to here; above, the IVF index (ops/ivf_knn.py),
+# guarded by a sampled-recall check, with the full sweep as the fallback
 _EXACT_KNN_MAX_N = 200_000
+# below this sampled recall the IVF graph falls back to the full sweep
+_IVF_RECALL_FLOOR = 0.92
 # sklearn's host EM below, the device EM from here
 _GMM_DEVICE_MIN_N = 20_000
 
 
 def knn_graph(X: Any, n_neighbors: int) -> sp.csr_matrix:
     """Symmetrised binary kNN adjacency of the rows of ``X`` (a tensor, or a
-    host array sent to the selected device), exact up to
-    ``_EXACT_KNN_MAX_N`` rows.
+    host array sent to the selected device): exact up to
+    ``_EXACT_KNN_MAX_N`` rows (K12), above that from the IVF index (K14-K16)
+    whose sampled recall must reach ``_IVF_RECALL_FLOOR``, else from the
+    full sweep (:func:`squidpy_torch.ops.knn.brute_force_knn_approx`, K12).
+    Past the IVF kernels' list of 32 neighbours a row the graph is K12's
+    exact one at every size (the JAX package takes the IVF there).
 
     The JAX package pads the features with zero columns to share compiles
     (``_pad_feature_bucket``); the port does not pad here: a zero column
     adds exactly +0 to a difference-form d2 summed in axis order, so every
-    d2 and every neighbour is the same either way (K12 pads to its own
-    width on the card)."""
+    d2 and every neighbour is the same either way (the kernels pad to their
+    own width on the card)."""
     from squidpy_torch.native import symmetrize_knn
-    from squidpy_torch.ops.knn import feature_knn
+    from squidpy_torch.ops import ivf_knn as ivf
+    from squidpy_torch.ops.knn import brute_force_knn_approx, feature_knn
 
     n = X.shape[0]
-    if n > _EXACT_KNN_MAX_N:
-        raise NotImplementedError(
-            f"The feature-space kNN graph of {n} > {_EXACT_KNN_MAX_N} rows takes the JAX package's IVF index, "
-            "which the port does not have yet (ROADMAP.md, queue 1, item 4)."
-        )
-    with record_function("calculate_niche.knn_search"):
-        if not isinstance(X, torch.Tensor):
-            X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(get_device())
-        idx = to_host(feature_knn(X, min(n_neighbors, n - 1))[1])
+    k = min(n_neighbors, n - 1)
+    if not isinstance(X, torch.Tensor):
+        X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(get_device())
+    if n > _EXACT_KNN_MAX_N and k > ivf._MAX_K:
+        logger.info(f"n_neighbors {k} > {ivf._MAX_K}, past the IVF kernels' lists: the exact search")
+    if n <= _EXACT_KNN_MAX_N or k > ivf._MAX_K:
+        with record_function("calculate_niche.knn_search"):
+            idx = to_host(feature_knn(X, k)[1])
+    else:
+        _, idx = ivf.ivf_knn(X, k, return_distances=False)
+        with record_function("calculate_niche.ivf_recall"):
+            recall = ivf.sampled_recall(X, idx, k, n_samples=256, seed=0)
+        if recall < _IVF_RECALL_FLOOR:
+            logger.info(f"IVF kNN sampled recall {recall:.3f} < {_IVF_RECALL_FLOOR} (unstructured features); "
+                        "falling back to the full sweep")
+            with record_function("calculate_niche.ivf_fallback"):
+                _, idx = brute_force_knn_approx(X, k)
     with record_function("calculate_niche.symmetrize_knn"):
         return symmetrize_knn(idx, n)
 

@@ -15,7 +15,13 @@
 - :mod:`squidpy_torch._core.rng` — K10, the threefry shuffles (``csrc/threefry.cu``);
 - :mod:`squidpy_torch.ops.sepal` — K11, sepal's diffusion (``csrc/sepal.cu``);
 - :mod:`squidpy_torch.ops.knn` — K12, the exact feature-space kNN of the niches (``csrc/feature_knn.cu``),
-  :func:`squidpy_torch.ops.knn.feature_knn`;
+  :func:`squidpy_torch.ops.knn.feature_knn`, its exact route on listed rows
+  (:func:`squidpy_torch.ops.knn.feature_knn_rows`) and the full sweep behind the IVF's fallback
+  (:func:`squidpy_torch.ops.knn.brute_force_knn_approx`);
+- :mod:`squidpy_torch.ops.ivf_knn` — the IVF kNN of the niches' clustering graphs above 200k rows: K14,
+  k-means' nearest centroids and update (``csrc/ivf_kmeans.cu``), K15, the cluster search
+  (``csrc/ivf_search.cu``), K16, the refine pass (``csrc/ivf_refine.cu``); :func:`squidpy_torch.ops.ivf_knn.ivf_knn`,
+  :func:`squidpy_torch.ops.ivf_knn.kmeans_device`, :func:`squidpy_torch.ops.ivf_knn.sampled_recall`;
 - :mod:`squidpy_torch.ops.hops` — K13, the k-hop ring and reach expansion (``csrc/hops.cu``);
 - :mod:`squidpy_torch.ops.pca`, :mod:`squidpy_torch.ops.gmm` — the niches' PCA and GMM, torch library calls.
 """

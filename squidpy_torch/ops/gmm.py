@@ -2,7 +2,7 @@
 
 Every E and M step is a few float32 ``einsum`` products over the ``(n, d)``
 data with TF32 off, and per-component Cholesky factors
-(``torch.linalg.cholesky``, ``torch.cholesky_solve``). The fit is the JAX
+(``torch.linalg.cholesky_ex``, ``torch.cholesky_solve``). The fit is the JAX
 package's: the data centred once, means started at ``n_components`` data
 rows drawn by ``np.random.RandomState(random_state).choice`` (the rows
 sklearn's ``random_from_data`` takes for the seed, so both packages fit
@@ -29,7 +29,12 @@ def _e_step(X: torch.Tensor, weights: torch.Tensor, means: torch.Tensor, covs: t
     """Responsibilities ``(K, n)`` and the mean log-likelihood a sample."""
     d = X.shape[1]
     k = means.shape[0]
-    chol = torch.linalg.cholesky(covs)  # (K, d, d)
+    # a covariance that float32 cannot factor gets an all-NaN factor, as
+    # XLA's Cholesky gives it: the log-likelihood turns NaN, the loop's stop
+    # test fails and every row is labelled 0, as in the JAX package (no
+    # read-back of `info`)
+    chol, info = torch.linalg.cholesky_ex(covs)  # (K, d, d)
+    chol = torch.where((info != 0)[:, None, None], torch.nan, chol)
     logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=1, dim2=2)).sum(dim=1)
     eye = torch.eye(d, dtype=X.dtype, device=X.device).expand(k, d, d)
     prec = torch.cholesky_solve(eye, chol)

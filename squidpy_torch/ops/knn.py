@@ -32,8 +32,10 @@ from squidpy_torch.ops.radius import (_GAP_MARGIN, _bin_k6, _event, _grid_bounds
 __all__ = [
     "auto_knn",
     "brute_force_knn",
+    "brute_force_knn_approx",
     "cross_knn",
     "feature_knn",
+    "feature_knn_rows",
     "nearest_points",
     "pairwise_sq_dists",
     "pairwise_sq_dists_exact",
@@ -243,28 +245,36 @@ def _feature_pad(d: int) -> int:
     return -(-max(d, 1) // 8) * 8 if d <= 64 else -(-d // 32) * 32
 
 
+def _feature_knn_rows_plain(x: torch.Tensor, rows: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K12 on the listed ``rows``: row tiles of
+    difference-form ``d2`` against every row, the row itself excluded, the
+    k least keys ``bits(d2) << 32 | index`` by ``torch.topk``, correctly
+    rounded roots."""
+    n = x.shape[0]
+    m = rows.numel()
+    dist = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((m, k), dtype=torch.int32, device=x.device)
+    step = max(1, _PLAIN_PAIRS[x.device.type] // max(n, 1))
+    col = torch.arange(n, dtype=torch.int64, device=x.device)
+    for r0 in range(0, m, step):
+        q = rows[r0 : r0 + step].to(torch.int64)
+        d2 = pairwise_sq_dists_exact(x[q], x)
+        bits = torch.where(torch.isnan(d2), _NAN_D2_BITS, d2.view(torch.int32)).to(torch.int64)
+        keys = (bits << 32) | col
+        keys[torch.arange(q.numel(), device=x.device), q] = torch.iinfo(torch.int64).max
+        keys = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
+        idx[r0 : r0 + step] = (keys & 0xFFFFFFFF).to(torch.int32)
+        dist[r0 : r0 + step] = _sqrt_rn((keys >> 32).to(torch.int32).view(torch.float32))
+    return dist, idx
+
+
 def _feature_knn_plain(x: torch.Tensor, k: int, stop: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of K12: row tiles of difference-form ``d2``
     against every row, the row itself excluded, the k least keys
     ``bits(d2) << 32 | index`` by ``torch.topk``, correctly rounded roots;
     for the rows before ``stop`` only, if given."""
-    n = x.shape[0]
-    m = n if stop is None else min(stop, n)
-    dev = x.device
-    dist = torch.empty((m, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
-    rows = max(1, _PLAIN_PAIRS[dev.type] // max(n, 1))
-    col = torch.arange(n, dtype=torch.int64, device=dev)
-    for r0 in range(0, m, rows):
-        d2 = pairwise_sq_dists_exact(x[r0 : min(r0 + rows, m)], x)
-        bits = torch.where(torch.isnan(d2), _NAN_D2_BITS, d2.view(torch.int32)).to(torch.int64)
-        keys = (bits << 32) | col
-        own = torch.arange(d2.shape[0], device=dev)
-        keys[own, r0 + own] = torch.iinfo(torch.int64).max
-        keys = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
-        idx[r0 : r0 + rows] = (keys & 0xFFFFFFFF).to(torch.int32)
-        dist[r0 : r0 + rows] = _sqrt_rn((keys >> 32).to(torch.int32).view(torch.float32))
-    return dist, idx
+    m = x.shape[0] if stop is None else min(stop, x.shape[0])
+    return _feature_knn_rows_plain(x, torch.arange(m, device=x.device), k)
 
 
 def feature_knn(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -287,6 +297,32 @@ def feature_knn(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return _feature_knn_plain(x.contiguous(), k)
     return _feature_knn_k12(x, k)
+
+
+def feature_knn_rows(x: torch.Tensor, rows: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K12's exact route on the listed distinct ``rows`` of ``x``
+    (n, d): each listed row's ``k`` nearest other rows, ascending, as
+    distances (m, k) float32 and indices (m, k) int32, in :func:`feature_knn`'s
+    order (the sampled exact neighbours of the IVF's recall check)."""
+    n, d = x.shape
+    if not 1 <= k < n:
+        raise ValueError(f"Expected `n_neighs` < number of observations ({n}), found `{k}`.")
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        return _feature_knn_rows_plain(x.contiguous(), rows, k)
+    dp = _feature_pad(d)
+    xp = x.contiguous() if dp == d else torch.nn.functional.pad(x, (0, dp - d)).contiguous()
+    dev = x.device
+    listed = rows.to(device=dev, dtype=torch.int32).contiguous()
+    n_rows = torch.tensor([listed.numel()], dtype=torch.int32, device=dev)
+    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    scratch = torch.full((n, k), -1, dtype=torch.int64, device=dev) if k > _K8_REGISTER_K else None
+    p = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    _cuda.check(_cuda.library().sqt_feature_knn(p(xp), n, dp, k, p(listed), p(n_rows), p(scratch), p(dist), p(idx),
+                                                _cuda.stream_ptr()), "feature_knn")
+    _cuda.launches["feature_knn"] += 1
+    return dist[listed.to(torch.int64)], idx[listed.to(torch.int64)]
 
 
 # K12's filter route takes up to this many padded features (its rows' bf16
@@ -428,6 +464,34 @@ def brute_force_knn(
     i = np.concatenate(idxs)
     order = np.argsort(d, axis=1, kind="stable")
     return np.take_along_axis(d, order, axis=1), np.take_along_axis(i, order, axis=1)
+
+
+def brute_force_knn_approx(coords: Any, k: int, *, exclude_self: bool = True, recall_target: float = 0.99,
+                           row_tile: int = 1024, col_tile: int = 8192) -> tuple[np.ndarray, np.ndarray]:
+    """The full sweep behind the IVF's fallback, with the JAX package's
+    signature: ``(distances, indices)`` (n, k) as numpy, each row ascending.
+    The JAX package selects by TPU PartialReduce, approximate on a TPU and
+    exact on the CPU; the port computes the exact graph everywhere, by
+    :func:`feature_knn` (K12 on the card), ``coords`` a tensor (kept on its
+    device) or a host array (sent to the selected one). With
+    ``exclude_self=False`` each row's own key (d2 = 0) joins its list.
+    ``recall_target``, ``row_tile`` and ``col_tile`` change nothing."""
+    x = coords if isinstance(coords, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(coords, dtype=np.float32)).to(get_device())
+    n = x.shape[0]
+    if k >= n:
+        raise ValueError(f"Expected `n_neighs` < number of observations ({n}), found `{k}`.")
+    d, i = (to_host(t) for t in feature_knn(x, k))
+    if exclude_self:
+        return d, i
+    # the k least keys with the row's own (0, row) among them: its place is
+    # before the first neighbour at d2 > 0 or at d2 = 0 with a higher index
+    rows = np.arange(n)[:, None]
+    pos = ((d == 0) & (i < rows)).sum(axis=1, keepdims=True)
+    col, prev = np.arange(k), np.maximum(np.arange(k) - 1, 0)  # past its place, the list shifted by one
+    d_out = np.where(col < pos, d, np.where(col == pos, np.float32(0.0), d[:, prev]))
+    i_out = np.where(col < pos, i, np.where(col == pos, rows, i[:, prev])).astype(np.int32)
+    return d_out, i_out
 
 
 def radius_neighbors(

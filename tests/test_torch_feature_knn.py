@@ -424,9 +424,16 @@ def test_knn_graph_equals_jax(d, seed):
 
 
 def test_knn_graph_past_the_exact_search_raises(monkeypatch):
+    """Past the exact search the graph comes from the IVF index, which no
+    longer raises there; it still raises where the IVF does (k >= n), and on
+    101 equal rows it links each row to 5 others."""
     monkeypatch.setattr(tcl, "_EXACT_KNN_MAX_N", 100)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tcl.knn_graph(np.zeros((101, 3), np.float32), 5)
+    adj = tcl.knn_graph(np.zeros((101, 3), np.float32), 5)
+    assert adj.shape == (101, 101) and (adj != adj.T).nnz == 0 and (np.diff(adj.indptr) >= 5).all()
+    with pytest.raises(ValueError, match="n_neighs"):
+        from squidpy_torch.ops.ivf_knn import ivf_knn
+
+        ivf_knn(np.zeros((101, 3), np.float32), 101)
 
 
 @pytest.mark.cuda

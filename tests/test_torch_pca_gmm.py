@@ -119,20 +119,26 @@ def test_gmm_stops_at_max_iter_and_rejects_too_many_components():
         tgmm.gmm_em_labels(x[:2], 3)
 
 
-def test_gmm_collapsed_component_raises_where_jax_labels_one_cluster():
-    """A documented divergence (ROADMAP queue 3): from ``random_from_data``
-    starts at ``reg_covar * I``, the first E-step assigns every row to its
-    nearest start, so a component of fewer rows than features gets a
-    covariance that float32 cannot factor (``reg_covar`` 1e-6 is below an
-    ulp of its variances). The port's Cholesky raises, as sklearn's fit
-    does on float32 data (on float64 it fits); the JAX package's returns
-    NaN factors and labels
-    every row 0. ``calculate_niche(flavor='cellcharter')`` meets it at 1000
-    cells of 50 PCA components and 10 components."""
+def test_gmm_collapsed_component_labels_one_cluster_as_jax():
+    """From ``random_from_data`` starts at ``reg_covar * I``, the first
+    E-step assigns every row to its nearest start, so a component of fewer
+    rows than features gets a covariance that float32 cannot factor
+    (``reg_covar`` 1e-6 is below an ulp of its variances). XLA's Cholesky
+    returns NaN factors there, and so does the port's (``cholesky_ex``, the
+    factor set to NaN where ``info != 0``): the mean log-likelihood turns
+    NaN, the loop stops on the same iteration, and every row is labelled 0
+    in both packages. ``calculate_niche(flavor='cellcharter')`` meets it at
+    1000 cells of 50 PCA components and 10 components."""
     x = (np.random.default_rng(0).normal(size=(1000, 50)) * np.geomspace(10.0, 1.0, 50)).astype(np.float32)
-    with pytest.raises(torch.linalg.LinAlgError, match="positive-definite"):
-        tgmm.gmm_em_labels(x, 10, 42)
-    assert np.unique(np.asarray(jgmm.gmm_em_labels(x, 10, 42))).tolist() == [0]
+    idx = np.random.RandomState(42).choice(1000, size=10, replace=False)
+    lt, _, llt, it_t = tgmm._gmm_em(torch.from_numpy(x), idx, 1e-6, 1e-3, 100)
+    lj, _, llj, it_j = jgmm._gmm_em(x, idx, np.float32(1e-6), np.float32(1e-3), 100)
+    assert np.isnan(llt) and np.isnan(float(llj))
+    assert it_t == int(it_j)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    labels = tgmm.gmm_em_labels(x, 10, 42)
+    np.testing.assert_array_equal(labels, np.asarray(jgmm.gmm_em_labels(x, 10, 42)))
+    assert np.unique(labels).tolist() == [0]
 
 
 def test_gmm_cluster_dispatch(monkeypatch):

@@ -219,7 +219,13 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    g1 and g2 at 1M rows: K14's assignment and probes on every row and its
    update, K15 on every cluster (its plain version on the first 64
    clusters; ``torch.cdist`` + ``torch.topk`` batched over chunks of 16
-   clusters as the yardstick), K16 on every row (its plain version on the
+   clusters as the yardstick), K14's nearest entry and K15 by their
+   tensor-core filter routes timed in turns with their exact routes (the
+   earlier design; old, new, new, old), both bitwise, each with a ``[diag]
+   ivf_filter`` line (candidates a query, mean and largest, the share of
+   them from the re-rank's first tile, the queries past their buffer,
+   both routes' times, the bound and the exact design's floor at one
+   unfused float32 instruction a lane and clock), K16 on every row (its plain version on the
    first 20,000; its bound from the distinct candidates other than the row,
    counted on the card), with a ``[diag] ivf`` line (centroids, caps, the largest
    cluster, spills, dropped replicas, each phase's ms, the sampled recall
@@ -3751,14 +3757,60 @@ def _set_recall(idx, exact) -> float:
     return hits / exact.numel()
 
 
+UNFUSED_OPS_PER_S = 33.5e12  # H100 SXM: one float32 add or multiply a lane and clock, 132 SMs x 128 lanes x ~1.98 GHz
+
+
+def _filter_bound(pairs: float, d: int, nbytes: float) -> tuple[float, str]:
+    """K12's convention for a tensor-core filter: the products of d features
+    of every pair (2 d a pair) at the dense bf16 rate, one key compare a pair
+    at the float32 rate, or the bytes read and written once."""
+    t_ops = max(2.0 * d * pairs / BF16_OPS_PER_S, pairs / F32_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_ivf_filter(name: str, new, old, plain, bound: tuple[float, str], floor_ms: float, stats: dict,
+                      library=None, cut=None, repeats: int = 2, plain_input: str = "all of it") -> dict:
+    """K14's nearest entry or K15 by its filter route (``new``) timed in turns
+    with its exact route (``old``, the earlier design), both bitwise, and
+    against its plain version (on ``plain_input``, after ``cut``); a
+    ``[diag] ivf_filter`` line gives the filter's counters (``stats``) and
+    both routes' times beside the bound and the exact design's floor."""
+    (got, old_out), new_ms, old_ms = _turns(new, old, repeats)
+    if not _same(got, old_out):
+        raise AssertionError(f"{name}: the filter and exact routes differ")
+    del old_out
+    want, plain_ms = _time_ms(plain, 1, warm=False)
+    if cut is not None:
+        got = tuple(cut(g) for g in got)
+    if not _same(got, want):
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    del got, want
+    library_ms = _time_ms(library, 1)[1] if library is not None else None
+    ms = sum(new_ms) / len(new_ms)
+    print(f"[kernel] {name}: max_abs_err=0.0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} (on {plain_input}) "
+          f"bound_ms={bound[0]:.4f} ({bound[1]})" + (f" library_ms={library_ms:.3f}" if library is not None else ""),
+          flush=True)
+    print(f"[diag] ivf_filter {name}: route={stats['route']} candidates_a_query_mean={stats['candidates_mean']:.2f} "
+          f"candidates_a_query_max={stats['candidates_max']} first_tile_share={stats['first_tile_share']:.3f} "
+          f"queries_past_buffer={stats['exact_rows']} turns (old, new, new, old): exact_route_ms="
+          + "/".join(f"{t:.3f}" for t in old_ms) + " filter_ms=" + "/".join(f"{t:.3f}" for t in new_ms)
+          + f" bound_ms={bound[0]:.4f} exact_design_floor_ms={floor_ms:.3f}", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain_input": plain_input, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms, "exact_route_ms": old_ms, "filter_ms": new_ms,
+            "stats": dict(stats)}
+
+
 def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
     """K14-K16 on the IVF inputs of g1 and g2 at 1M rows, against their plain
     versions, bitwise: K14's assignment and probes on every row and its
     update, K15 on every cluster (its plain version on the first 64), K16
-    on every row (its plain version on the first 20,000). Each is timed
-    beside its bound and yardstick (``torch.cdist`` + ``torch.topk``: in row
-    chunks for K14, batched over chunks of clusters for K15; none for K16).
-    A ``[diag] ivf`` line gives the index (centroids, caps, the largest
+    on every row (its plain version on the first 20,000). K14's nearest
+    entry and K15 run their filter routes in turns with their exact routes
+    (the earlier design), each with a ``[diag] ivf_filter`` line. Each is
+    timed beside its bound and yardstick (``torch.cdist`` + ``torch.topk``:
+    in row chunks for K14, batched over chunks of clusters for K15; none for
+    K16). A ``[diag] ivf`` line gives the index (centroids, caps, the largest
     cluster, spills, dropped replicas), each phase's ms, the call's sampled
     recall and fallbacks, the recall against K12's exact graph and K12's
     time on all rows (the IVF's yardstick)."""
@@ -3771,7 +3823,7 @@ def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
     for part in ("g1", "g2"):
         rec = inputs[f"{part}_1m"]
         x, k = rec.ivf[0]
-        n = x.shape[0]
+        n, d = x.shape
         stats: dict = {}
         (_, idx, index), ivf_s = _sync_time(lambda: ivf._ivf_knn(x, k, stats=stats))
         xp = ivf._padded(x)
@@ -3779,17 +3831,18 @@ def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
         xz = torch.where(torch.isfinite(xp), xp, 0.0)
         cents = index.centroids
         c, nprobe = cents.shape[0], index.slot_map.shape[1]
-        tag = f"{part} 1M ({n} x {x.shape[1]}, {c} centroids)"
+        tag = f"{part} 1M ({n} x {d}, {c} centroids)"
         t_phase = time.perf_counter()
-        checks["ivf_kmeans"].append(_check_ivf(
-            f"ivf_kmeans nearest {tag} m=1", lambda: ivf._nearest(xz, cents, 1), lambda: ivf._nearest_plain(xz, cents, 1),
-            _bound(4.0 * (n * dp + c * dp + 2 * n), float(n) * c * (3 * dp + 1)),
-            library=lambda: _nearest_library(xz, cents, 1)))
-        checks["ivf_kmeans"].append(_check_ivf(
-            f"ivf_kmeans nearest {tag} m={nprobe} (probes)", lambda: ivf._nearest(xz, cents, nprobe)[:1],
-            lambda: ivf._nearest_plain(xz, cents, nprobe)[:1],
-            _bound(4.0 * (n * dp + c * dp + n * nprobe), float(n) * c * (3 * dp + 1)),
-            library=lambda: _nearest_library(xz, cents, nprobe)))
+        for m, what in ((1, "m=1"), (nprobe, f"m={nprobe} (probes)")):
+            fstats: dict = {}
+            ivf._nearest_k14(xz, cents, m, stats=fstats)
+            checks["ivf_kmeans"].append(_check_ivf_filter(
+                f"ivf_kmeans nearest {tag} {what}", lambda m=m: ivf._nearest(xz, cents, m)[: 2 if m == 1 else 1],
+                lambda m=m: ivf._nearest_k14(xz, cents, m, route="exact")[: 2 if m == 1 else 1],
+                lambda m=m: ivf._nearest_plain(xz, cents, m)[: 2 if m == 1 else 1],
+                _filter_bound(float(n) * c, d, 4.0 * (n * dp + c * dp + n * m + (n if m == 1 else 0))),
+                1e3 * float(n) * c * (3 * dp + 1) / UNFUSED_OPS_PER_S, fstats,
+                library=lambda m=m: _nearest_library(xz, cents, m), repeats=3))
         codes = ivf._nearest(xz, cents, 1)[0][:, 0]
         valid = torch.isfinite(xp[:, 0])
         layout = ivf._update_layout(codes, valid, c)
@@ -3805,14 +3858,19 @@ def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
         msize, qsize = (index.members < n).sum(dim=1), (index.qtable < n).sum(dim=1)
         pairs, slots = int((msize.long() * qsize.long()).sum()), int(qsize.sum())
         cut = IVF_PLAIN_CLUSTERS * cap_q
-        # every replica against its cluster's members: 3 dp operations and a key
-        # compare a pair; the rows and tables read once, the keys written once
-        checks["ivf_search"].append(_check_ivf(
+        fstats = {}
+        ivf._search_k15(xp, index.members, index.qtable, k, True, stats=fstats)
+        # every replica against its cluster's members: the products of d
+        # features and a key compare a pair; the rows and tables read once,
+        # the keys written once
+        checks["ivf_search"].append(_check_ivf_filter(
             f"ivf_search {tag} k={k} ({pairs} pairs; plain on the first {IVF_PLAIN_CLUSTERS} clusters)",
             lambda: (ivf._search(xp, index.members, index.qtable, k, True),),
+            lambda: (ivf._search_k15(xp, index.members, index.qtable, k, True, route="exact"),),
             lambda: (ivf._search_plain(xp, index.members, index.qtable, k, True, clusters=IVF_PLAIN_CLUSTERS)[:cut],),
-            _bound(4.0 * (n * dp + c * cap + c * cap_q) + 8.0 * slots * k, float(pairs) * (3 * dp + 1)),
-            library=lambda: _search_library(xp, index, k), cut=lambda t: t[:cut], repeats=2,
+            _filter_bound(float(pairs), d, 4.0 * (n * dp + c * cap + c * cap_q) + 8.0 * slots * k),
+            1e3 * float(pairs) * (3 * dp + 1) / UNFUSED_OPS_PER_S, fstats,
+            library=lambda: _search_library(xp, index, k), cut=lambda t: t[:cut],
             plain_input=f"the first {IVF_PLAIN_CLUSTERS} of {c} clusters"))
         keys = ivf._search(xp, index.members, index.qtable, k, True)
         merged = ivf._merge_slots(keys, index.slot_map, k)

@@ -26,9 +26,11 @@ interface: a hop's warp route, its block route over the rows past a
 warp's capacity (launched every hop, on the device's count), the copy into
 the bucketed ELLs, and the block route over the late rows when there are
 any. K14 (``ivf_kmeans``) counts each call into its nearest entry (the
-assignment, the probes, the spill ranking) and into its update entry (two
-CUDA kernels: the runs and the tree); K15 (``ivf_search``) and K16
-(``ivf_refine``) count each launch. K8's wrapper bins its points and
+assignment, the probes, the spill ranking; the filter route's call starts
+two CUDA kernels: the centroids' terms and the sweep) and into its update
+entry (two: the runs and the tree); K15 (``ivf_search``) counts each call
+(the filter route's starts two CUDA kernels: the members' terms and the
+sweep); K16 (``ivf_refine``) counts each launch. K8's wrapper bins its points and
 queries by K6's bounds, bin and scatter, and those calls count as K6's.
 
 ``build_seconds`` gives, after a build in this process, each source's
@@ -140,7 +142,9 @@ _SIGNATURES = {
     "sqt_hops_place": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "sqt_ivf_nearest": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
     "sqt_ivf_update": [_P, _I, _I, _P, _P, _P, _I, _L, _P, _P, _P, _P],
+    "sqt_ivf_nearest_filter": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
     "sqt_ivf_search": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "sqt_ivf_search_filter": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,

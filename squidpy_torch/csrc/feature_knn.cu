@@ -31,69 +31,18 @@
 // float32 operations outside the tensor cores, would take ~57 / ~201 ms at
 // dp = 16 / 56.
 //
-// Two routes. The filter route (dp <= 64) ranks nothing by the tensor
-// cores: they only decide which pairs the exact keys are computed for.
-//
-// The filter. The wrapper centres the columns (xc = fl(x - mu), mu any
-// float32 vector; the column means of the finite entries) and sums each
-// row's n_i = |xc_i|^2 in float32; a row whose n_i is not finite or not
-// below 2^124 is unbounded (its norm is stored as NaN). The kernel splits
-// each centred value v into bf16 terms hi = rn(v), lo = rn(v - hi) and
-// sums, on mma.sync m16n8k16, A_ij = -n_j / 2 + sum_e (lo_ie hi_je + hi_ie
-// lo_je + hi_ie hi_je), so e_ij = n_i - 2 A_ij approximates the centred d2.
-// With u = 2^-24, N the exact norms and D_ij the plain version's d2:
-//   - |n - N| <= gamma_dp N in any summation order (gamma_m = m u / (1 - m u));
-//   - |v - hi - lo| <= 2^-18 |v| and |lo| <= 2^-9 (1 + 2^-9) |v|, so the
-//     three products drop at most 3.01 * 2^-18 |v_i| |v_j| a feature, and a
-//     product of bf16 terms is exact in float32: twice the dropped part is
-//     at most 192.6 u (N_i + N_j);
-//   - every addition in the tensor cores may be off by one ulp (2u relative
-//     to the sum of the magnitudes) in any order and direction, over 3 dp16
-//     + 1 terms (dp16: dp rounded up to 16; the padding adds exact zeros)
-//     whose magnitudes sum to at most 1.003 (N_i + N_j): twice that error
-//     is at most 4.012 (3 dp + 25) u (N_i + N_j);
-//   - the centring moves each difference by at most u (|xc_ie| + |xc_je|)
-//     (1 + u), so |d2 - |xc_i - xc_j|^2| <= 4.01 u (N_i + N_j) for the real
-//     d2 = |x_i - x_j|^2;
-//   - the plain d2 rounds each of dp + 2 steps of a sum of non-negative
-//     terms: |D - d2| <= gamma_(dp+2) d2 <= 2.01 (dp + 2) u (N_i + N_j);
-//   - in all, |e_ij - D_ij| <= (15.05 dp + 301) u (N_i + N_j), and
-//     subnormal products flushed or rounded add at most (8 dp + 8) 2^-126.
-// So delta_ij = c (n_i + n_j) + a with c = (dp + 20) 2^-19 (= (32 dp + 640)
-// u, over twice the sum above over (1 - gamma_dp)) and a = (dp + 1) 2^-120
-// bounds |e_ij - D_ij|, and so does delta_it = c (n_i + nmax_t) + a for
-// every column of a staged tile t whose largest bounded norm is nmax_t.
-// Bounded norms keep every product and sum finite. Row i keeps an exact
-// list of the k least keys among the pairs re-ranked so far, and T_i, the
-// d2 of its k-th key (+inf while the list holds fewer than k, or the k-th
-// d2 is NaN or +inf). Pair (i, j) of tile t is a candidate unless
-// A_ij < M_it, M_it = (n_i - delta_it - T_i) / 2, each step rounded
-// towards a smaller M (__fadd_ru for delta, __fsub_rd, __fmul_rd); the
-// kernel tests the two columns of a lane's accumulator pair at once, by
-// their NaN-propagating maximum, so both are re-ranked when either passes.
-// Proof: a list over a subset of the columns has its k-th key at or above
-// the k-th key over all columns, so a member j of the row's exact top k has
-// D_ij <= T_i at every tile; then, in real numbers, n_i - 2 A_ij - delta_it
-// <= e_ij - delta_ij <= D_ij <= T_i, so A_ij >= (n_i - delta_it - T_i) / 2
-// >= M_it, and j is a candidate. A NaN A_ij (an unbounded column) is one.
-// Each candidate's exact key is computed as the exact route computes it
-// (`add_sq` on the original rows), inserted into the row's list, and T_i
-// follows; so the first k of the list at the end are the plain version's.
-//
-// Design of the filter route: a block takes 128 rows (4 warps of 32), their
-// bf16 terms in registers as mma A fragments, and sweeps every column in index
-// order, a tile at a time (128 columns up to 32 features, 64 above): the block
-// stages the tile's bf16 terms in shared memory in the B fragments' order (one
-// 16-byte load a lane a k-step gives a lane both terms of its four features)
-// and -n_j / 2 as the mma's C operand, so A_ij leaves the tensor cores ready
-// for one compare a column pair into a bit mask. A warp queues its (row, column
-// pair) candidates in shared memory across tiles; once the queue holds 32
-// entries (or is full) it computes their exact keys a lane each, and one lane a
-// row inserts them into the row's sorted list (shared memory for k <= 64, a
-// global scratch row above) and updates T_i (a stale T_i only admits more
-// pairs). A row whose re-ranked candidates pass `cap` (many exact ties,
-// duplicate rows, a common offset the centring cannot remove), or whose norm is
-// unbounded, leaves the sweep: it is listed.
+// Design: two routes. The filter route (dp <= 64) ranks nothing by the tensor
+// cores: they only decide which pairs the exact keys are computed for. Its
+// rule, the proof that it keeps the exact top k, and the block's sweep are
+// csrc/knn_filter.cuh, shared with K14 and K15. Here is K12's problem: the
+// wrapper centres the columns (xc = fl(x - mu), mu the column means of the
+// finite entries) and sums each row's n_i = |xc_i|^2 in float32 (NaN where
+// unbounded); a block's query rows are 128 consecutive rows, its candidate
+// columns every row in index order, a tile staged by the block's threads
+// (each splits a column's centred values into the B fragments' order), the
+// row itself excluded by index. A row whose re-ranked candidates pass `cap`
+// (many exact ties, duplicate rows, a common offset the centring cannot
+// remove), or whose norm is unbounded, leaves the sweep: it is listed.
 //
 // The exact route (every row when dp > 64, and the listed rows after the
 // filter; on every row it is the earlier single-route design): one thread a
@@ -121,6 +70,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "knn_filter.cuh"
 #include "knn_keys.cuh"
 
 namespace {
@@ -129,17 +79,7 @@ constexpr int kThreads = 128;
 constexpr int kStageBytes = 32 * 1024;
 constexpr int kGroup = 32;  // rows a thread sums at once above 64 features
 constexpr int kChunk = 32;  // features a thread holds at once above 64 features
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNoKey = ~0ULL;
-
-constexpr int kFilterRows = 128;   // rows a block of the filter route
-// columns a staged tile: 128 up to 32 features (the tile's fixed costs, its
-// barrier and bounds, weigh most there), 64 above (registers)
-template <int DP>
-__host__ __device__ constexpr int tile_cols() { return DP <= 32 ? 128 : 64; }
-constexpr int kQueue = 128;        // a warp's queue of candidates
-constexpr int kSharedK = 64;       // lists in shared memory up to this k
-constexpr int kFilterMaxDp = 64;
+using knn_filter::kNoKey;
 
 // KC > 0: a sorted register list of KC keys; KC = 0: `k` keys in a global scratch row.
 template <int KC>
@@ -298,60 +238,6 @@ __global__ void __launch_bounds__(kThreads) knn_chunked_kernel(const float* __re
 
 // ---- the filter route -----------------------------------------------------
 
-// Two float32 values as bf16, rounded to nearest even, packed (the first in the low half).
-__device__ __forceinline__ unsigned bf16x2(float lo_half, float hi_half) {
-    unsigned r;
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi_half), "f"(lo_half));
-    return r;
-}
-
-// The bf16 terms hi = rn(v), lo = rn(v - hi) of two values, packed as bf16x2.
-__device__ __forceinline__ void split2(float v0, float v1, unsigned& hi, unsigned& lo) {
-    hi = bf16x2(v0, v1);
-    const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
-    lo = bf16x2(__fsub_rn(v0, h0), __fsub_rn(v1, h1));
-}
-
-// D = A B + C on one m16n8k16 bf16 tile, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1,
-                                         const float (&c)[4]) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-        "{%10,%11,%12,%13};\n"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]), "f"(c[2]),
-          "f"(c[3]));
-}
-
-__device__ __forceinline__ int popcount(unsigned v) { return __popc(v); }
-__device__ __forceinline__ int popcount(unsigned long long v) { return __popcll(v); }
-__device__ __forceinline__ int lowest_bit(unsigned v) { return __ffs(static_cast<int>(v)) - 1; }
-__device__ __forceinline__ int lowest_bit(unsigned long long v) { return __ffsll(static_cast<long long>(v)) - 1; }
-
-// The larger of two values, NaN if either is.
-__device__ __forceinline__ float max_nan(float a, float b) {
-    float r;
-    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-    return r;
-}
-
-// The d2 of the k-th key of a sorted list, +inf while it is not full or that d2 is NaN.
-__device__ __forceinline__ float list_threshold(unsigned long long last) {
-    const unsigned bits = static_cast<unsigned>(last >> 32);
-    return (last == kNoKey || bits == kNanBits) ? __int_as_float(0x7f800000) : __uint_as_float(bits);
-}
-
-// Insert `key` into the sorted list of k keys (its last drops out).
-__device__ __forceinline__ void list_insert(unsigned long long* list, int k, unsigned long long key) {
-    if (!(key < list[k - 1])) return;
-    int lo = 0, hi = k - 1;  // the first slot whose key is above `key`
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (list[mid] < key) lo = mid + 1; else hi = mid;
-    }
-    for (int r = k - 1; r > lo; --r) list[r] = list[r - 1];
-    list[lo] = key;
-}
-
 struct Filter {
     const float* x;       // (n, DP) the padded rows
     const float* xc;      // (n, DP) centred
@@ -369,157 +255,56 @@ struct Filter {
     int* out_i;
 };
 
-// Row states in shared memory: >= 0 the row's re-ranked candidates; on the exact route; a padding row.
-constexpr int kExact = -1;
-constexpr int kPad = -2;
-constexpr int kFilterWarps = kFilterRows / 32;  // 32 rows a warp: two m16 tiles
-
+// K12's problem for knn_filter::sweep: the block's 128 rows against every row.
 template <int DP>
-__host__ __device__ constexpr size_t filter_smem(int k) {
-    return 2 * (static_cast<size_t>(tile_cols<DP>()) * ((DP + 15) / 16) * 16 * 4  // two tiles' bf16 terms
-                + tile_cols<DP>() * 4)                                             // and -n_j / 2
-           + kFilterRows * 8                                            // T_i, state
-           + static_cast<size_t>(kFilterWarps) * kQueue * 24            // queues
-           + (k <= kSharedK ? static_cast<size_t>(kFilterRows) * k * 8 : 0);
-}
+struct K12Problem {
+    static constexpr bool kAsync = false;
+    static constexpr int KS = knn_filter::ksteps<DP>();
+    static constexpr int kTileCols = knn_filter::tile_cols<DP>();
+    Filter f;
+    int row0;
+    int k, cap, need, n_cols, list_unbounded;
+    float c, a;
 
-template <int DP>
-__global__ void __launch_bounds__(kFilterRows) knn_filter_kernel(Filter f) {
-    constexpr int KS = (DP + 15) / 16;  // k-steps of 16 features
-    constexpr int kTileCols = tile_cols<DP>();
-    constexpr int NF = kTileCols / 8;   // n-fragments a tile
-    constexpr int MT = 2;               // m16 tiles a warp
-    using Bits = std::conditional_t<(NF * MT * 2 > 32), unsigned long long, unsigned>;  // a bit a column pair and row
-    extern __shared__ __align__(16) unsigned char smem[];
-    uint4* bfrag_all = reinterpret_cast<uint4*>(smem);                 // (2, NF, KS, 32)
-    float* hneg_all = reinterpret_cast<float*>(bfrag_all + 2 * NF * KS * 32);  // (2, kTileCols)
-    float* thr = hneg_all + 2 * kTileCols;                             // (kFilterRows,)
-    int* state = reinterpret_cast<int*>(thr + kFilterRows);            // (kFilterRows,)
-    unsigned long long* qkey_all = reinterpret_cast<unsigned long long*>(state + kFilterRows);  // (W, kQueue, 2)
-    int* qrow_all = reinterpret_cast<int*>(qkey_all + kFilterWarps * kQueue * 2);  // (W, kQueue)
-    int* qcol_all = qrow_all + kFilterWarps * kQueue;                               // (W, kQueue)
-    unsigned long long* slists = reinterpret_cast<unsigned long long*>(qcol_all + kFilterWarps * kQueue);
+    __device__ int row_id(int r) const { return row0 + r < f.n ? row0 + r : -1; }
 
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int row0 = blockIdx.x * kFilterRows;
-    const int n = f.n;
-    const int k = f.k;
-    const bool shared_lists = k <= kSharedK;
-    unsigned long long* qkey = qkey_all + warp * kQueue * 2;
-    int* qrow = qrow_all + warp * kQueue;
-    int* qcol = qcol_all + warp * kQueue;
-
-    // the block's rows' states, thresholds and lists
-    const float4* x4 = reinterpret_cast<const float4*>(f.x);
-    for (int r = tid; r < kFilterRows; r += kFilterRows) {
-        const int row = row0 + r;
-        thr[r] = __int_as_float(0x7f800000);
-        state[r] = row >= n ? kPad : (isnan(__ldg(f.norms + row)) ? kExact : 0);
-    }
-    for (int e = tid; e < kFilterRows * k; e += kFilterRows) {
-        const int r = e / k;
-        if (shared_lists) slists[e] = kNoKey;
-        else if (row0 + r < n) f.glists[static_cast<size_t>(row0) * k + e] = kNoKey;
+    __device__ unsigned long long* glist(int r) const {
+        return row0 + r < f.n ? f.glists + static_cast<size_t>(row0 + r) * k : nullptr;
     }
 
-    // this warp's rows as A fragments (bf16 hi and lo terms), and their norms
-    unsigned ahi[MT][KS][4], alo[MT][KS][4];
-    float nrm[MT][2];
+    // the rows' centred values and norms, as the wrapper computed them
+    __device__ void load_rows(const int*, int warp, int g, int t, unsigned (&ahi)[2][KS][4],
+                              unsigned (&alo)[2][KS][4], float (&nrm)[2][2]) const {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+        for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = row0 + warp * 32 + mt * 16 + g + 8 * h;
-            nrm[mt][h] = row < n ? __ldg(f.norms + row) : 0.0f;
-        }
+            for (int h = 0; h < 2; ++h) {
+                const int row = row0 + warp * 32 + mt * 16 + g + 8 * h;
+                nrm[mt][h] = row < f.n ? __ldg(f.norms + row) : 0.0f;
+            }
 #pragma unroll
-        for (int s = 0; s < KS; ++s) {
+            for (int s = 0; s < KS; ++s) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const int row = row0 + warp * 32 + mt * 16 + g + ((q & 1) ? 8 : 0);
-                const int e = 16 * s + 2 * t + ((q & 2) ? 8 : 0);
-                float2 v = make_float2(0.f, 0.f);
-                if (row < n && e < DP)
-                    v = __ldg(reinterpret_cast<const float2*>(f.xc + static_cast<size_t>(row) * DP + e));
-                split2(v.x, v.y, ahi[mt][s][q], alo[mt][s][q]);
+                for (int q = 0; q < 4; ++q) {
+                    const int row = row0 + warp * 32 + mt * 16 + g + ((q & 1) ? 8 : 0);
+                    const int e = 16 * s + 2 * t + ((q & 2) ? 8 : 0);
+                    float2 v = make_float2(0.f, 0.f);
+                    if (row < f.n && e < DP)
+                        v = __ldg(reinterpret_cast<const float2*>(f.xc + static_cast<size_t>(row) * DP + e));
+                    knn_filter::split2(v.x, v.y, ahi[mt][s][q], alo[mt][s][q]);
+                }
             }
         }
     }
 
-    // the queued candidates re-ranked exactly, a lane an entry, and inserted
-    // by one lane a row into its list, which then sets the row's T_i
-    int queued = 0;  // warp-uniform
-    auto flush = [&](int count) {
-        __syncwarp();
-        for (int q = lane; q < count; q += 32) {
-            const int r = qrow[q];
-            const float4* xr = x4 + static_cast<size_t>(row0 + r) * (DP / 4);
-#pragma unroll
-            for (int c2 = 0; c2 < 2; ++c2) {
-                const int j = qcol[q] + c2;
-                unsigned long long key = kNoKey;
-                if (j < n && j != row0 + r) {
-                    const float4* xj = x4 + static_cast<size_t>(j) * (DP / 4);
-                    float d2 = 0.0f;
-#pragma unroll
-                    for (int e = 0; e < DP / 4; ++e) {
-                        const float4 a = __ldg(xr + e);
-                        const float4 b = __ldg(xj + e);
-                        d2 = add_sq(d2, a.x, b.x);
-                        d2 = add_sq(d2, a.y, b.y);
-                        d2 = add_sq(d2, a.z, b.z);
-                        d2 = add_sq(d2, a.w, b.w);
-                    }
-                    key = make_key(d2, j);
-                }
-                qkey[2 * q + c2] = key;
-            }
-        }
-        __syncwarp();
-        {
-            const int r = warp * 32 + lane;
-            int cnt = state[r];
-            if (cnt >= 0) {
-                unsigned long long* list = shared_lists ? slists + r * k
-                                                        : f.glists + static_cast<size_t>(row0 + r) * k;
-                for (int q = 0; q < count; ++q) {
-                    if (qrow[q] != r) continue;
-#pragma unroll
-                    for (int c2 = 0; c2 < 2; ++c2) {
-                        const unsigned long long key = qkey[2 * q + c2];
-                        if (key == kNoKey) continue;
-                        ++cnt;
-                        list_insert(list, k, key);
-                    }
-                }
-                if (cnt > f.cap) {
-                    cnt = kExact;
-                    if (!shared_lists)
-                        for (int s = 0; s < k; ++s) list[s] = kNoKey;  // the exact route's list starts empty
-                } else {
-                    thr[r] = list_threshold(list[k - 1]);
-                }
-                state[r] = cnt;
-            }
-        }
-        __syncwarp();
-    };
-
-    const float4* xc4 = reinterpret_cast<const float4*>(f.xc);
-    int buf = 0;
-    for (int t0 = 0; t0 < n; t0 += kTileCols, buf ^= 1) {
-        // two shared buffers: a warp still on the last tile reads the other one, so one barrier a tile
-        uint4* bfrag = bfrag_all + buf * NF * KS * 32;
-        float* hneg = hneg_all + buf * kTileCols;
-        for (int i = tid; i < kTileCols; i += kFilterRows) {
+    // a tile of kTileCols columns from t0 (zeros past n): bf16 terms in the B fragments' order, -n_j / 2
+    __device__ void stage(int t0, int, uint4* bfrag, float* hneg) const {
+        const float4* xc4 = reinterpret_cast<const float4*>(f.xc);
+        for (int i = threadIdx.x; i < kTileCols; i += knn_filter::kRows) {
             const int j = t0 + i;
-            hneg[i] = j < n ? -0.5f * __ldg(f.norms + j) : 0.0f;
+            hneg[i] = j < f.n ? -0.5f * __ldg(f.norms + j) : 0.0f;
         }
-        for (int i = tid; i < kTileCols * KS; i += kFilterRows) {
+        for (int i = threadIdx.x; i < kTileCols * KS; i += knn_filter::kRows) {
             const int cl = i / KS;
             const int s = i - cl * KS;
             const int j = t0 + cl;
@@ -527,138 +312,71 @@ __global__ void __launch_bounds__(kFilterRows) knn_filter_kernel(Filter f) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
                 float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (j < n && 16 * s + 4 * q < DP) w = __ldg(xc4 + static_cast<size_t>(j) * (DP / 4) + 4 * s + q);
+                if (j < f.n && 16 * s + 4 * q < DP) w = __ldg(xc4 + static_cast<size_t>(j) * (DP / 4) + 4 * s + q);
                 v[4 * q] = w.x;
                 v[4 * q + 1] = w.y;
                 v[4 * q + 2] = w.z;
                 v[4 * q + 3] = w.w;
             }
-            uint4* dst = bfrag + ((cl >> 3) * KS + s) * 32 + (cl & 7) * 4;
-#pragma unroll
-            for (int tt = 0; tt < 4; ++tt) {
-                unsigned h0, l0, h1, l1;
-                split2(v[2 * tt], v[2 * tt + 1], h0, l0);          // features 16s + 2tt, + 1: a lane's b0
-                split2(v[2 * tt + 8], v[2 * tt + 9], h1, l1);      // features 16s + 8 + 2tt, + 1: its b1
-                dst[tt] = make_uint4(h0, h1, l0, l1);
-            }
-        }
-        __syncthreads();
-
-        // this lane's rows: live, and their compare bounds M for this tile
-        Bits live = 0;
-        float M[MT][2];
-        {
-            float mn = hneg[lane];  // fminf drops NaN (unbounded columns)
-#pragma unroll
-            for (int c = lane + 32; c < kTileCols; c += 32) mn = fminf(mn, hneg[c]);
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) mn = fminf(mn, __shfl_xor_sync(kFull, mn, o));
-            const float nmax = isnan(mn) ? 0.0f : -2.0f * mn;
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int r = warp * 32 + mt * 16 + g + 8 * h;
-                    const float ni = nrm[mt][h];
-                    const float delta = __fmaf_ru(f.c, __fadd_ru(ni, nmax), f.a);
-                    M[mt][h] = __fmul_rd(0.5f, __fsub_rd(__fsub_rd(ni, delta), thr[r]));
-                    if (state[r] >= 0) {
-#pragma unroll
-                        for (int nf = 0; nf < NF; ++nf) live |= Bits(1) << ((nf * MT + mt) * 2 + h);
-                    }
-                }
-            }
-        }
-        if (!__any_sync(kFull, live != 0)) continue;  // every row of the warp is done
-
-        Bits bits = 0;
-#pragma unroll
-        for (int nf = 0; nf < NF; ++nf) {
-            const float2 hn = reinterpret_cast<const float2*>(hneg)[nf * 4 + t];
-            const float cinit[4] = {hn.x, hn.y, hn.x, hn.y};
-            float acc[MT][4];
-#pragma unroll
-            for (int s = 0; s < KS; ++s) {
-                const uint4 b = bfrag[(nf * KS + s) * 32 + lane];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    if (s == 0) mma_bf16(acc[mt], alo[mt][s], b.x, b.y, cinit);
-                    else mma_bf16(acc[mt], alo[mt][s], b.x, b.y, acc[mt]);
-                    mma_bf16(acc[mt], ahi[mt][s], b.z, b.w, acc[mt]);
-                    mma_bf16(acc[mt], ahi[mt][s], b.x, b.y, acc[mt]);
-                }
-            }
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                if (!(max_nan(acc[mt][0], acc[mt][1]) < M[mt][0])) bits |= Bits(1) << ((nf * MT + mt) * 2);
-                if (!(max_nan(acc[mt][2], acc[mt][3]) < M[mt][1])) bits |= Bits(1) << ((nf * MT + mt) * 2 + 1);
-            }
-        }
-        bits &= live;
-
-        // the candidates: column pairs queued across tiles, re-ranked once the
-        // queue holds a lane's worth or is full (a stale T_i only admits more)
-        while (__any_sync(kFull, bits != 0)) {
-            const int have = popcount(bits);
-            int off = have;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int y = __shfl_up_sync(kFull, off, o);
-                if (lane >= o) off += y;
-            }
-            const int total = __shfl_sync(kFull, off, 31);
-            off -= have;
-            const int room = kQueue - queued;
-            const int take = off >= room ? 0 : min(have, room - off);
-            for (int i = 0; i < take; ++i) {
-                const int bit = lowest_bit(bits);
-                bits &= bits - 1;
-                const int nf = bit / (MT * 2);
-                const int mt = (bit >> 1) & 1;
-                const int h = bit & 1;
-                qrow[queued + off + i] = warp * 32 + mt * 16 + g + 8 * h;
-                qcol[queued + off + i] = t0 + nf * 8 + 2 * t;
-            }
-            queued += min(total, room);
-            if (queued == kQueue) {
-                flush(queued);
-                queued = 0;
-            }
-        }
-        if (queued >= 32) {
-            flush(queued);
-            queued = 0;
+            knn_filter::store_b_column(v, bfrag + ((cl >> 3) * KS + s) * 32 + (cl & 7) * 4);
         }
     }
-    if (queued) flush(queued);
-    __syncthreads();
+
+    __device__ void keys2(int, int id, int j, int mask, unsigned long long& k0, unsigned long long& k1) const {
+        const float4* x4 = reinterpret_cast<const float4*>(f.x);
+        const float4* xr = x4 + static_cast<size_t>(id) * (DP / 4);
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+            const int jj = j + c2;
+            unsigned long long key = kNoKey;
+            if (((mask >> c2) & 1) && jj < f.n && jj != id) {
+                const float4* xj = x4 + static_cast<size_t>(jj) * (DP / 4);
+                float d2 = 0.0f;
+#pragma unroll
+                for (int e = 0; e < DP / 4; ++e) {
+                    const float4 av = __ldg(xr + e);
+                    const float4 bv = __ldg(xj + e);
+                    d2 = add_sq(d2, av.x, bv.x);
+                    d2 = add_sq(d2, av.y, bv.y);
+                    d2 = add_sq(d2, av.z, bv.z);
+                    d2 = add_sq(d2, av.w, bv.w);
+                }
+                key = make_key(d2, jj);
+            }
+            (c2 ? k1 : k0) = key;
+        }
+    }
 
     // outputs of the rows the filter finished; the others are listed
-    for (int r = tid; r < kFilterRows; r += kFilterRows) {
-        const int row = row0 + r;
-        const int st = state[r];
-        if (st == kPad) continue;
+    __device__ void finish(int, int row, int st, int, const unsigned long long* list) const {
+        if (st == knn_filter::kPad) return;
         f.cand_counts[row] = st;
-        if (st == kExact) {
+        if (st == knn_filter::kExact) {
             f.exact_rows[atomicAdd(f.n_exact, 1)] = row;
-            continue;
+            return;
         }
-        const unsigned long long* list = shared_lists ? slists + r * k : f.glists + static_cast<size_t>(row) * k;
         for (int s = 0; s < k; ++s) {
             const unsigned long long key = list[s];
             f.out_d[static_cast<size_t>(row) * k + s] = sqrtf(__uint_as_float(static_cast<unsigned>(key >> 32)));
             f.out_i[static_cast<size_t>(row) * k + s] = static_cast<int>(key & 0xffffffffULL);
         }
     }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(knn_filter::kRows) knn_filter_kernel(Filter f) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    K12Problem<DP> p{f, static_cast<int>(blockIdx.x) * knn_filter::kRows, f.k, f.cap, 0, f.n, 1, f.c, f.a};
+    knn_filter::sweep<DP, 0>(p, smem);
 }
 
 template <int DP>
 cudaError_t launch_filter(const Filter& f, cudaStream_t s) {
-    const size_t smem = filter_smem<DP>(f.k);
+    const size_t smem = knn_filter::smem_bytes<DP>(f.k, 0);
     const cudaError_t err = sqt_allow_smem(knn_filter_kernel<DP>, smem);
     if (err != cudaSuccess) return err;
-    const unsigned blocks = static_cast<unsigned>((f.n + kFilterRows - 1) / kFilterRows);
-    knn_filter_kernel<DP><<<blocks, kFilterRows, smem, s>>>(f);
+    const unsigned blocks = static_cast<unsigned>((f.n + knn_filter::kRows - 1) / knn_filter::kRows);
+    knn_filter_kernel<DP><<<blocks, knn_filter::kRows, smem, s>>>(f);
     return cudaGetLastError();
 }
 
@@ -739,7 +457,7 @@ SQT_EXPORT int sqt_feature_knn(const float* x, int n, int dp, int k, const int* 
 SQT_EXPORT int sqt_feature_knn_filter(const float* x, const float* xc, const float* norms, int n, int dp, int k,
                                       float c, float a, int cap, long long* lists, int* exact_rows, int* n_exact,
                                       int* cand_counts, float* out_d, int* out_i, void* stream) {
-    if (!valid_shape(n, dp, k) || dp > kFilterMaxDp || cap < 1 || (k > kSharedK && lists == nullptr) ||
+    if (!valid_shape(n, dp, k) || dp > knn_filter::kMaxDp || cap < 1 || (k > knn_filter::kSharedK && lists == nullptr) ||
         exact_rows == nullptr || n_exact == nullptr || cand_counts == nullptr || !(c > 0.0f) || !(a > 0.0f)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }

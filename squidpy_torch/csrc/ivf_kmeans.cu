@@ -21,18 +21,39 @@
 // form, whose rounding can swap two centroids whose d2 lie within a few ulps
 // of max |x|^2 of each other (ROADMAP.md queue 3).
 //
-// Design: one thread a row, 128 a block, its features in registers when dp
-// <= 64. The block stages the centroids in shared memory in tiles of 32 KB
-// (1024 x 16 float32 is two tiles, 1024 x 56 seven), and every thread reads
-// each staged centroid as a broadcast (float4 loads). The m best keys sit in
+// Bound on the card of the nearest entry: operations. Any route must at
+// least form the products of dp features of every (row, centroid) pair (2 dp
+// a pair at the dense bf16 tensor rate, the filter's operand type: 0.03 ms at
+// 1M x 1024 x 16, 0.10 ms at dp = 56) and compare one key a pair, above the
+// rows and centroids read once. The exact keys of every pair alone (3 dp + 1
+// unfused float32 operations a pair) would take ~1.5 / ~5.2 ms at one
+// instruction a lane and clock.
+//
+// Design of the nearest entry: two routes. The filter route (dp a multiple of 8 up to 64; the entry
+// `sqt_ivf_nearest_filter`, built as csrc/ivf_kmeans_filter.cu) is the
+// tensor-core filter of csrc/knn_filter.cuh, whose proof keeps the exact m
+// nearest: one set, the rows the query rows (centred in registers), the
+// centroids the candidate columns, both centred on the centroids' mean (of
+// their finite entries). A first kernel computes the centre and the
+// centroids' bf16 terms and norms in the B fragments' order; the sweep's
+// block takes 128 rows and asks for each tile of centroid terms by bulk
+// asynchronous copies, double-buffered against the products of the tile
+// before. It sweeps the centroids twice: the bounding pass gives each row a
+// proven T_i from its m least upper bounds, so the second pass's candidates
+// are about the m nearest and the near ties; one thread a row then computes
+// their exact keys (of every centroid when they pass its buffer: exact ties,
+// an unbounded norm) into a register list, as the exact route does.
+//
+// The exact route (`sqt_ivf_nearest`; above 64 features; the earlier design):
+// one thread a row, 128 a block, its features in registers when dp <= 64.
+// The block stages the centroids in shared memory in tiles of 32 KB (1024 x
+// 16 float32 is two tiles, 1024 x 56 seven), and every thread reads each
+// staged centroid as a broadcast (float4 loads). The m best keys sit in
 // registers, sorted, in a list of MC keys (MC = 1, 8, 16 or 32 >= m: the
 // first m of the best MC are the best m), by a branch-free sorted insertion
-// (`Best`, csrc/knn_keys.cuh, shared with K15; K12's lists insert alike). Above 64 features a thread reads its own
-// row from the cache for every centroid.
-//
-// Bound on the card of the nearest entry: operations, 3 dp + 1 a (row,
-// centroid) pair (0.75 ms at 1M x 1024 x 16 on the card's 67e12/s; 2.58 ms
-// at dp = 56), above the rows and centroids read once.
+// (`Best`, csrc/knn_keys.cuh, shared with K15; K12's lists insert alike).
+// Above 64 features a thread reads its own row from the cache for every
+// centroid.
 //
 // The update entry (`sqt_ivf_update`): each centroid's mean of its rows,
 // each value rounded to bf16 (round to nearest even) and summed in float32,
@@ -59,6 +80,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "knn_filter.cuh"
 #include "knn_keys.cuh"
 
 namespace {
@@ -178,7 +200,8 @@ __global__ void __launch_bounds__(kTreeThreads) update_tree_kernel(int dp, const
 
 }  // namespace
 
-// Each row's m nearest centroids. x (n, dp) and cents (n_cents, dp)
+#ifndef SQT_IVF_KMEANS_FILTER
+// The exact route: each row's m nearest centroids. x (n, dp) and cents (n_cents, dp)
 // float32, dp a positive multiple of 4; 1 <= m <= min(32, n_cents);
 // out_i (n, m) int32, ascending; out_d2 (n,) float32, the nearest one's
 // d2, when m = 1 (else null).
@@ -216,3 +239,45 @@ SQT_EXPORT int sqt_ivf_update(const float* x, int n, int dp, const int* order, c
     update_tree_kernel<<<n_cents, kTreeThreads, 0, s>>>(dp, starts, run_off, runs, old, out);
     return static_cast<int>(cudaGetLastError());
 }
+
+#else
+// The nearest entry's filter route: x (n, dp) and cents (n_cents, dp)
+// float32, dp a multiple of 8 up to 64; 1 <= m <= min(32, n_cents); c and
+// a the bound's constants (csrc/knn_filter.cuh); scratch: terms (cap8 *
+// ceil(dp / 16) * 64 bytes, cap8 = n_cents rounded up to 8), hneg (cap8,)
+// and mu (dp,) float32; stats null or (5,) int64 zeroed (csrc/knn_filter.cuh IvfFilter);
+// out_i (n, m) int32, ascending; out_d2 (n,) float32, the nearest one's d2,
+// when m = 1 (else null).
+SQT_EXPORT int sqt_ivf_nearest_filter(const float* x, int n, int dp, const float* cents, int n_cents, int m, float c,
+                                      float a, void* terms, float* hneg, float* mu, long long* stats,
+                                      int* out_i, float* out_d2, void* stream) {
+    if (n < 1 || dp < 8 || dp % 8 || dp > knn_filter::kMaxDp || n_cents < 1 || m < 1 || m > 32 || m > n_cents ||
+        (out_d2 != nullptr && m != 1) || !(c > 0.0f) || !(a > 0.0f) ||
+        terms == nullptr || hneg == nullptr || mu == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    knn_filter::IvfFilter f{};
+    f.x = x;
+    f.nx = n;
+    f.y = cents;
+    f.ny = n_cents;
+    f.cap = n_cents;
+    f.cap8 = (n_cents + 7) / 8 * 8;
+    f.terms = static_cast<uint4*>(terms);
+    f.hneg = hneg;
+    f.mu = mu;
+    f.k = m;
+    f.need = m;
+    f.c = c;
+    f.a = a;
+    f.out_i = out_i;
+    f.out_d2 = out_d2;
+    f.stats = reinterpret_cast<unsigned long long*>(stats);
+    const int slot_blocks = (n + knn_filter::kRows - 1) / knn_filter::kRows;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // the bounding pass's lists a lane: 1 for Lloyd's assignment, 4 up to 16 centroids, 8 up to 32
+    if (m == 1) return static_cast<int>(knn_filter::launch_ivf_filter_dp<1>(dp, f, 1, slot_blocks, s));
+    return static_cast<int>(m <= 16 ? knn_filter::launch_ivf_filter_dp<4>(dp, f, 1, slot_blocks, s)
+                                    : knn_filter::launch_ivf_filter_dp<8>(dp, f, 1, slot_blocks, s));
+}
+#endif

@@ -24,24 +24,53 @@
 // by the expanded form (ROADMAP.md queue 3). One launch covers every
 // cluster: the chunks guarded a TPU worker, not this card.
 //
-// Bound on the card: operations, 3 dp + 1 a real (replica, member) pair
-// (1.59e10 pairs at 1M rows of part g: 11.6 ms at dp = 16, 40.3 ms at dp =
-// 56 on the card's 67e12/s); the rows and tables read once and the keys
-// written once weigh less.
+// Bound on the card: operations. Any route must at least form the products
+// of dp features of every real (replica, member) pair (2 dp a pair at the
+// dense bf16 tensor rate, the filter's operand type; 1.59e10 pairs at 1M
+// rows of part g: 0.51 ms at dp = 16, 1.61 ms at dp = 56) and compare one
+// key a pair; the rows and tables read once and the keys written once weigh
+// less. The exact keys of every pair alone (3 dp + 1 unfused float32
+// operations a pair) would take ~23 / ~81 ms at one instruction a lane and
+// clock.
 //
-// Design: a block takes 128 replica slots of one cluster (blockIdx.y), one
-// thread a replica with its row's features in registers (dp <= 64; above, read
-// from the cache), and returns at once when its first slot is past the
-// cluster's replicas. It stages the cluster's members in shared memory in
-// tiles of 48 KB (1536 x 16 float32 is two tiles, 1536 x 56 seven), their
-// rows gathered through the member table, with their indices beside them;
-// every thread reads each staged member as a broadcast. The k best keys sit
-// in registers, sorted, in a list of KC = 8, 16 or 32 >= k keys (the first k
-// of the best KC are the best k), as in K12 (csrc/feature_knn.cu).
+// Design: two routes. The filter route (dp a multiple of 8 up to 64; the entry
+// `sqt_ivf_search_filter`, built as csrc/ivf_search_filter.cu) is the
+// tensor-core filter of csrc/knn_filter.cuh, whose proof keeps the exact top
+// k: each cluster a set, its replicas the query rows (gathered through the
+// replica table and centred in registers), its members the candidate columns,
+// both centred on the mean of the cluster's members' finite entries (members
+// lie near it, so their norms, and with them the filter's error bound, are
+// far smaller than about the column means of all rows). A first kernel computes each
+// cluster's centre and its members' bf16 terms and norms once, in member-table
+// order, padded to 8 columns, in the B fragments' order (each row is a member
+// of one cluster: ~100 MB at g1's 1M x 16, ~400 MB at dp = 56); the sweep's
+// block takes 128 replicas of one cluster and asks for each tile of member
+// terms by bulk asynchronous copies, double-buffered against the products of
+// the tile before. It sweeps the members twice: the bounding pass gives each
+// replica a proven T_i from its k + 1 least upper bounds (the replica may be
+// among the members), so the second pass's candidates are about the k
+// nearest and the near ties, not most of a short cluster, as a list that
+// starts empty admits. One thread a replica then computes its candidates'
+// exact keys (of every member when they pass its buffer of 64: exact ties,
+// duplicate rows, an unbounded norm) from the original rows, as the exact
+// route does, into a register list; no replica leaves the kernel.
+//
+// The exact route (`sqt_ivf_search`; every replica above 64 features, or
+// where k + 1 passes 32; the earlier design): a block takes 128 replica slots of
+// one cluster (blockIdx.y), one thread a replica with its row's features in
+// registers (dp <= 64; above, read from the cache), and returns at once when
+// its first slot is past the cluster's replicas. It stages the cluster's
+// members in shared memory in tiles of 48 KB (1536 x 16 float32 is two
+// tiles, 1536 x 56 seven), their rows gathered through the member table,
+// with their indices beside them; every thread reads each staged member as
+// a broadcast. The k best keys sit in registers, sorted, in a list of KC =
+// 8, 16 or 32 >= k keys (the first k of the best KC are the best k), as in
+// K12 (csrc/feature_knn.cu).
 
 #include <cmath>
 
 #include "common.cuh"
+#include "knn_filter.cuh"
 #include "knn_keys.cuh"
 
 namespace {
@@ -132,10 +161,11 @@ cudaError_t search_dp(const float* x, int dp, const int* members, int cap, const
 
 }  // namespace
 
-// x (n, dp) float32, dp a positive multiple of 4; members (n_cents, cap)
-// and qtable (n_cents, cap_q) int32 with msize / qsize (n_cents,) int32
-// real rows at the front of each row, every one below n; 1 <= k <= 32;
-// out (n_cents * cap_q, k) uint64, filled by the caller.
+#ifndef SQT_IVF_SEARCH_FILTER
+// The exact route. x (n, dp) float32, dp a positive multiple of 4; members
+// (n_cents, cap) and qtable (n_cents, cap_q) int32 with msize / qsize
+// (n_cents,) int32 real rows at the front of each row, every one below n;
+// 1 <= k <= 32; out (n_cents * cap_q, k) uint64, filled by the caller.
 SQT_EXPORT int sqt_ivf_search(const float* x, int n, int dp, const int* members, int cap, const int* msize,
                               const int* qtable, int cap_q, const int* qsize, int n_cents, int k, int exclude_self,
                               long long* out, void* stream) {
@@ -150,3 +180,51 @@ SQT_EXPORT int sqt_ivf_search(const float* x, int n, int dp, const int* members,
     else err = search_dp<32>(x, dp, members, cap, msize, qtable, cap_q, qsize, n_cents, k, exclude_self, o, s);
     return static_cast<int>(err);
 }
+
+#else
+// The filter route, dp a multiple of 8 up to 64, k + exclude_self <= 32;
+// x, members, msize, qtable, qsize, k, exclude_self as for the exact route;
+// c and a the bound's constants (csrc/knn_filter.cuh); scratch: terms
+// (n_cents * cap8 * ceil(dp / 16) * 64 bytes, cap8 = cap rounded up to 8),
+// hneg (n_cents, cap8) float32, mu (n_cents, dp) float32; stats null or (5,)
+// int64 zeroed (csrc/knn_filter.cuh IvfFilter); out (n_cents * cap_q, k)
+// uint64 filled by the caller, written at every real replica.
+SQT_EXPORT int sqt_ivf_search_filter(const float* x, int n, int dp, const int* members, int cap, const int* msize,
+                                     const int* qtable, int cap_q, const int* qsize, int n_cents, int k,
+                                     int exclude_self, float c, float a, void* terms, float* hneg, float* mu,
+                                     long long* stats, long long* out, void* stream) {
+    const int need = k + (exclude_self ? 1 : 0);  // the replica itself may be among the members
+    if (n < 1 || dp < 8 || dp % 8 || dp > knn_filter::kMaxDp || cap < 1 || cap_q < 1 || n_cents < 1 ||
+        n_cents > 65535 || k < 1 || need > 32 || !(c > 0.0f) || !(a > 0.0f) || terms == nullptr ||
+        hneg == nullptr || mu == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    knn_filter::IvfFilter f{};
+    f.x = x;
+    f.qtable = qtable;
+    f.qsize = qsize;
+    f.nx = n;
+    f.cap_q = cap_q;
+    f.y = x;
+    f.members = members;
+    f.msize = msize;
+    f.ny = n;
+    f.cap = cap;
+    f.cap8 = (cap + 7) / 8 * 8;
+    f.terms = static_cast<uint4*>(terms);
+    f.hneg = hneg;
+    f.mu = mu;
+    f.k = k;
+    f.need = need;
+    f.c = c;
+    f.a = a;
+    f.exclude_self = exclude_self;
+    f.keys = reinterpret_cast<unsigned long long*>(out);
+    f.stats = reinterpret_cast<unsigned long long*>(stats);
+    const int slot_blocks = (cap_q + knn_filter::kRows - 1) / knn_filter::kRows;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // the bounding pass's lists a lane: 4 bound up to 16 members, 8 up to 32
+    return static_cast<int>(need <= 16 ? knn_filter::launch_ivf_filter_dp<4>(dp, f, n_cents, slot_blocks, s)
+                                       : knn_filter::launch_ivf_filter_dp<8>(dp, f, n_cents, slot_blocks, s));
+}
+#endif

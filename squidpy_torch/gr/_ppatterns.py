@@ -53,6 +53,7 @@ from squidpy_torch.ops.cooccur import co_occurrence_counts, co_occurrence_probs
 from squidpy_torch.ops.dense_pairs import MAX_CLASSES, dense_pair_counts
 from squidpy_torch.utils._memoize import memoize_arrays
 from squidpy_torch.utils._stats import multipletests
+from squidpy_torch.utils._utils import deprecated_params
 
 __all__ = ["AutocorrResult", "co_occurrence", "spatial_autocorr"]
 
@@ -338,6 +339,7 @@ def spatial_autocorr(
     return None
 
 
+@deprecated_params({"n_splits": "1.10.0", "n_jobs": "1.10.0", "backend": "1.10.0", "show_progress_bar": "1.10.0"})
 def co_occurrence(
     adata: Any,
     cluster_key: str,

@@ -5,7 +5,9 @@ inverted-file index built and searched on the device, as in the JAX package:
 
 1. k-means over C ~ sqrt(n) centroids (:func:`kmeans_device`): Lloyd's
    assignment and each row's nearest centroids are kernel K14's nearest
-   entry, the centroids' update its update entry (``csrc/ivf_kmeans.cu``);
+   entry (a tensor-core filter whose candidates the exact keys re-rank, up
+   to 64 padded features; ``csrc/knn_filter.cuh``), the centroids' update
+   its update entry (``csrc/ivf_kmeans.cu``);
 2. the member table (:func:`_pack_members`, a host numpy copy of the JAX
    package's): each cluster's rows, the farthest spilled to the nearest
    centroid with room (ranked by K14) when a cluster passes the cap;
@@ -14,7 +16,8 @@ inverted-file index built and searched on the device, as in the JAX package:
    torch) into each cluster's queries, the farthest probes dropped where a
    cluster passes ``cap_q``;
 4. the search (:func:`_search`, kernel K15, ``csrc/ivf_search.cu``): each
-   cluster's queries against its own members, k least keys a replica;
+   cluster's queries against its own members, k least keys a replica (the
+   same filter, each cluster centred on its members' mean);
 5. the merge (:func:`_merge_slots`, plain torch): each row's ``nprobe``
    result rows gathered, one exact top k;
 6. the refine pass (:func:`_refine`, kernel K16, ``csrc/ivf_refine.cu``):
@@ -48,7 +51,13 @@ from torch.profiler import record_function
 
 from squidpy_torch import _cuda
 from squidpy_torch._device import get_device, to_host
-from squidpy_torch.ops.knn import _NAN_D2_BITS, _feature_pad, feature_knn_rows, pairwise_sq_dists_exact
+from squidpy_torch.ops.knn import (
+    _NAN_D2_BITS,
+    _feature_pad,
+    _k12_filter_constants,
+    feature_knn_rows,
+    pairwise_sq_dists_exact,
+)
 from squidpy_torch.ops.radius import _sqrt_rn
 
 __all__ = ["IvfIndex", "ivf_index_from_numpy", "ivf_knn", "ivf_search", "kmeans_device", "sampled_recall"]
@@ -60,6 +69,14 @@ _RUN = 32  # rows a run of K14's update sums (csrc/ivf_kmeans.cu kRun)
 _MAX_K = 32
 _PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 26}  # temporaries of the plain versions
 _MERGE_ROWS = 1 << 18  # rows a chunk of the merge's gather and top k
+# K14's and K15's filter routes (csrc/knn_filter.cuh) take up to this many
+# padded features, a multiple of 8, and bound at most this many columns a
+# row (m, or k + 1 where the row itself is among the columns)
+_IVF_FILTER_MAX_DP = 64
+_IVF_FILTER_MAX_NEED = 32
+# the filters' counters: candidates and first-tile candidates of the rows
+# the filter finished, the largest, those rows, the rows past their buffer
+_STAT_NAMES = ("candidates", "first_tile", "candidates_max", "finished", "exact")
 
 
 @dataclass
@@ -131,6 +148,41 @@ def _nearest_plain(x: torch.Tensor, cents: torch.Tensor, m: int) -> tuple[torch.
     return idx, d2_out
 
 
+def _ivf_route(dp: int, need: int) -> str:
+    """``filter`` (the tensor-core filter and exact re-rank) at a multiple of
+    8 up to 64 padded features and at most 32 columns to bound (``need``: m,
+    or k + 1 where the row itself is among the columns), else ``exact`` (the
+    exact keys of every pair): K14's nearest entry and K15 alike."""
+    return "filter" if dp <= _IVF_FILTER_MAX_DP and dp % 8 == 0 and need <= _IVF_FILTER_MAX_NEED else "exact"
+
+
+def _filter_scratch(sets: int, width: int, dp: int, dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """The filter routes' scratch for ``sets`` sets of ``width`` candidates:
+    the bf16 terms (16 bytes a k-step of 16 features and column, the columns
+    padded to 8), -n_j / 2 a column and each set's centre."""
+    cap8 = -(-width // 8) * 8
+    terms = torch.empty(sets * cap8 * -(-dp // 16) * 16, dtype=torch.int32, device=dev)
+    hneg = torch.empty((sets, cap8), dtype=torch.float32, device=dev)
+    mu = torch.empty((sets, dp), dtype=torch.float32, device=dev)
+    return terms, hneg, mu
+
+
+def _filter_stats(counters: torch.Tensor | None, stats: dict | None, route: str) -> None:
+    """Given ``stats``, the route and, for the filter, its counters: the
+    candidates a finished query re-ranked (mean, largest), the share of them
+    from the second pass's first tile, and the queries past their buffer
+    (``exact_rows``: they re-rank every column)."""
+    if stats is None:
+        return
+    stats.update(route=route)
+    if counters is None:
+        return
+    got = dict(zip(_STAT_NAMES, to_host(counters).tolist()))
+    done = max(got["finished"], 1)
+    stats.update(candidates_mean=got["candidates"] / done, candidates_max=got["candidates_max"],
+                 first_tile_share=got["first_tile"] / max(got["candidates"], 1), exact_rows=got["exact"])
+
+
 def _nearest(x: torch.Tensor, cents: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Kernel K14's nearest entry: each row of ``x`` (n, dp) its ``m``
     nearest centroids of ``cents`` (C, dp), ascending, as indices (n, m)
@@ -140,17 +192,40 @@ def _nearest(x: torch.Tensor, cents: torch.Tensor, m: int) -> tuple[torch.Tensor
     if x.device.type == "cpu":
         idx, d2 = _nearest_plain(x, cents, m)
         return idx, (d2 if m == 1 else None)
+    return _nearest_k14(x, cents, m)
+
+
+def _nearest_k14(x: torch.Tensor, cents: torch.Tensor, m: int, *, route: str | None = None,
+                 stats: dict | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """K14's nearest entry on the route :func:`_ivf_route` picks (or
+    ``route``): the filter route centres both sides on the centroids' mean,
+    bounds each row's m-th d2 in a first sweep of the centroids and re-ranks
+    in a second; given ``stats``, it fills it as :func:`_filter_stats`
+    says."""
     if m > _MAX_K:
         raise ValueError(f"K14 ranks at most {_MAX_K} centroids a row, found {m}.")
     n, dp = x.shape
+    c = cents.shape[0]
+    route = route or _ivf_route(dp, m)
+    if route not in ("filter", "exact") or (route == "filter" and _ivf_route(dp, m) != "filter"):
+        raise ValueError(f"K14 has no route {route!r} at {dp} padded features.")
     _cuda.require(x, "x", torch.float32, (n, dp))
-    _cuda.require(cents, "centroids", torch.float32, (cents.shape[0], dp))
+    _cuda.require(cents, "centroids", torch.float32, (c, dp))
     idx = torch.empty((n, m), dtype=torch.int32, device=x.device)
     d2 = torch.empty(n, dtype=torch.float32, device=x.device) if m == 1 else None
-    _cuda.check(_cuda.library().sqt_ivf_nearest(x.data_ptr(), n, dp, cents.data_ptr(), cents.shape[0], m,
-                                                idx.data_ptr(), d2.data_ptr() if d2 is not None else None,
-                                                _cuda.stream_ptr()), "ivf_kmeans")
+    p = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _cuda.library()
+    counters = None
+    if route == "exact":
+        _cuda.check(lib.sqt_ivf_nearest(p(x), n, dp, p(cents), c, m, p(idx), p(d2), _cuda.stream_ptr()), "ivf_kmeans")
+    else:
+        terms, hneg, mu = _filter_scratch(1, c, dp, x.device)
+        counters = torch.zeros(len(_STAT_NAMES), dtype=torch.int64, device=x.device) if stats is not None else None
+        cc, aa = _k12_filter_constants(dp)
+        _cuda.check(lib.sqt_ivf_nearest_filter(p(x), n, dp, p(cents), c, m, cc, aa, p(terms), p(hneg), p(mu),
+                                               p(counters), p(idx), p(d2), _cuda.stream_ptr()), "ivf_kmeans")
     _cuda.launches["ivf_kmeans"] += 1
+    _filter_stats(counters, stats, route)
     return idx, d2
 
 
@@ -378,21 +453,45 @@ def _search(x: torch.Tensor, members: torch.Tensor, qtable: torch.Tensor, k: int
     (C * cap_q, k) int64, ascending, the no-key where there is none."""
     if x.device.type == "cpu":
         return _search_plain(x, members, qtable, k, exclude_self)
+    return _search_k15(x, members, qtable, k, exclude_self)
+
+
+def _search_k15(x: torch.Tensor, members: torch.Tensor, qtable: torch.Tensor, k: int, exclude_self: bool, *,
+                route: str | None = None, stats: dict | None = None) -> torch.Tensor:
+    """K15 on the route :func:`_ivf_route` picks (or ``route``). The filter
+    route centres each cluster on its members' mean, bounds each replica's
+    k-th d2 in a first sweep of the members and re-ranks the candidates of a
+    second; given ``stats``, it fills it as :func:`_filter_stats` says."""
     if k > _MAX_K:
         raise ValueError(f"K15 keeps at most {_MAX_K} neighbours a row, found {k}.")
     n, dp = x.shape
-    c, cap = members.shape
+    c, cap_m = members.shape
     cap_q = qtable.shape[1]
+    need = k + int(exclude_self)
+    route = route or _ivf_route(dp, need)
+    if route not in ("filter", "exact") or (route == "filter" and _ivf_route(dp, need) != "filter"):
+        raise ValueError(f"K15 has no route {route!r} at {dp} padded features and k = {k}.")
     _cuda.require(x, "x", torch.float32, (n, dp))
-    _cuda.require(members, "members", torch.int32, (c, cap))
+    _cuda.require(members, "members", torch.int32, (c, cap_m))
     _cuda.require(qtable, "qtable", torch.int32, (c, cap_q))
     msize = (members < n).sum(dim=1, dtype=torch.int32)
     qsize = (qtable < n).sum(dim=1, dtype=torch.int32)
     out = torch.full((c * cap_q, k), _NO_KEY, dtype=torch.int64, device=x.device)
-    _cuda.check(_cuda.library().sqt_ivf_search(x.data_ptr(), n, dp, members.data_ptr(), cap, msize.data_ptr(),
-                                               qtable.data_ptr(), cap_q, qsize.data_ptr(), c, k, int(exclude_self),
-                                               out.data_ptr(), _cuda.stream_ptr()), "ivf_search")
+    p = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _cuda.library()
+    counters = None
+    if route == "exact":
+        _cuda.check(lib.sqt_ivf_search(p(x), n, dp, p(members), cap_m, p(msize), p(qtable), cap_q, p(qsize), c, k,
+                                       int(exclude_self), p(out), _cuda.stream_ptr()), "ivf_search")
+    else:
+        terms, hneg, mu = _filter_scratch(c, cap_m, dp, x.device)
+        counters = torch.zeros(len(_STAT_NAMES), dtype=torch.int64, device=x.device) if stats is not None else None
+        cc, aa = _k12_filter_constants(dp)
+        _cuda.check(lib.sqt_ivf_search_filter(p(x), n, dp, p(members), cap_m, p(msize), p(qtable), cap_q, p(qsize), c, k,
+                                              int(exclude_self), cc, aa, p(terms), p(hneg), p(mu), p(counters), p(out),
+                                              _cuda.stream_ptr()), "ivf_search")
     _cuda.launches["ivf_search"] += 1
+    _filter_stats(counters, stats, route)
     return out
 
 

@@ -135,6 +135,27 @@ def test_co_occurrence_rejects_bad_input():
         co_occurrence_counts(np.zeros((3, 2)), np.zeros(3, int), np.ones(1), 1, method="fast")
 
 
+@pytest.mark.parametrize(("keyword", "value"), [("n_splits", 2), ("n_jobs", 2), ("backend", "loky"),
+                                                ("show_progress_bar", False)])
+def test_deprecated_keywords_warn_and_change_nothing(keyword, value):
+    """Each package warns with a FutureWarning, drops the keyword and returns
+    the call's result without it; the two packages' results are equal."""
+    rng = np.random.default_rng(0)
+    adata = _adata(600, 4, seed=0)
+    adata.obsm["spatial"] = rng.uniform(0, 100, (600, 2))
+    assert not _straddling(adata.obsm["spatial"], _default_thresholds(adata.obsm["spatial"], 8))
+    results = {}
+    for name, pkg in (("torch", sqt), ("jax", sq)):
+        plain = pkg.gr.co_occurrence(adata, "cl", interval=8, copy=True)
+        with pytest.warns(FutureWarning, match=keyword):
+            got = pkg.gr.co_occurrence(adata, "cl", interval=8, copy=True, **{keyword: value})
+        for a, b in zip(got, plain):
+            np.testing.assert_array_equal(a, b)
+        results[name] = got
+    for a, b in zip(results["torch"], results["jax"]):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_slice_chained_matches_jax():
     n, n_perms, seed = 3000, 40, 0
     words = random_bits(spawn_keys(seed, n_perms), (n,))

@@ -27,7 +27,15 @@ and sums the refine's d2 in XLA's order. So:
   exact kNN over JAX's floors, within :data:`RECALL_MARGIN` of each other.
 
 K14-K16 run only on the card (the cuda-marked test holds each to its plain
-version); the order of K14's update sums is held here by a numpy emulation.
+version, on each route); the order of K14's update sums is held here by a
+numpy emulation. So is the rule of K14's and K15's tensor-core filter routes
+(csrc/knn_filter.cuh): the bounding pass's lists a lane, the bound T_i, then
+the candidate test, with the bf16 terms rounded as ``cvt.rn`` rounds them
+and the tensor cores' sums in two float32 orders and in float64; every
+member of the plain version's top k is asserted among the candidates (or
+the row past its buffer re-ranks every column) on adversarial inputs. The
+wrappers' filter and exact routes run around a numpy emulation of their C
+interface, bitwise against the plain versions.
 """
 
 from __future__ import annotations
@@ -37,7 +45,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_feature_knn import _bf16_rn, _four_squares
+from test_torch_radius import _view
+
 import squidpy_torch as sqt
+from squidpy_torch import _cuda
 from squidpy_torch.ops import ivf_knn as tivf
 from squidpy_torch.ops import knn as tknn
 from squidpy_tpu.ops import ivf_knn as jivf
@@ -396,6 +408,347 @@ def test_brute_force_knn_approx_with_duplicates_keeps_key_order():
     assert (d[3, :3] == 0).all()
 
 
+# -- K14's and K15's filter routes: the rule, and the wrappers around an emulated C interface
+
+
+_U64_MAX = np.iinfo(np.uint64).max
+
+
+def _cross_keys(q: np.ndarray, y: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """(nq, ny) uint64 keys ``bits(d2) << 32 | id`` of the float32
+    difference-form d2 of each query row against each candidate row, summed
+    in axis order (NaN as 0x7fc00000)."""
+    d2 = np.zeros((q.shape[0], y.shape[0]), np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for e in range(q.shape[1]):
+            diff = q[:, None, e] - y[None, :, e]
+            d2 = (d2 + diff * diff).astype(np.float32)
+    bits = np.where(np.isnan(d2), np.uint32(tknn._NAN_D2_BITS), d2.view(np.uint32)).astype(np.uint64)
+    return (bits << np.uint64(32)) | ids.astype(np.uint64)[None, :]
+
+
+def _ivf_filter_emulation(q: np.ndarray, y: np.ndarray, need: int, order: str = "forward"
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """The rule of the filter route (csrc/knn_filter.cuh) for query rows
+    ``q`` against candidate rows ``y`` (padded, float32): both centred on
+    the mean of ``y``'s finite entries; the bf16 terms; A = -n_j / 2 plus
+    the products lo_i hi_j, hi_i lo_j, hi_i hi_j summed in float32 forward
+    (the C operand first) or ``reverse`` (it last), or in ``float64`` and
+    rounded once. The bounding pass: U = n_i + delta_it - 2 A, each lane
+    (the columns 8 f + 2 t and + 1) its S least (S = 1, 4 or 8, the least
+    that 4 S >= need), T_i the least of the lanes' least (need = 1) or the
+    largest of their S-th least. The candidates: every pair unless A < M_it =
+    (n_i - delta_it - T_i) / 2. U and M in float64: U no larger and M no
+    smaller than the kernel's rounded values, so no column is a candidate
+    here that the kernel would not take. Returns (candidates (nq, ny) bool,
+    T_i (nq,) float64)."""
+    n_q, dp = q.shape
+    n_c = y.shape[0]
+    c, a = tknn._k12_filter_constants(dp)
+    fin = np.isfinite(y)
+    mu = (np.where(fin, y, 0.0).astype(np.float64).sum(axis=0) / np.maximum(fin.sum(axis=0), 1)).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        qc, yc = (q - mu).astype(np.float32), (y - mu).astype(np.float32)
+        nq_, ny_ = ((qc * qc).sum(axis=1, dtype=np.float32), (yc * yc).sum(axis=1, dtype=np.float32))
+    bound = lambda v: np.where(np.isfinite(v) & (v < 2.0**124), v, np.nan).astype(np.float32)  # noqa: E731
+    ni, nj = bound(nq_).astype(np.float64), bound(ny_)
+    hq, hy = _bf16_rn(qc), _bf16_rn(yc)
+    with np.errstate(invalid="ignore", over="ignore"):
+        lq, ly = _bf16_rn((qc - hq).astype(np.float32)), _bf16_rn((yc - hy).astype(np.float32))
+        hneg = (np.float32(-0.5) * nj).astype(np.float32)
+        prods = [(lq[:, None, e] * hy[None, :, e], hq[:, None, e] * ly[None, :, e], hq[:, None, e] * hy[None, :, e])
+                 for e in range(dp)]
+        if order == "float64":
+            acc = np.broadcast_to(hneg.astype(np.float64), (n_q, n_c)).copy()
+            for trio in prods:
+                for pr in trio:
+                    acc += pr.astype(np.float64)
+            acc = acc.astype(np.float32)
+        elif order == "forward":
+            acc = np.broadcast_to(hneg, (n_q, n_c)).astype(np.float32)
+            for trio in prods:
+                for pr in trio:
+                    acc = (acc + pr).astype(np.float32)
+        else:
+            acc = np.zeros((n_q, n_c), np.float32)
+            for trio in prods[::-1]:
+                for pr in trio[::-1]:
+                    acc = (acc + pr).astype(np.float32)
+            acc = (acc + hneg).astype(np.float32)
+    tile = tknn._k12_tile_cols(dp)
+    col = np.arange(n_c)
+    nmax = np.zeros(n_c)
+    for t0 in range(0, n_c, tile):
+        seg = nj[t0 : t0 + tile]
+        nmax[t0 : t0 + tile] = 0.0 if np.all(np.isnan(seg)) else float(np.nanmax(seg))
+    with np.errstate(invalid="ignore", over="ignore"):
+        delta = c * (ni[:, None] + nmax[None, :]) + a
+        u = ni[:, None] + delta - 2.0 * acc.astype(np.float64)
+    s = 1 if need == 1 else (4 if need <= 16 else 8)
+    lane = (col % 8) // 2
+    per_lane = []
+    for t in range(4):
+        ut = np.where(np.isnan(u[:, lane == t]), np.inf, u[:, lane == t])
+        ut = np.sort(np.concatenate([ut, np.full((n_q, s), np.inf)], axis=1), axis=1)
+        per_lane.append(ut[:, 0] if need == 1 else ut[:, s - 1])
+    thr = np.min(per_lane, axis=0) if need == 1 else np.max(per_lane, axis=0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        m = (ni[:, None] - delta - thr[:, None]) / 2.0
+        cand = ~(acc.astype(np.float64) < m)
+    return cand, thr
+
+
+def _buffer(need: int) -> int:
+    """A row's candidate buffer (csrc/knn_filter.cuh ``buffer_cols``)."""
+    return 16 * (1 if need == 1 else (4 if need <= 16 else 8))
+
+
+def _assert_filter_keeps_top(q: np.ndarray, y: np.ndarray, ids: np.ndarray, qids: np.ndarray | None, k: int,
+                             order: str) -> np.ndarray:
+    """The rule keeps every member of each query's exact top k (the query's
+    own id left out when ``qids`` is given), or the query re-ranks every
+    column; T_i is at least the k-th least exact d2. Returns the counts."""
+    need = k + (qids is not None)
+    cand, thr = _ivf_filter_emulation(q, y, need, order)
+    keys = _cross_keys(q, y, ids)
+    if qids is not None:
+        keys = np.where(ids[None, :] == qids[:, None], _U64_MAX, keys)
+    top = np.argsort(keys, axis=1, kind="stable")[:, :k]
+    counts = cand.sum(axis=1)
+    kept = np.take_along_axis(cand, top, axis=1) | (counts > _buffer(need))[:, None]
+    assert kept.all(), f"{int((~kept).sum())} members of the exact top {k} not re-ranked"
+    kth = (np.take_along_axis(keys, top[:, -1:], axis=1)[:, 0] >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    bounded = np.isfinite(thr)
+    assert np.all(thr[bounded] >= kth[bounded].astype(np.float64)), "T_i below the k-th exact d2"
+    return counts
+
+
+IVF_ADVERSARIAL = ["blobs", "ulp", "duplicates", "offset", "nan", "d50"]
+
+
+def _ivf_adversarial(case: str) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded (query rows, candidate rows), padded to K12's width: blobs;
+    one-ulp gaps between integer d2 in [2^23, 2^24); duplicate candidates
+    and queries; a common offset of 1e4 (centred away); NaN and inf in rows
+    and candidates; 50 features."""
+    rng = np.random.default_rng(IVF_ADVERSARIAL.index(case))
+    if case == "ulp":  # the origin's d2 to 40 candidates are consecutive integers in [2^23, 2^24): one ulp apart
+        y = rng.uniform(-30000, 30000, (300, 4)).astype(np.float32)
+        q = np.zeros((4, 4), np.float32)
+        for i in range(40):
+            y[3 + 7 * i] = _four_squares(2**23 + 5000 + i)
+    elif case == "duplicates":
+        y = _blobs(300, 10, seed=2)
+        y[rng.integers(0, 300, 120)] = y[rng.integers(0, 300, 120)]
+        q = y[rng.integers(0, 300, 60)] + np.where(rng.random((60, 1)) < 0.5, 0.0, 0.01).astype(np.float32)
+    elif case == "offset":
+        y = (1e4 + rng.normal(0, 1, (300, 16))).astype(np.float32)
+        q = (1e4 + rng.normal(0, 1, (60, 16))).astype(np.float32)
+    elif case == "nan":
+        y = _blobs(300, 6, seed=3)
+        q = _blobs(60, 6, seed=4)
+        y[[5, 77]] = np.nan
+        y[100, 2] = np.inf
+        q[[3, 9], 1] = np.nan
+        q[20, 0] = -np.inf
+    else:
+        d = 50 if case == "d50" else 16
+        y, q = _blobs(300, d, seed=5), _blobs(60, d, seed=6)
+    dp = tknn._feature_pad(y.shape[1])
+    pad = lambda v: np.pad(v, ((0, 0), (0, dp - v.shape[1]))).astype(np.float32)  # noqa: E731
+    return pad(q), pad(y)
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse", "float64"])
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("case", IVF_ADVERSARIAL)
+def test_k14_filter_keeps_the_exact_nearest(case, m, order):
+    """K14's rule: rows against the centroids (here 300 candidate rows),
+    every member of each row's exact m nearest among the candidates."""
+    q, y = _ivf_adversarial(case)
+    counts = _assert_filter_keeps_top(q, y, np.arange(len(y)), None, m, order)
+    if case in ("blobs", "d50", "offset"):
+        assert counts.mean() < len(y) / 4  # the rule filters
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse", "float64"])
+@pytest.mark.parametrize("case", IVF_ADVERSARIAL)
+def test_k15_filter_keeps_the_exact_top_k(case, order):
+    """K15's rule on one cluster: its members (here 300 rows of ids 1000 +
+    j) centred on their own mean, replicas among them (the replica's own id
+    left out: k + 1 bound) and outside them."""
+    q, y = _ivf_adversarial(case)
+    ids = 1000 + np.arange(len(y))
+    q = np.concatenate([q, y[:20]])  # replicas that are members
+    qids = np.concatenate([np.arange(len(q) - 20), ids[:20]])
+    counts = _assert_filter_keeps_top(q, y, ids, qids, 15, order)
+    if case in ("blobs", "d50", "offset"):
+        assert counts.mean() < len(y) / 4
+
+
+def test_ivf_route_rule():
+    assert tivf._ivf_route(16, 16) == "filter" and tivf._ivf_route(64, 32) == "filter"
+    assert tivf._ivf_route(96, 16) == "exact" and tivf._ivf_route(16, 33) == "exact"
+    assert tivf._ivf_route(12, 1) == "exact"  # a width the filter has no instance for
+
+
+class _EmulatedIvf:
+    """K14's nearest entry and K15 as C interfaces in numpy, reading and
+    writing CPU tensors through the wrapper's pointers. The exact routes:
+    every pair's exact key; the filter routes: :func:`_ivf_filter_emulation`
+    on each set (K14: the rows against the centroids; K15: each cluster's
+    replicas against its members), the exact keys of the candidates (of every
+    column past the row's buffer), the counters when asked for."""
+
+    def __init__(self) -> None:
+        self.calls = []
+
+    @staticmethod
+    def _rank(q, y, ids, qids, k, need):
+        cand, _ = _ivf_filter_emulation(q, y, need)
+        keys = _cross_keys(q, y, ids)
+        if qids is not None:
+            keys = np.where(ids[None, :] == qids[:, None], _U64_MAX, keys)
+        counts = cand.sum(axis=1)
+        over = counts > _buffer(need)
+        keys = np.where(cand | over[:, None], keys, _U64_MAX)
+        best = np.sort(keys, axis=1)[:, :k]
+        if best.shape[1] < k:
+            best = np.concatenate([best, np.full((len(q), k - best.shape[1]), _U64_MAX, np.uint64)], axis=1)
+        return np.where(best == _U64_MAX, np.uint64(tivf._NO_KEY), best), counts, over
+
+    @staticmethod
+    def _stats(ptr, counts, over):
+        if ptr is None:
+            return
+        done = counts[~over]
+        _view(ptr, np.int64, 5)[:] = [done.sum(), 0, done.max(initial=0), done.size, over.sum()]
+
+    def sqt_ivf_nearest(self, x, n, dp, cents, c, m, out_i, out_d2, stream):
+        self.calls.append(("nearest", "exact", dp, m))
+        xs = _view(x, np.float32, n * dp).reshape(n, dp)
+        ys = _view(cents, np.float32, c * dp).reshape(c, dp)
+        best = np.sort(_cross_keys(xs, ys, np.arange(c)), axis=1)[:, :m]
+        self._write_nearest(best, n, m, out_i, out_d2)
+        return 0
+
+    @staticmethod
+    def _write_nearest(best, n, m, out_i, out_d2):
+        _view(out_i, np.int32, n * m).reshape(n, m)[:] = (best & np.uint64(0xFFFFFFFF)).astype(np.int32)
+        if out_d2 is not None:
+            _view(out_d2, np.float32, n)[:] = (best[:, 0] >> np.uint64(32)).astype(np.uint32).view(np.float32)
+
+    def sqt_ivf_nearest_filter(self, x, n, dp, cents, c, m, cc, aa, terms, hneg, mu, stats, out_i, out_d2, stream):
+        self.calls.append(("nearest", "filter", dp, m))
+        assert dp <= 64 and dp % 8 == 0 and m <= 32 and (cc, aa) == tknn._k12_filter_constants(dp)
+        assert None not in (terms, hneg, mu)
+        xs = _view(x, np.float32, n * dp).reshape(n, dp)
+        ys = _view(cents, np.float32, c * dp).reshape(c, dp)
+        best, counts, over = self._rank(xs, ys, np.arange(c), None, m, m)
+        self._write_nearest(best, n, m, out_i, out_d2)
+        self._stats(stats, counts, over)
+        return 0
+
+    def _clusters(self, x, n, dp, members, cap, msize, qtable, cap_q, qsize, c):
+        xs = _view(x, np.float32, n * dp).reshape(n, dp)
+        mem = _view(members, np.int32, c * cap).reshape(c, cap)
+        qt = _view(qtable, np.int32, c * cap_q).reshape(c, cap_q)
+        ms, qs = _view(msize, np.int32, c), _view(qsize, np.int32, c)
+        assert np.array_equal(ms, (mem < n).sum(axis=1)) and np.array_equal(qs, (qt < n).sum(axis=1))
+        for ci in range(c):
+            yield ci, xs[qt[ci, : qs[ci]]], qt[ci, : qs[ci]], xs[mem[ci, : ms[ci]]], mem[ci, : ms[ci]]
+
+    def sqt_ivf_search(self, x, n, dp, members, cap, msize, qtable, cap_q, qsize, c, k, exclude_self, out, stream):
+        self.calls.append(("search", "exact", dp, k))
+        o = _view(out, np.uint64, c * cap_q * k).reshape(c * cap_q, k)
+        for ci, q, qids, y, ids in self._clusters(x, n, dp, members, cap, msize, qtable, cap_q, qsize, c):
+            if not len(q) or not len(y):
+                continue
+            keys = _cross_keys(q, y, ids)
+            if exclude_self:
+                keys = np.where(ids[None, :] == qids[:, None], np.uint64(tivf._NO_KEY), keys)
+            keys = np.sort(np.concatenate([keys, np.full((len(q), k), np.uint64(tivf._NO_KEY))], axis=1), axis=1)
+            o[ci * cap_q : ci * cap_q + len(q)] = keys[:, :k]
+        return 0
+
+    def sqt_ivf_search_filter(self, x, n, dp, members, cap, msize, qtable, cap_q, qsize, c, k, exclude_self, cc, aa,
+                              terms, hneg, mu, stats, out, stream):
+        self.calls.append(("search", "filter", dp, k))
+        assert dp <= 64 and dp % 8 == 0 and k + exclude_self <= 32 and (cc, aa) == tknn._k12_filter_constants(dp)
+        assert None not in (terms, hneg, mu)
+        o = _view(out, np.uint64, c * cap_q * k).reshape(c * cap_q, k)
+        all_counts, all_over = [], []
+        for ci, q, qids, y, ids in self._clusters(x, n, dp, members, cap, msize, qtable, cap_q, qsize, c):
+            if not len(q):
+                continue
+            if not len(y):
+                all_counts.append(np.zeros(len(q), int))
+                all_over.append(np.zeros(len(q), bool))
+                continue
+            best, counts, over = self._rank(q, y, ids, qids if exclude_self else None, k, k + exclude_self)
+            o[ci * cap_q : ci * cap_q + len(q)] = best
+            all_counts.append(counts)
+            all_over.append(over)
+        self._stats(stats, np.concatenate(all_counts), np.concatenate(all_over))
+        return 0
+
+
+@pytest.fixture()
+def emulated_ivf(monkeypatch):
+    emu = _EmulatedIvf()
+    monkeypatch.setattr(_cuda, "library", lambda: emu)
+    monkeypatch.setattr(_cuda, "require", lambda *a, **kw: None)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
+    for name in ("ivf_kmeans", "ivf_search"):
+        monkeypatch.setitem(_cuda.launches, name, 0)
+    return emu
+
+
+@pytest.mark.parametrize(("d", "m", "route"), [(16, 1, "filter"), (16, 16, "filter"), (50, 32, "filter"),
+                                               (8, 5, "filter"), (70, 16, "exact")])
+def test_k14_wrapper_emulated(emulated_ivf, d, m, route):
+    """K14's nearest entry by the route the rule picks, bitwise the plain
+    version; NaN rows, equal centroids; the counters."""
+    x = tivf._padded(torch.from_numpy(_blobs(700, d, seed=d)))
+    x[3, 1] = float("nan")
+    cents = x[torch.from_numpy(np.random.default_rng(1).choice(700, 100, replace=False))].clone()
+    cents[7] = cents[2]
+    cents = torch.nan_to_num(cents).contiguous()
+    stats = {}
+    got = tivf._nearest_k14(x, cents, m, stats=stats)
+    want = tivf._nearest_plain(x, cents, m)
+    assert emulated_ivf.calls == [("nearest", route, x.shape[1], m)]
+    assert _cuda.launches["ivf_kmeans"] == 1 and stats["route"] == route
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (m != 1)
+    if m == 1:
+        assert torch.equal(got[1].isnan(), want[1].isnan()) and torch.equal(
+            torch.nan_to_num(got[1]), torch.nan_to_num(want[1]))
+    if route == "filter":  # the NaN row's candidates pass its buffer where it is short of the centroids
+        assert stats["candidates_max"] <= _buffer(m) and (stats["exact_rows"] >= 1) == (cents.shape[0] > _buffer(m))
+
+
+@pytest.mark.parametrize(("d", "k", "exclude_self", "route"), [(16, 15, True, "filter"), (8, 8, False, "filter"),
+                                                               (50, 31, True, "filter"), (16, 32, True, "exact"),
+                                                               (100, 10, True, "exact")])
+def test_k15_wrapper_emulated(emulated_ivf, d, k, exclude_self, route):
+    """K15 on a real index by the route the rule picks (k + 1 bound past 32,
+    or wide rows: the exact route), bitwise the plain version, with a NaN
+    row and duplicate rows."""
+    X = _blobs(2000, d, seed=d + k)
+    X[10] = X[20]
+    X[30, 2] = np.nan
+    xp = tivf._padded(torch.from_numpy(X))
+    with sqt.set_device("cpu"):
+        _, _, index = tivf._ivf_knn(np.nan_to_num(X), min(k, 20), n_clusters=16, nprobe=4, seed=0)
+    stats = {}
+    got = tivf._search_k15(xp, index.members, index.qtable, k, exclude_self, stats=stats)
+    want = tivf._search_plain(xp, index.members, index.qtable, k, exclude_self)
+    assert emulated_ivf.calls == [("search", route, xp.shape[1], k)]
+    assert _cuda.launches["ivf_search"] == 1 and stats["route"] == route
+    assert torch.equal(got, want)
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -407,19 +760,23 @@ def test_k14_k15_k16_match_plain_on_card(n, d, k):
     x = tivf._padded(torch.from_numpy(_blobs(n, d, seed=3)).cuda())
     x[5] = x[9]
     cents = x[torch.from_numpy(np.random.default_rng(0).choice(n, 64, replace=False)).cuda()].contiguous()
+    dp = x.shape[1]
     for m in (1, 16):
-        got, want = tivf._nearest(x, cents, m), tivf._nearest_plain(x, cents, m)
-        assert torch.equal(got[0], want[0])
-        if m == 1:
-            assert torch.equal(got[1], want[1])
+        want = tivf._nearest_plain(x, cents, m)
+        for route in ("filter", "exact") if tivf._ivf_route(dp, m) == "filter" else ("exact",):
+            got = tivf._nearest_k14(x, cents, m, route=route)
+            assert torch.equal(got[0], want[0]), route
+            if m == 1:
+                assert torch.equal(got[1], want[1]), route
     codes = tivf._nearest(x, cents, 1)[0][:, 0]
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
     valid[::13] = False
     layout = tivf._update_layout(codes, valid, 64)
     assert torch.equal(tivf._update(x, codes, valid, cents), tivf._update_plain(x, *layout, cents))
     _, idx, index = tivf._ivf_knn(x, k, seed=0)
-    keys = tivf._search(x, index.members, index.qtable, k, True)
-    assert torch.equal(keys, tivf._search_plain(x, index.members, index.qtable, k, True))
+    keys = tivf._search_plain(x, index.members, index.qtable, k, True)
+    for route in ("filter", "exact") if tivf._ivf_route(dp, k + 1) == "filter" else ("exact",):
+        assert torch.equal(tivf._search_k15(x, index.members, index.qtable, k, True, route=route), keys), route
     merged = tivf._merge_slots(keys, index.slot_map, k)
     got, want = tivf._refine(x, merged, k, True), tivf._refine_plain(x, merged, k, True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -225,9 +225,16 @@ Phases (any failure exits non-zero; no error is caught and passed over):
    ivf_filter`` line (candidates a query, mean and largest, the share of
    them from the re-rank's first tile, the queries past their buffer,
    both routes' times, the bound and the exact design's floor at one
-   unfused float32 instruction a lane and clock), K16 on every row (its plain version on the
-   first 20,000; its bound from the distinct candidates other than the row,
-   counted on the card), with a ``[diag] ivf`` line (centroids, caps, the largest
+   unfused float32 instruction a lane and clock), K16 on every row in the
+   index's cluster order (its plain version on the first 20,000 rows and on
+   the rows of the first and last 8 clusters of that order; its bound from
+   the distinct candidates other than the row, counted on the card), timed
+   in turns in index order, with a ``[diag] ivf_refine`` line (layout,
+   distinct candidates a row, gathered bytes, the no-reuse gather floor,
+   both orders' times) and on adversarial lists at k = 1, 15 and 32
+   (repeats, ids outside [0, n), the row in its own list, duplicate and
+   NaN rows, fewer than k candidates, rows past a staged chunk), and a
+   ``[diag] ivf`` line (centroids, caps, the largest
    cluster, spills, dropped replicas, each phase's ms, the sampled recall
    and the fallback, the recall against K12's exact graph, and K12's time
    on every row: the IVF's yardstick).
@@ -3675,6 +3682,7 @@ def niche_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
 
 IVF_PLAIN_CLUSTERS = 64  # K15's plain version on the first clusters of its full-size input
 IVF_PLAIN_ROWS = 20_000  # K16's plain version on the first rows
+IVF_END_CLUSTERS = 8  # and on the rows of this many clusters at each end of the cluster order
 IVF_LIBRARY_CLUSTERS = 16  # torch.cdist + torch.topk over this many clusters a call (K15's yardstick)
 IVF_LIBRARY_ROWS = 1 << 18  # torch.cdist + torch.topk in row chunks (K14's yardstick)
 IVF_CUT = 100_000  # ivf_knn card vs CPU on the first rows of g1's 1M profiles
@@ -3724,15 +3732,15 @@ def _search_library(xp, index, k: int):
     return out
 
 
-def _distinct_candidates(idx) -> tuple[int, int]:
+def _distinct_candidates(idx) -> tuple[int, int, int]:
     """K16's candidates on the lists ``idx`` (n, k), on the card: the valid
-    entries of each row's k + k^2 candidates, and the distinct ones other
-    than the row itself (each needs one d2), counted over each row's sorted
-    ids."""
+    entries of each row's k + k^2 candidates, the distinct ones other than
+    the row itself (each needs one d2), counted over each row's sorted ids,
+    and the most distinct ones of a row."""
     import torch
 
     n, k = idx.shape
-    raw = distinct = 0
+    raw = distinct = most = 0
     for r0 in range(0, n, 1 << 16):
         base = idx[r0 : r0 + (1 << 16)].long()
         ok = (base >= 0) & (base < n)
@@ -3744,8 +3752,10 @@ def _distinct_candidates(idx) -> tuple[int, int]:
         ids = torch.sort(torch.where(valid & (cand != row), cand, -1), dim=1).values
         first = torch.ones_like(ids, dtype=torch.bool)
         first[:, 1:] = ids[:, 1:] != ids[:, :-1]
-        distinct += int((first & (ids >= 0)).sum())
-    return raw, distinct
+        per_row = (first & (ids >= 0)).sum(dim=1)
+        distinct += int(per_row.sum())
+        most = max(most, int(per_row.max()))
+    return raw, distinct, most
 
 
 def _set_recall(idx, exact) -> float:
@@ -3805,7 +3815,10 @@ def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
     """K14-K16 on the IVF inputs of g1 and g2 at 1M rows, against their plain
     versions, bitwise: K14's assignment and probes on every row and its
     update, K15 on every cluster (its plain version on the first 64), K16
-    on every row (its plain version on the first 20,000). K14's nearest
+    on every row in the index's cluster order (its plain version on the
+    first 20,000 rows and the rows of the first and last
+    :data:`IVF_END_CLUSTERS` clusters of that order), timed in turns with
+    the rows in index order, with a ``[diag] ivf_refine`` line. K14's nearest
     entry and K15 run their filter routes in turns with their exact routes
     (the earlier design), each with a ``[diag] ivf_filter`` line. Each is
     timed beside its bound and yardstick (``torch.cdist`` + ``torch.topk``:
@@ -3877,16 +3890,39 @@ def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
         del keys
         k15_s = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
-        raw, distinct = _distinct_candidates(merged)
+        raw, distinct, most = _distinct_candidates(merged)
+        # the rows in the index's cluster order: every row once, NaN and spilled rows too
+        order = ivf._row_order(index.members, n)
+        if order is None or not torch.equal(torch.sort(order).values, torch.arange(n, dtype=torch.int32, device="cuda")):
+            raise AssertionError(f"{tag}: the member table's cluster order is not a permutation of the rows")
+        ends = torch.cat([index.members[:IVF_END_CLUSTERS].reshape(-1), index.members[-IVF_END_CLUSTERS:].reshape(-1)])
+        sel = torch.cat([torch.arange(IVF_PLAIN_ROWS, device="cuda"), ends[ends < n].long()])
         # one d2 (3 dp operations and a compare) a distinct candidate other
         # than the row; the rows and lists read once, the distances and
         # indices written once
+        bound = _bound(4.0 * (n * dp + n * k) + 8.0 * n * k, float(distinct) * (3 * dp + 1))
         checks["ivf_refine"].append(_check_ivf(
             f"ivf_refine {tag} k={k} ({raw} valid candidates, {distinct} distinct non-self; "
-            f"plain on the first {IVF_PLAIN_ROWS} rows)",
-            lambda: ivf._refine(xp, merged, k, True), lambda: ivf._refine_plain(xp, merged, k, True, stop=IVF_PLAIN_ROWS),
-            _bound(4.0 * (n * dp + n * k) + 8.0 * n * k, float(distinct) * (3 * dp + 1)),
-            cut=lambda t: t[:IVF_PLAIN_ROWS], plain_input=f"the first {IVF_PLAIN_ROWS} of {n} rows"))
+            f"plain on the first {IVF_PLAIN_ROWS} rows and the {sel.numel() - IVF_PLAIN_ROWS} rows of the first and "
+            f"last {IVF_END_CLUSTERS} clusters)",
+            lambda: ivf._refine(xp, merged, k, True, order), lambda: ivf._refine_plain(xp, merged, k, True, rows=sel),
+            bound, cut=lambda t: t[sel],
+            plain_input=f"the first {IVF_PLAIN_ROWS} of {n} rows and the rows of the first and last "
+                        f"{IVF_END_CLUSTERS} clusters"))
+        (got, by_index), cluster_ms, index_ms = _turns(lambda: ivf._refine(xp, merged, k, True, order),
+                                                       lambda: ivf._refine(xp, merged, k, True), 3)
+        if not _same(got, by_index):
+            raise AssertionError(f"ivf_refine {tag}: index and cluster order differ")
+        del got, by_index
+        lay = ivf._k16_layout(k, dp)
+        floor_ms = 1e3 * 4.0 * distinct * dp / HBM_BYTES_PER_S
+        print(f"[diag] ivf_refine {tag} k={k}: route=warp (one design: a warp a row) layout="
+              + ",".join(f"{key}={v}" for key, v in lay.items())
+              + f" distinct_a_row_mean={distinct / n:.2f} distinct_a_row_max={most} gathered_row_bytes={4 * distinct * dp} "
+              f"id_bytes={4 * n * (k + k * k)} bound_ms={bound[0]:.4f} ({bound[1]}) no_reuse_floor_ms={floor_ms:.3f} "
+              "turns (index, cluster, cluster, index): index_order_ms=" + "/".join(f"{t:.3f}" for t in index_ms)
+              + " cluster_order_ms=" + "/".join(f"{t:.3f}" for t in cluster_ms), flush=True)
+        checks["ivf_refine"][-1].update(index_order_ms=index_ms, cluster_order_ms=cluster_ms, floor_ms=floor_ms)
         k16_s = time.perf_counter() - t_phase
         exact, k12_ms = _time_ms(lambda: knn.feature_knn(x, k), 1, warm=False)
         full = _set_recall(idx, exact[1])
@@ -3900,6 +3936,67 @@ def ivf_kernel_checks(inputs: dict) -> dict[str, list[dict]]:
               f"sampled_recall={rec.recall[0]:.4f} fallback_ran={rec.fallback > 0} full_recall={full:.4f} "
               f"k12_exact_ms={k12_ms:.1f} checks_s (K14, K15, K16)={k14_s:.1f}/{k15_s:.1f}/{k16_s:.1f}", flush=True)
     return checks
+
+
+IVF_REFINE_CASES = ("repeats", "out of range", "self", "duplicate rows", "nan", "few", "wide")
+
+
+def _refine_case(case: str, k: int, n: int = 3000, seed: int = 0):
+    """Rows (16 features, 132 for "wide", padded) and lists (n, k) int32 on
+    the card that K16 must handle: every entry a repeat; ids of -1 and of n
+    or more (to the int32 limits); the row in its own list; duplicate rows
+    of small integers (equal d2: ties to the lower id); NaN rows; fewer than
+    k distinct candidates; rows past one staged chunk."""
+    import torch
+
+    from squidpy_torch.ops import ivf_knn as ivf
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 132 if case == "wide" else 16)).astype(np.float32)
+    idx = rng.integers(0, n, (n, k))
+    if case == "repeats":
+        idx[:] = ((np.arange(n) + 1) % n)[:, None]
+    elif case == "out of range":
+        idx = rng.integers(-3, n + 3, (n, k))
+        idx[::7, 0] = np.iinfo(np.int32).max
+        idx[::11, -1] = np.iinfo(np.int32).min
+    elif case == "self":
+        idx[:, 0] = np.arange(n)
+        idx[::2, -1] = np.arange(0, n, 2)
+    elif case == "duplicate rows":
+        x = rng.integers(0, 3, x.shape).astype(np.float32)
+        x[1::2] = x[::2]
+    elif case == "nan":
+        x[3] = np.nan
+        x[7, 2] = np.nan
+        idx[::5, -1] = 3
+        idx[::3, 0] = 7
+    elif case == "few":
+        idx = rng.integers(0, 3, (n, k))
+    return ivf._padded(torch.from_numpy(x).cuda()), torch.from_numpy(idx.astype(np.int32)).cuda()
+
+
+def ivf_refine_branch_checks() -> list[dict]:
+    """K16 on the adversarial lists of :data:`IVF_REFINE_CASES` at k = 1, 15
+    and 32, each in index order and in a random order, with and without the
+    row itself, bitwise its plain version."""
+    import torch
+
+    from squidpy_torch.ops import ivf_knn as ivf
+
+    out = []
+    for case in IVF_REFINE_CASES:
+        for k in (1, 15, 32):
+            x, idx = _refine_case(case, k)
+            n, dp = x.shape
+            perm = torch.from_numpy(np.random.default_rng(1).permutation(n).astype(np.int32)).cuda()
+            runs = [(ex, o) for ex in (True, False) for o in (None, perm)]
+            out.append(_check_ivf(
+                f"ivf_refine branch {case} k={k} ({n} x {dp}; index and random order, with and without the row)",
+                lambda: tuple(t for ex, o in runs for t in ivf._refine(x, idx, k, ex, o)),
+                lambda: tuple(t for ex, o in runs for t in ivf._refine_plain(x, idx, k, ex)),
+                _bound(4.0 * len(runs) * (n * dp + 3 * n * k), 0.0), repeats=1))
+    return out
 
 
 def ivf_reference_check(inputs: dict) -> None:
@@ -4142,6 +4239,7 @@ def main() -> int:
     for name, extra in niche_kernel_checks(niche_inputs).items():
         checks[name] = checks.get(name, []) + extra
     checks.update(ivf_kernel_checks(niche_inputs))
+    checks["ivf_refine"] += ivf_refine_branch_checks()
     ivf_reference_check(niche_inputs)
     del niche_inputs
     torch.cuda.empty_cache()

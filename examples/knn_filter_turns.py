@@ -1,4 +1,4 @@
-"""K12, K14 and K15 of two checkouts of this repository, timed in turns on one card.
+"""K12, K14, K15 and K16 of two checkouts of this repository, timed in turns on one card.
 
 Each checkout (``--tree``) runs in a process of its own that imports that
 checkout's ``squidpy_torch`` and builds its kernels there. Each makes the
@@ -13,6 +13,10 @@ prints one JSON line of CUDA-event times (mean of 3 after one warm-up):
   50 features (padded to 56);
 - ``k15_16_ms`` / ``k15_56_ms``: ``ivf_knn._search`` (K15), k = 15, on the
   IVF index that ``ivf_knn`` builds on the 1M rows at 16 and 50 features;
+- ``k16_16_ms`` / ``k16_56_ms``: ``ivf_knn._refine`` (K16), k = 15, on the
+  merged lists of that search, the rows in the index's cluster order as
+  ``ivf_search`` takes them (``ivf_knn._row_order``; a checkout without it
+  refines in index order, as its ``ivf_search`` does);
 - ``digest``: a hash of every output, which must be the same for every
   checkout (each kernel is bitwise its plain version).
 
@@ -82,7 +86,13 @@ def worker(tree: str) -> None:
         out[f"k14_{tag}m16_ms"] = timed(lambda: ivf._nearest(x, cents, 16)[0])
         _, _, index = ivf._ivf_knn(x, 15, seed=0)
         out[f"k15_{x.shape[1]}_ms"] = timed(lambda: ivf._search(x, index.members, index.qtable, 15, True))
-        del x, cents, index
+        merged = ivf._merge_slots(ivf._search(x, index.members, index.qtable, 15, True), index.slot_map, 15)
+        if hasattr(ivf, "_row_order"):
+            order = ivf._row_order(index.members, x.shape[0])
+            out[f"k16_{x.shape[1]}_ms"] = timed(lambda: ivf._refine(x, merged, 15, True, order))
+        else:
+            out[f"k16_{x.shape[1]}_ms"] = timed(lambda: ivf._refine(x, merged, 15, True))
+        del x, cents, index, merged
         torch.cuda.empty_cache()
     out["digest"] = digest.hexdigest()[:16]
     print(json.dumps(out), flush=True)

@@ -145,7 +145,7 @@ _SIGNATURES = {
     "sqt_ivf_nearest_filter": [_P, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
     "sqt_ivf_search": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "sqt_ivf_search_filter": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P],
-    "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
+    "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

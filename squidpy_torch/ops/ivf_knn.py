@@ -21,7 +21,8 @@ inverted-file index built and searched on the device, as in the JAX package:
 5. the merge (:func:`_merge_slots`, plain torch): each row's ``nprobe``
    result rows gathered, one exact top k;
 6. the refine pass (:func:`_refine`, kernel K16, ``csrc/ivf_refine.cu``):
-   the row's neighbours and theirs, the k nearest distinct ones.
+   the row's neighbours and theirs, the k nearest distinct ones, the rows
+   taken in the member table's cluster order (:func:`_row_order`).
 
 :func:`sampled_recall` holds the result against the exact neighbours of 256
 sampled rows, from K12's exact route on the listed rows
@@ -511,31 +512,80 @@ def _merge_slots(keys: torch.Tensor, slot_map: torch.Tensor, k: int) -> torch.Te
 
 # ---- K16: the refine pass -------------------------------------------------
 
-def _refine_plain(x: torch.Tensor, idx: torch.Tensor, k: int, exclude_self: bool, stop: int | None = None
+_K16_FEAT = 32  # features a staged chunk of K16, at most (csrc/ivf_refine.cu takes up to 128)
+_K16_WARPS = (8, 4, 2, 1)  # warps a block K16's layout chooses from, the larger first
+_K16_SM_WARPS = 32  # warps an SM at K16's 64 registers a thread (65,536 registers)
+_SM_SMEM = 233_472  # bytes of shared memory an H100 SM gives its blocks, 1 KB of each reserved
+_BLOCK_SMEM = 232_448  # bytes a block may take
+
+
+def _k16_layout(k: int, dp: int) -> dict[str, int]:
+    """K16's layout (``csrc/ivf_refine.cu``) for k neighbours and dp padded
+    features: the features a staged chunk (``feat``: dp in equal chunks of at
+    most :data:`_K16_FEAT`, a multiple of 4), the floats between staged rows
+    (``stride``, ``feat | 4``), the hash set's ``slots`` (the power of two
+    at least 1.5 (k + k^2), at least 32), a warp's shared memory in bytes
+    (``warp_smem``: two buffers of 32 staged rows, which the hash set of
+    8-byte slots overlays, the candidate list and the query row), and the
+    ``warps`` a block that let the most warps share an SM (``warps_an_sm``,
+    by shared memory, the registers and the SM's 32 blocks; ties to the
+    larger block)."""
+    n_cand = k + k * k
+    chunks = -(-dp // _K16_FEAT)
+    feat = 4 * -(-dp // (4 * chunks))
+    stride = feat | 4
+    slots = max(32, 1 << ((3 * n_cand + 1) // 2 - 1).bit_length())
+    warp_smem = 4 * (max(2 * 32 * stride, 2 * slots) + -(-n_cand // 4) * 4 + dp)
+    fits = [(w * min(32, _K16_SM_WARPS // w, _SM_SMEM // (w * warp_smem + 1024)), w) for w in _K16_WARPS
+            if w * warp_smem <= _BLOCK_SMEM]
+    if not fits:
+        raise ValueError(f"K16 cannot hold a row of {dp} padded features at k = {k} in a block's shared memory.")
+    warps_an_sm, warps = max(fits)
+    return {"warps": warps, "feat": feat, "chunks": -(-dp // feat), "stride": stride, "slots": slots,
+            "warp_smem": warp_smem, "block_smem": warps * warp_smem, "warps_an_sm": warps_an_sm}
+
+
+def _row_order(members: torch.Tensor, n: int) -> torch.Tensor | None:
+    """The rows in cluster order: the valid entries of the member table
+    (C, cap), read row by row, as int32, where they hold every row of
+    0..n-1 exactly once (as :func:`_pack_members` makes them); None (index
+    order) where they do not. Two reads back to the host."""
+    flat = members.reshape(-1)
+    order = flat[(flat >= 0) & (flat < n)]
+    if order.numel() != n:
+        return None
+    seen = torch.zeros(n, dtype=torch.bool, device=members.device)
+    seen[order.to(torch.int64)] = True
+    return order.to(torch.int32).contiguous() if bool(seen.all()) else None
+
+
+def _refine_plain(x: torch.Tensor, idx: torch.Tensor, k: int, exclude_self: bool, rows: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of K16 on the rows before ``stop`` (all by
-    default): each row's k + k^2 candidates, their keys, repeats and invalid
-    ids dropped, the k least, as correctly rounded distances and indices."""
+    """Plain torch version of K16 on the rows ``rows`` (every row, in index
+    order, by default), taken in that order: each row's k + k^2 candidates,
+    their keys, repeats and invalid ids dropped, the k least, as correctly
+    rounded distances and indices (len(rows), k), the i-th of rows[i]."""
     n = x.shape[0]
-    m = n if stop is None else min(stop, n)
     dev = x.device
+    rows = torch.arange(n, device=dev) if rows is None else rows.to(device=dev, dtype=torch.int64)
+    m = rows.numel()
     n_cand = k + k * k
     idx64 = idx.to(torch.int64)
     dist = torch.empty((m, k), dtype=torch.float32, device=dev)
     out = torch.empty((m, k), dtype=torch.int32, device=dev)
-    rows = max(1, _PLAIN_PAIRS[dev.type] // (n_cand * x.shape[1]))
-    for r0 in range(0, m, rows):
-        r1 = min(r0 + rows, m)
-        base = idx64[r0:r1]
+    chunk = max(1, _PLAIN_PAIRS[dev.type] // (n_cand * x.shape[1]))
+    for r0 in range(0, m, chunk):
+        r1 = min(r0 + chunk, m)
+        sel = rows[r0:r1]
+        base = idx64[sel]
         ok = (base >= 0) & (base < n)
         hop = torch.where(ok[:, :, None], idx64[base.clamp(0, n - 1)], -1).reshape(r1 - r0, k * k)
         cand = torch.cat([base, hop], dim=1)
-        row_ids = torch.arange(r0, r1, device=dev)[:, None]
         valid = (cand >= 0) & (cand < n)
         if exclude_self:
-            valid &= cand != row_ids
+            valid &= cand != sel[:, None]
         xc = x[cand.clamp(0, n - 1)]  # (rows, n_cand, dp)
-        xq = x[r0:r1][:, None, :]
+        xq = x[sel][:, None, :]
         diff = xq[..., 0] - xc[..., 0]
         d2 = diff * diff
         for e in range(1, x.shape[1]):
@@ -550,21 +600,37 @@ def _refine_plain(x: torch.Tensor, idx: torch.Tensor, k: int, exclude_self: bool
     return dist, out
 
 
-def _refine(x: torch.Tensor, idx: torch.Tensor, k: int, exclude_self: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _refine(x: torch.Tensor, idx: torch.Tensor, k: int, exclude_self: bool, order: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel K16: one refine pass over every row of ``x`` (n, dp) from the
-    lists ``idx`` (n, k) int32: distances (n, k) float32 and indices (n, k)
-    int32, ascending, +inf and -1 past the distinct candidates."""
+    lists ``idx`` (n, k) int32, the kernel taking the rows in ``order`` (n,)
+    int32, a permutation of them (:func:`_row_order`; index order by
+    default): distances (n, k) float32 and indices (n, k) int32, ascending,
+    +inf and -1 past the distinct candidates, each row's at its own index.
+    The result does not depend on the order, which the CPU's plain version
+    does not take."""
     if x.device.type == "cpu":
         return _refine_plain(x, idx, k, exclude_self)
+    return _refine_k16(x, idx, k, exclude_self, order)
+
+
+def _refine_k16(x: torch.Tensor, idx: torch.Tensor, k: int, exclude_self: bool, order: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K16's launch on the layout :func:`_k16_layout` gives."""
     if k > _MAX_K:
         raise ValueError(f"K16 keeps at most {_MAX_K} neighbours a row, found {k}.")
     n, dp = x.shape
     _cuda.require(x, "x", torch.float32, (n, dp))
     _cuda.require(idx, "idx", torch.int32, (n, k))
+    if order is not None:
+        _cuda.require(order, "order", torch.int32, (n,))
+    lay = _k16_layout(k, dp)
     dist = torch.empty((n, k), dtype=torch.float32, device=x.device)
     out = torch.empty((n, k), dtype=torch.int32, device=x.device)
     _cuda.check(_cuda.library().sqt_ivf_refine(x.data_ptr(), n, dp, idx.data_ptr(), k, int(exclude_self),
-                                               dist.data_ptr(), out.data_ptr(), _cuda.stream_ptr()), "ivf_refine")
+                                               order.data_ptr() if order is not None else None, lay["warps"],
+                                               lay["feat"], lay["slots"], dist.data_ptr(), out.data_ptr(),
+                                               _cuda.stream_ptr()), "ivf_refine")
     _cuda.launches["ivf_refine"] += 1
     return dist, out
 
@@ -603,8 +669,9 @@ def ivf_search(x: torch.Tensor, index: IvfIndex, k: int, *, refine_iters: int = 
         del keys
     dist = None
     with phase("refine"):
+        order = _row_order(index.members, xp.shape[0])
         for _ in range(max(refine_iters, 1)):  # at least one: it also gives the exact distances
-            dist, idx = _refine(xp, idx, k, exclude_self)
+            dist, idx = _refine(xp, idx, k, exclude_self, order)
     return dist, idx
 
 

@@ -749,6 +749,208 @@ def test_k15_wrapper_emulated(emulated_ivf, d, k, exclude_self, route):
     assert torch.equal(got, want)
 
 
+# -- K16: the row order, the layout, the wrapper around an emulation -----------
+
+
+def _k16_case(case: str, k: int, n: int, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows (n, dp) float32 (16 features, 132 for "wide") and lists (n, k)
+    int32 that K16 must handle: every entry a repeat; ids of -1 and of n or
+    more (to the int32 limits); the row in its own list; duplicate rows and
+    small integers (equal d2: ties to the lower id); NaN rows; fewer than k
+    distinct candidates; rows past one staged chunk."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 132 if case == "wide" else 16)).astype(np.float32)
+    idx = rng.integers(0, n, (n, k))
+    if case == "repeats":
+        idx[:] = ((np.arange(n) + 1) % n)[:, None]
+    elif case == "out of range":
+        idx = rng.integers(-3, n + 3, (n, k))
+        idx[::7, 0] = np.iinfo(np.int32).max
+        idx[::11, -1] = np.iinfo(np.int32).min
+    elif case == "self":
+        idx[:, 0] = np.arange(n)
+        idx[::2, -1] = np.arange(0, n, 2)
+    elif case == "duplicate rows":
+        x = rng.integers(0, 3, x.shape).astype(np.float32)
+        x[1::2] = x[::2]
+    elif case == "nan":
+        x[3] = np.nan
+        x[7, 2] = np.nan
+        idx[::5, -1] = 3
+        idx[::3, 0] = 7
+    elif case == "few":
+        idx = rng.integers(0, 3, (n, k))
+    return torch.from_numpy(x), torch.from_numpy(idx.astype(np.int32))
+
+
+K16_CASES = ["repeats", "out of range", "self", "duplicate rows", "nan", "few", "wide"]
+
+
+def _same_refine(got: tuple[torch.Tensor, torch.Tensor], want: tuple[torch.Tensor, torch.Tensor]) -> bool:
+    """Equal indices, and equal distances with NaN equal to NaN."""
+    (gd, gi), (wd, wi) = got, want
+    return (torch.equal(gi, wi) and torch.equal(gd.isnan(), wd.isnan())
+            and torch.equal(gd.nan_to_num(0.0, float("inf")), wd.nan_to_num(0.0, float("inf"))))
+
+
+def test_row_order_covers_every_row_once_with_nan_and_spilled_rows():
+    """The cluster order of a real index is a permutation of the rows, NaN
+    rows and spilled rows included; a table that repeats or misses a row
+    gives index order (None)."""
+    X = _skewed(3000, seed=1)
+    X[[5, 600, 2999]] = np.nan
+    X[17, 3] = np.nan
+    stats = {}
+    _, _, index = tivf._ivf_knn(X, 8, n_clusters=8, nprobe=2, cap_factor=1.0, stats=stats)
+    assert stats["spilled"] > 0
+    order = tivf._row_order(index.members, len(X))
+    assert order is not None and order.dtype == torch.int32
+    np.testing.assert_array_equal(np.sort(order.numpy()), np.arange(len(X)))
+    members = index.members.clone()
+    at = (members < len(X)).nonzero()[0]
+    members[at[0], at[1]] = members[at[0], at[1] + 1]  # a row twice, another missing
+    assert tivf._row_order(members, len(X)) is None
+    assert tivf._row_order(index.members[:-1], len(X)) is None
+
+
+@pytest.mark.parametrize("order", ["reverse", "random", "cluster"])
+def test_refine_plain_same_under_any_row_order(monkeypatch, order):
+    """The plain version on the rows in any order gives each row the result
+    it has in index order (its row chunks hold other rows); ``_refine``
+    given the order returns index order."""
+    X = _blobs(2500, 8, seed=4)
+    X[9] = X[10]
+    X[11, 1] = np.nan
+    x = tivf._padded(torch.from_numpy(X))
+    n, k = len(X), 6
+    _, idx, index = tivf._ivf_knn(X, k, n_clusters=16, nprobe=3, seed=0)
+    perm = {"reverse": torch.arange(n - 1, -1, -1), "random": torch.from_numpy(np.random.default_rng(2).permutation(n)),
+            "cluster": tivf._row_order(index.members, n)}[order].to(torch.int32)
+    want = tivf._refine_plain(x, idx, k, True)
+    monkeypatch.setitem(tivf._PLAIN_PAIRS, "cpu", (k + k * k) * x.shape[1] * 100)  # chunks of 100 rows
+    got = tivf._refine_plain(x, idx, k, True, rows=perm)
+    assert _same_refine(got, (want[0][perm.long()], want[1][perm.long()]))
+    assert _same_refine(tivf._refine(x, idx, k, True, perm), want)
+
+
+@pytest.mark.parametrize("k", [1, 15, 32])
+@pytest.mark.parametrize("dp", [4, 16, 56, 132])
+def test_k16_layout(k, dp):
+    """Equal chunks of at most ``_K16_FEAT`` features covering dp; staged
+    rows 4 mod 8 floats apart (conflict-free float4 reads); a hash set of a
+    power of two at least 1.5 (k + k^2) slots; the shared memory the kernel
+    computes; the most warps an SM."""
+    lay = tivf._k16_layout(k, dp)
+    n_cand = k + k * k
+    feat, chunks = lay["feat"], lay["chunks"]
+    assert feat % 4 == 0 and feat <= tivf._K16_FEAT and feat <= 128
+    assert (chunks - 1) * feat < dp <= chunks * feat and chunks == -(-dp // tivf._K16_FEAT)
+    assert dp - (chunks - 1) * feat >= feat - 4 * (chunks - 1)  # chunks equal but for rounding
+    assert lay["stride"] % 8 == 4 and lay["stride"] >= feat
+    slots = lay["slots"]
+    assert slots & (slots - 1) == 0 and slots >= max(32, 1.5 * n_cand) and slots < max(64, 3 * n_cand + 2)
+    assert lay["warp_smem"] == 4 * (max(64 * lay["stride"], 2 * slots) + -(-n_cand // 4) * 4 + dp)
+    assert lay["block_smem"] == lay["warps"] * lay["warp_smem"] <= tivf._BLOCK_SMEM
+    a_sm = {w: w * min(32, tivf._K16_SM_WARPS // w, tivf._SM_SMEM // (w * lay["warp_smem"] + 1024))
+            for w in tivf._K16_WARPS}
+    assert lay["warps_an_sm"] == a_sm[lay["warps"]] == max(a_sm.values())
+    assert all(a_sm[w] < lay["warps_an_sm"] for w in a_sm if w > lay["warps"])
+
+
+def test_k16_layout_rejects_rows_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tivf._k16_layout(15, 64_000)
+
+
+_NO_KEY_U = np.uint64(tivf._NO_KEY)
+
+
+class _EmulatedK16:
+    """``sqt_ivf_refine`` in numpy, step by step as csrc/ivf_refine.cu runs
+    a warp (its lanes in order): the candidates' ids, the hash set with
+    linear probing and the list of new ids, batches of 32, the first sorted
+    into the lanes' list, each later one's keys below the k-th inserted by
+    the shuffle up, the results at each row's index. Asserts the layout the
+    wrapper passes."""
+
+    def __init__(self) -> None:
+        self.calls = []
+
+    def sqt_ivf_refine(self, x, n, dp, idx, k, exclude_self, order, warps, feat, slots, out_d, out_i, stream):
+        lay = tivf._k16_layout(k, dp)
+        assert (warps, feat, slots) == (lay["warps"], lay["feat"], lay["slots"])
+        self.calls.append((dp, k, order is not None))
+        xs = _view(x, np.float32, n * dp).reshape(n, dp)
+        ids = _view(idx, np.int32, n * k).reshape(n, k).astype(np.int64)
+        rows = np.arange(n) if order is None else _view(order, np.int32, n)
+        assert np.array_equal(np.sort(rows), np.arange(n))
+        od = _view(out_d, np.float32, n * k).reshape(n, k)
+        oi = _view(out_i, np.int32, n * k).reshape(n, k)
+        shift = 32 - (slots.bit_length() - 1)
+        lane = np.arange(32)
+        for row in rows:
+            raw = [ids[row]] + [ids[nb] if 0 <= nb < n else np.full(k, -1) for nb in ids[row]]
+            table = np.full(slots, -1, np.int64)
+            found = []
+            for cand in np.concatenate(raw):
+                if not 0 <= cand < n or (exclude_self and cand == row):
+                    continue
+                h = ((int(cand) * 0x9E3779B1) & 0xFFFFFFFF) >> shift
+                while table[h] not in (-1, cand):
+                    h = (h + 1) & (slots - 1)
+                if table[h] == -1:
+                    table[h] = cand
+                    found.append(cand)
+            best = np.full(32, _NO_KEY_U, np.uint64)
+            kth = _NO_KEY_U
+            for b0 in range(0, len(found), 32):
+                c = np.asarray(found[b0 : b0 + 32])
+                d2 = np.zeros(len(c), np.float32)
+                for e in range(dp):
+                    diff = xs[row, e] - xs[c, e]
+                    d2 = d2 + diff * diff
+                bits = np.where(np.isnan(d2), np.uint32(0x7FC00000), d2.view(np.uint32)).astype(np.uint64)
+                keys = (bits << np.uint64(32)) | c.astype(np.uint64)
+                if b0 == 0:  # the first batch, sorted across the warp
+                    best = np.sort(np.concatenate([keys, np.full(32 - len(keys), _NO_KEY_U, np.uint64)]))
+                for key in keys[keys < kth] if b0 else ():
+                    up = np.roll(best, 1)
+                    best = np.where(best > key, np.where((lane == 0) | (up < key), key, up), best)
+                kth = best[k - 1]
+            have = best[:k] != _NO_KEY_U
+            d2 = (best[:k] >> np.uint64(32)).astype(np.uint32).view(np.float32)
+            od[row] = np.where(have, np.sqrt(d2), np.float32(np.inf))
+            oi[row] = np.where(have, (best[:k] & np.uint64(0xFFFFFFFF)).astype(np.int64), -1)
+        return 0
+
+
+@pytest.fixture()
+def emulated_k16(monkeypatch):
+    emu = _EmulatedK16()
+    monkeypatch.setattr(_cuda, "library", lambda: emu)
+    monkeypatch.setattr(_cuda, "require", lambda *a, **kw: None)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
+    monkeypatch.setitem(_cuda.launches, "ivf_refine", 0)
+    return emu
+
+
+@pytest.mark.parametrize("k", [1, 15, 32])
+@pytest.mark.parametrize("case", K16_CASES)
+def test_k16_wrapper_emulated(emulated_k16, case, k):
+    """K16's wrapper around the emulation of its kernel, in index order and
+    in a random order, with and without the row itself, bitwise the plain
+    version on the adversarial lists."""
+    x, idx = _k16_case(case, k, 96)
+    x = tivf._padded(x)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(len(x)).astype(np.int32))
+    for exclude_self in (True, False):
+        want = tivf._refine_plain(x, idx, k, exclude_self)
+        for order in (None, perm):
+            got = tivf._refine_k16(x, idx, k, exclude_self, order)
+            assert _same_refine(got, want), (exclude_self, order is None)
+    assert _cuda.launches["ivf_refine"] == 4 and emulated_k16.calls[-1] == (x.shape[1], k, True)
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -780,3 +982,24 @@ def test_k14_k15_k16_match_plain_on_card(n, d, k):
     merged = tivf._merge_slots(keys, index.slot_map, k)
     got, want = tivf._refine(x, merged, k, True), tivf._refine_plain(x, merged, k, True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    order = tivf._row_order(index.members, n)
+    assert order is not None
+    assert _same_refine(tivf._refine(x, merged, k, True, order), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 15, 32])
+@pytest.mark.parametrize("case", K16_CASES)
+def test_k16_adversarial_lists_match_plain_on_card(case, k):
+    """K16 on the adversarial lists, in index order and in a random order,
+    with and without the row itself, bitwise its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K16 has no CPU mode")
+    x, idx = _k16_case(case, k, 3000)
+    x, idx = tivf._padded(x.cuda()), idx.cuda()
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(len(x)).astype(np.int32)).cuda()
+    for exclude_self in (True, False):
+        want = tivf._refine_plain(x, idx, k, exclude_self)
+        for order in (None, perm):
+            got = tivf._refine(x, idx, k, exclude_self, order)
+            assert _same_refine(got, want), (exclude_self, order is None)

@@ -60,9 +60,25 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       spatial genes must score above the background; streaming) and on a
       Visium section of 4,992 hexagonal spots x 2000 genes (K11's resident
       route);
-   g. (run last, after steps 4-5 of parts a-f, so it changes none of
-      their measurements, then its own kernel checks and its card-vs-CPU
-      check) niches (``calculate_niche``) on planted spatial domains: a Voronoi
+   h. (after steps 4-5 of parts a-f, before part g) h1: ``co_occurrence``
+      on its dense route (below 100k cells: kernel K17) with the default
+      ``interval=50`` and 16 clusters, a first and a timed second call each,
+      on 99,000 uniform cells (a section just below the switch to the
+      binned sweep) and on a Visium section of 4,992 hexagonal spots; K17
+      must launch and K1 must not; h2: ``tl.var_by_distance`` (cluster 3 as
+      the anchor, per library) and ``tl.sliding_window`` (per library
+      without overlap; 2000-wide windows overlapping by 500 on the whole
+      section) on part a's 1M cells as 8 sections, with pandas blocked;
+      then K17 held bitwise to its plain version on h1's inputs and in its
+      branches (one class at 99k, whose largest count passes 2^31; 200
+      classes, past its shared histogram: 64-bit global atomics; 3-D;
+      labels of -1; n = 3,001; coincident points against a threshold of 0;
+      NaN coordinates; repeated thresholds; 3000 thresholds, more than the
+      bucket table resolves), and ``co_occurrence`` at
+      20,000 cells card vs CPU (``occ`` bitwise; ~30 s in all);
+   g. (run last, after steps 4-5 of parts a-f and part h, so it changes
+      none of their measurements, then its own kernel checks and its
+      card-vs-CPU check) niches (``calculate_niche``) on planted spatial domains: a Voronoi
       partition of the section into 12 domains, each with its own mix of 16
       cell types and its own expression (300 genes of Poisson counts, a
       domain program times a type program), and ``spatial_neighbors_knn``
@@ -3209,6 +3225,183 @@ def sepal_kernel_checks(data: dict) -> dict[str, list[dict]]:
     return {"sepal_diffusion": streaming, "sepal_resident": resident}
 
 
+COOC_CELLS = 99_000  # h1: a section just below co_occurrence's switch to the binned sweep (100k cells)
+COOC_CPU_CELLS = 20_000  # h1's card-vs-CPU check
+COOC_MANY_CLS = 200  # K17 past its shared-memory budget: 64-bit global atomics
+TL_ANCHOR = "3"  # h2: var_by_distance's anchor cluster
+TL_WINDOW, TL_OVERLAP = 2000, 500  # h2: sliding_window's overlapping windows (49 on the 10 x 10 mm section)
+
+
+def cooccur_dense_path() -> tuple[dict, dict, dict]:
+    """Part h1: ``co_occurrence`` through the public API on its dense route
+    (kernel K17): a first call and a timed second call, with the default
+    ``interval=50`` and 16 clusters, on 99,000 uniform cells and on a Visium
+    section of 4,992 hexagonal spots; then checks of what came out. Returns
+    the containers, the launches the calls made and their seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+
+    data = {"section": _dataset(COOC_CELLS, seed=51), "visium": _hex_dataset(VISIUM_SPOTS, seed=52)}
+    secs: dict[str, float] = {}
+    _cuda.reset_launches()
+    for name, adata in data.items():
+        _, secs[f"h1_{name}_first_s"] = _sync_time(lambda adata=adata: sqt.gr.co_occurrence(adata, "cluster"))
+        _, secs[f"h1_{name}_s"] = _sync_time(lambda adata=adata: sqt.gr.co_occurrence(adata, "cluster"))
+    launches = dict(_cuda.launches)
+    for name, adata in data.items():
+        res = adata.uns["cluster_co_occurrence"]
+        occ, interval = res["occ"], res["interval"]
+        if occ.shape != (N_CLS, N_CLS, 49) or interval.shape != (50,) or not np.all(np.isfinite(occ)):
+            raise AssertionError(f"part h1 {name}: co_occurrence gave {occ.shape} / {interval.shape} or non-finite values")
+        if not (np.all(occ >= 0) and np.any(occ > 0)):
+            raise AssertionError(f"part h1 {name}: co-occurrence ratios negative or all zero")
+    return data, launches, secs
+
+
+def tl_path() -> dict:
+    """Part h2: ``tl.var_by_distance`` (one cluster as the anchor, per
+    library) and ``tl.sliding_window`` (per library without overlap; with
+    overlap on the whole section) on part a's 1M cells as 8 sections, with
+    pandas blocked (the numpy stand-in, as on a GPU host without pandas);
+    then checks of what came out. Returns their seconds."""
+    import squidpy_torch as sqt
+
+    adata = _dataset(N_CELLS, seed=0)  # part a's cells and clusters
+    codes = _sections(adata.obsm["spatial"], seed=7)
+    adata.obs["library"] = _Categorical(codes, SECTIONS)
+    secs: dict[str, float] = {}
+    saved = sys.modules.get("pandas")
+    sys.modules["pandas"] = None  # any import of pandas raises ImportError
+    try:
+        t0 = time.perf_counter()
+        sqt.tl.var_by_distance(adata, TL_ANCHOR, "cluster", library_key="library")
+        secs["h2_var_by_distance_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sqt.tl.sliding_window(adata, library_key="library")
+        secs["h2_sliding_window_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        windows = sqt.tl.sliding_window(adata, window_size=TL_WINDOW, overlap=TL_OVERLAP, copy=True)
+        secs["h2_sliding_window_overlap_s"] = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            sys.modules.pop("pandas", None)
+        else:
+            sys.modules["pandas"] = saved
+    design = adata.obsm["design_matrix"].columns
+    norm, raw = design[TL_ANCHOR], design[f"{TL_ANCHOR}_raw"]
+    anchors = adata.obs["cluster"].cat.codes == int(TL_ANCHOR)
+    if not (np.all(raw[anchors] == 0) and np.all(np.isnan(norm[anchors])) and np.all(raw[~anchors] > 0)):
+        raise AssertionError("part h2: var_by_distance's anchors are not at distance 0 (NaN normalised)")
+    for lib in range(SECTIONS):
+        rows = (codes == lib) & ~anchors
+        if not (np.nanmin(norm[rows]) == 0.0 and np.nanmax(norm[rows]) == 1.0):
+            raise AssertionError(f"part h2: library {lib}'s normalised distances do not span [0, 1]")
+    assignment = adata.obs["sliding_window_assignment"]
+    if any(v is None for v in assignment):
+        raise AssertionError("part h2: a cell outside every window")
+    members = [v for k, v in windows.columns.items() if k.startswith("sliding_window_assignment_")]
+    if len(members) != 49 or not np.all(np.sum(members, axis=0) >= 1):
+        raise AssertionError(f"part h2: {len(members)} overlapping windows, or a cell in none")
+    secs["h2_windows"] = len(set(assignment))
+    return secs
+
+
+def _k17_bound(n: int, dim: int, n_thr: int, n_cls: int) -> tuple[float, str]:
+    """Every unordered pair: 3d - 1 flops of d2 and one compare with the
+    largest threshold; the points and labels read once, the (L, C, C) int64
+    counts written once."""
+    return _bound(n * (dim + 1) * 4 + n_thr * 4 + n_thr * n_cls * n_cls * 8, n * (n - 1) / 2 * (3 * dim))
+
+
+def check_cooccur_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int,
+                        plain_warm: bool = True, copies: int | None = None, past_int32: bool = False) -> dict:
+    """K17's counts against its plain version on the card, bitwise; given
+    ``copies``, the layout must keep that many shared copies (0: global
+    atomics); ``past_int32``: a count must pass 2^31."""
+    import torch
+
+    from squidpy_torch.ops.cooccur import _k17_layout, cooccur_block_pairs, cooccur_pairs
+
+    thr = np.asarray(thr, np.float32)
+    if np.any(np.diff(thr) < 0):
+        raise AssertionError(f"cooccur_pairs {name}: thresholds must ascend")
+    n, dim = pts.shape
+    p = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda()
+    lab = torch.from_numpy(np.asarray(labs, np.int32)).cuda()
+    thr_dev = torch.from_numpy(thr).cuda()
+    layout = _k17_layout(n, dim, len(thr), n_cls)
+    if copies is not None and layout.copies != copies:
+        raise AssertionError(f"cooccur_pairs {name}: {layout.copies} shared copies, not {copies}")
+    result = _compare(f"cooccur_pairs {name} n={n} d={dim} C={n_cls} L={len(thr)} copies={layout.copies} "
+                      f"buckets={layout.n_buckets} row_tile={layout.row_tile} pairs={n * (n - 1) / 2:.3e}",
+                      lambda: cooccur_pairs(p, lab, thr, n_cls), lambda: cooccur_block_pairs(p, lab, thr_dev, n_cls, 2048),
+                      repeats=3, bound=_k17_bound(n, dim, len(thr), n_cls), plain_warm=plain_warm)
+    top = int(cooccur_pairs(p, lab, thr, n_cls).max())
+    if past_int32:
+        print(f"[diag] cooccur_pairs {name}: largest count {top} (2^31 = {2**31})", flush=True)
+        if top < 2**31:
+            raise AssertionError(f"cooccur_pairs {name}: the largest count {top} does not pass 2^31")
+    return result
+
+
+def cooccur_kernel_checks(data: dict) -> list[dict]:
+    """K17 on part h1's own inputs (the 99k section, then Visium), then in
+    the branches h1 does not take: one class at 99k (a bin past 2^31), 200
+    classes (global atomics), 3-D coordinates, labels of -1, n = 3,001,
+    coincident points against a threshold of 0, NaN coordinates, repeated
+    thresholds and 3000 thresholds (buckets holding several: the walk)."""
+    from squidpy_torch.gr._ppatterns import _find_min_max
+
+    def default_thr(pts: np.ndarray) -> np.ndarray:
+        lo, hi = _find_min_max(np.asarray(pts, np.float32))
+        return _squared_thresholds(np.linspace(lo, hi, num=50, dtype=np.float32))
+
+    out = []
+    for name, adata in data.items():
+        pts = np.asarray(adata.obsm["spatial"], np.float32)
+        out.append(check_cooccur_pairs(f"part h1 {name}", pts, adata.obs["cluster"].cat.codes, default_thr(pts),
+                                       N_CLS))
+    pts = np.asarray(data["section"].obsm["spatial"], np.float32)
+    thr = default_thr(pts)
+    rng = np.random.default_rng(53)
+    out.append(check_cooccur_pairs("one class", pts, np.zeros(len(pts), np.int32), thr, 1, past_int32=True))
+    out.append(check_cooccur_pairs(f"{COOC_MANY_CLS} classes", pts, rng.integers(0, COOC_MANY_CLS, len(pts)), thr,
+                                   COOC_MANY_CLS, copies=0))
+    p3 = rng.uniform(0, 1500, (30_000, 3)).astype(np.float32)
+    out.append(check_cooccur_pairs("3-D", p3, rng.integers(0, N_CLS, 30_000), default_thr(p3[:, :2]), N_CLS))
+    out.append(check_cooccur_pairs("labels of -1", pts[:30_000], rng.integers(-1, N_CLS, 30_000), thr, N_CLS))
+    small = rng.uniform(0, 550, (3001, 2)).astype(np.float32)
+    out.append(check_cooccur_pairs("n=3001", small, rng.integers(0, N_CLS, 3001), default_thr(small), N_CLS))
+    twice = np.repeat(rng.uniform(0, 1000, (5000, 2)), 2, axis=0).astype(np.float32)
+    out.append(check_cooccur_pairs("coincident, threshold 0", twice, rng.integers(0, 5, 10_000),
+                                   np.float32([0.0, 0.0, 25.0, 400.0, 2500.0]), 5))
+    nan = pts[:30_000].copy()
+    nan[rng.integers(0, 30_000, 300), rng.integers(0, 2, 300)] = np.nan
+    out.append(check_cooccur_pairs("NaN coordinates", nan, rng.integers(0, N_CLS, 30_000), thr, N_CLS))
+    out.append(check_cooccur_pairs("repeated thresholds", pts[:30_000], rng.integers(0, N_CLS, 30_000),
+                                   np.sort(np.r_[thr[::5], thr[::5], thr[10]]).astype(np.float32), N_CLS))
+    many = np.sort(rng.uniform(0.0, float(thr[-1]), 3000)).astype(np.float32)  # past the table's 4096 buckets / 4
+    out.append(check_cooccur_pairs("3000 thresholds", pts[:30_000], rng.integers(0, 4, 30_000), many, 4))
+    return out
+
+
+def cooccur_reference_check(n: int) -> None:
+    """``co_occurrence`` on the dense route at ``n`` cells on the card (K17)
+    and on the CPU (the plain version): ``occ`` and the interval bitwise."""
+    import squidpy_torch as sqt
+
+    t0 = time.perf_counter()
+    out = {}
+    for device in ("cuda", "cpu"):
+        with sqt.set_device(device):
+            out[device] = sqt.gr.co_occurrence(_dataset(n, seed=54), "cluster", copy=True)
+    for a, b, what in zip(out["cuda"], out["cpu"], ("occ", "interval")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"co_occurrence {what} at {n} cells differs between card and CPU")
+    print(f"[reference] co_occurrence dense at {n} cells: occ and interval bitwise card vs CPU "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 NICHE_CELLS = 200_000  # g1, g2: the largest section the JAX package clusters on its exact kNN graph
 NICHE_BIG_CELLS = 1_000_000  # g3: cellcharter builds no kNN graph
 NICHE_GENES, NICHE_TYPES, NICHE_DOMAINS = 300, 16, 12
@@ -4215,9 +4408,34 @@ def main() -> int:
     sections_reference_check(study)
     phases["card_vs_cpu"] = time.perf_counter() - t_phase
 
+    # part h: co_occurrence's dense route (K17) and tl, then K17 held to its
+    # plain version and the dense route card vs CPU
+    del study
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cooc_data, launches_h1, secs_h1 = cooccur_dense_path()
+    print(f"[main path h1] section: {COOC_CELLS} cells, Visium: {VISIUM_SPOTS} spots; {N_CLS} clusters, interval=50 "
+          + " ".join(f"{k}={v:.4f}" for k, v in secs_h1.items()), flush=True)
+    print(f"[launches h1] {launches_h1}", flush=True)
+    if launches_h1["cooccur_pairs"] <= 0 or launches_h1["binned_pairs"]:
+        raise AssertionError("part h1: cooccur_pairs not launched, or binned_pairs launched, on the dense route")
+    launches = {k: launches[k] + launches_h1[k] for k in launches}
+    _cuda.reset_launches()
+    secs_h2 = tl_path()
+    launches_h2 = dict(_cuda.launches)
+    print(f"[main path h2] {N_CELLS} cells, {SECTIONS} sections, pandas blocked "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in secs_h2.items()), flush=True)
+    print(f"[launches h2] {launches_h2}", flush=True)
+    launches = {k: launches[k] + launches_h2[k] for k in launches}
+    phases["main_path_h"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    checks["cooccur_pairs"] = cooccur_kernel_checks(cooc_data)
+    del cooc_data
+    cooccur_reference_check(COOC_CPU_CELLS)
+    phases["cooccur_checks"] = time.perf_counter() - t_phase
+
     # part g last, so it leaves every earlier measurement as it was: its
     # path, its kernels on its own inputs and in their branches, card vs CPU
-    del study
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     launches_g, secs_g, niche_inputs, niche_data = niche_path()

@@ -8,16 +8,23 @@ radius, Delaunay, grid and builder variants, ``gr.mask_graph``),
 with their envelopes), ``gr.interaction_matrix``,
 ``gr.centrality_scores``, ``gr.ligrec`` with ``gr.PermutationTest``,
 ``gr.sepal``, and ``gr.calculate_niche`` (its ``neighborhood``, ``utag``
-and ``cellcharter`` flavors). It
-imports torch, numpy and scipy, never jax or squidpy_tpu. The device is
-explicit: ``cuda`` by default, ``set_device("cpu")`` (or
-``with set_device("cpu"):``) for the CPU.
+and ``cellcharter`` flavors); ``tl.var_by_distance`` and
+``tl.sliding_window``; the ``AnnData`` (with ``concat``) and
+``SpatialData`` containers, h5ad I/O (``read_h5ad``, ``AnnData.write_h5ad``)
+and the readers ``read.visium``, ``read.vizgen``, ``read.nanostring``,
+``read.read_10x_h5`` and ``read.read_10x_mtx``. It imports torch, numpy and
+scipy, never jax or squidpy_tpu; pandas, h5py and PIL only inside the
+functions that need them (the containers, h5ad I/O, the readers), so it
+imports on a machine without them. The device is explicit: ``cuda`` by
+default, ``set_device("cpu")`` (or ``with set_device("cpu"):``) for the CPU.
 """
 
 from __future__ import annotations
 
-from squidpy_torch import gr
+from squidpy_torch import gr, read, tl
 from squidpy_torch._constants import Key
+from squidpy_torch._core import AnnData, SpatialData, SpatialGraph, concat, read_h5ad
 from squidpy_torch._device import get_device, set_device
 
-__all__ = ["Key", "get_device", "gr", "set_device"]
+__all__ = ["AnnData", "Key", "SpatialData", "SpatialGraph", "concat", "get_device", "gr", "read", "read_h5ad",
+           "set_device", "tl"]

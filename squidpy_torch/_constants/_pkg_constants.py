@@ -12,6 +12,7 @@ class Key:
 
     class uns:
         spatial = "spatial"  # Visium metadata: its presence makes the `spatial_neighbors` facade pick a grid
+        image_key = "images"  # the readers' images of a library, under uns['spatial'][library_id]
 
         @classmethod
         def spatial_neighs(cls, value: str | None = None) -> str:

@@ -32,6 +32,7 @@ entry (two: the runs and the tree); K15 (``ivf_search``) counts each call
 (the filter route's starts two CUDA kernels: the members' terms and the
 sweep); K16 (``ivf_refine``) counts each launch. K8's wrapper bins its points and
 queries by K6's bounds, bin and scatter, and those calls count as K6's.
+K17 (``cooccur_pairs``) counts each call: the sweep and the cumulative sum.
 
 ``build_seconds`` gives, after a build in this process, each source's
 seconds from the start of all compiles to the end of its own, and the link's.
@@ -84,6 +85,7 @@ KERNELS = {
     "ivf_kmeans": ("squidpy_torch/csrc/ivf_kmeans.cu", "squidpy_tpu/ops/ivf_knn.py:57"),
     "ivf_search": ("squidpy_torch/csrc/ivf_search.cu", "squidpy_tpu/ops/ivf_knn.py:251"),
     "ivf_refine": ("squidpy_torch/csrc/ivf_refine.cu", "squidpy_tpu/ops/ivf_knn.py:312"),
+    "cooccur_pairs": ("squidpy_torch/csrc/cooccur_pairs.cu", "squidpy_tpu/ops/cooccur.py:133"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -146,6 +148,7 @@ _SIGNATURES = {
     "sqt_ivf_search": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "sqt_ivf_search_filter": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "sqt_cooccur_pairs": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

@@ -1,14 +1,15 @@
 """Host decorators of the public API (copy of ``squidpy_tpu/utils/_utils.py``
-``deprecated_params``)."""
+``deprecated_params``) and the import of optional packages."""
 
 from __future__ import annotations
 
+import importlib
 import warnings
 from collections.abc import Callable
 from functools import wraps
 from typing import Any, TypeVar
 
-__all__ = ["deprecated_params"]
+__all__ = ["deprecated_params", "optional_import"]
 
 T = TypeVar("T")
 
@@ -32,3 +33,13 @@ def deprecated_params(params: dict[str, str]):  # noqa: ANN201
         return wrapper
 
     return decorator
+
+
+def optional_import(name: str, purpose: str) -> Any:
+    """Import the optional package ``name`` (pandas, h5py, PIL), which the
+    containers, h5ad I/O and readers need and a GPU host may lack;
+    raise ``ImportError`` naming it and what needed it."""
+    try:
+        return importlib.import_module(name)
+    except ImportError as err:
+        raise ImportError(f"{purpose} needs the `{name}` package, which is not installed.") from err

@@ -21,7 +21,7 @@ PKG = Path(sqt.__file__).resolve().parent
 _SLICE = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "jaxlib", "pandas", "sklearn", "squidpy_tpu"):
+    for name in ("jax", "jaxlib", "pandas", "sklearn", "squidpy_tpu", "h5py", "PIL"):
         sys.modules[name] = None  # any import of them raises ImportError
     import numpy as np, torch
     torch.set_num_threads(1)
@@ -85,7 +85,24 @@ _SLICE = textwrap.dedent(
     sqt.gr.ligrec(adata, "cl", interactions=[("g0", "g3"), ("g1", "g4"), ("g2", "g5")], n_perms=20, seed=0,
                   use_raw=False, complex_policy="all", corr_method="fdr_bh")
     assert adata.uns["cl_ligrec"].pvalues.values.shape == (3, 25)
-    leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu") if sys.modules.get(m) is not None]
+    sqt.tl.var_by_distance(adata, ["1", "3"], "cl", covariates="cl")
+    design = adata.obsm["design_matrix"]
+    assert list(design.columns) == ["cl", "1", "1_raw", "3", "3_raw"] and len(design.index) == n
+    assert np.nanmax(design.columns["1"]) == 1.0 and np.isnan(design.columns["3"][adata.obs["cl"].cat.codes == 3]).all()
+    sqt.tl.sliding_window(adata, window_size=100)
+    assert set(adata.obs["sliding_window_assignment"]) == {f"window_{i}" for i in range(25)}
+    windows = sqt.tl.sliding_window(adata, window_size=100, overlap=40, copy=True)
+    assert all(c.dtype == bool for k, c in windows.columns.items() if k.startswith("sliding_window_assignment_"))
+    import squidpy_torch.read
+    from squidpy_torch.im import _zarr
+    for call in (sqt.AnnData, lambda: squidpy_torch.read.read_10x_mtx("."), lambda: sqt.read_h5ad("x.h5ad")):
+        try:
+            call()
+        except ImportError as err:
+            assert "`pandas`" in str(err) or "`h5py`" in str(err), err
+        else:
+            raise AssertionError("a container or reader ran without pandas or h5py")
+    leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu", "h5py", "PIL") if sys.modules.get(m) is not None]
     assert not leaked, leaked
     print("SLICE OK")
     """
@@ -113,7 +130,7 @@ def _module_level_imports(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
 def test_no_module_level_import_of_jax_pandas_sklearn(path):
-    assert not _module_level_imports(path) & {"jax", "jaxlib", "squidpy_tpu", "pandas", "sklearn"}
+    assert not _module_level_imports(path) & {"jax", "jaxlib", "squidpy_tpu", "pandas", "sklearn", "h5py", "PIL"}
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

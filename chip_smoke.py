@@ -71,10 +71,13 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       section) on part a's 1M cells as 8 sections, with pandas blocked;
       then K17 held bitwise to its plain version on h1's inputs and in its
       branches (one class at 99k, whose largest count passes 2^31; 200
-      classes, past its shared histogram: 64-bit global atomics; 3-D;
-      labels of -1; n = 3,001; coincident points against a threshold of 0;
-      NaN coordinates; repeated thresholds; 3000 thresholds, more than the
-      bucket table resolves), and ``co_occurrence`` at
+      classes, on the class route's shared counters; 3-D; labels of -1;
+      n = 3,001; coincident points against a threshold of 0; NaN
+      coordinates; repeated thresholds; 3000 thresholds, past the class
+      route: the index route), with a ``[diag] cooccur_pairs`` line on
+      h1's section (each route's d2 and bin alone, with one fixed counter a
+      lane, and whole) and the index route timed in turns with the class
+      route on h1's section and at 200 classes, and ``co_occurrence`` at
       20,000 cells card vs CPU (``occ`` bitwise; ~30 s in all);
    g. (run last, after steps 4-5 of parts a-f and part h, so it changes
       none of their measurements, then its own kernel checks and its
@@ -294,6 +297,7 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3227,7 +3231,7 @@ def sepal_kernel_checks(data: dict) -> dict[str, list[dict]]:
 
 COOC_CELLS = 99_000  # h1: a section just below co_occurrence's switch to the binned sweep (100k cells)
 COOC_CPU_CELLS = 20_000  # h1's card-vs-CPU check
-COOC_MANY_CLS = 200  # K17 past its shared-memory budget: 64-bit global atomics
+COOC_MANY_CLS = 200  # past the index route's shared histogram (64-bit global atomics there); the class route's counters
 TL_ANCHOR = "3"  # h2: var_by_distance's anchor cluster
 TL_WINDOW, TL_OVERLAP = 2000, 500  # h2: sliding_window's overlapping windows (49 on the 10 x 10 mm section)
 
@@ -3314,10 +3318,11 @@ def _k17_bound(n: int, dim: int, n_thr: int, n_cls: int) -> tuple[float, str]:
 
 
 def check_cooccur_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int,
-                        plain_warm: bool = True, copies: int | None = None, past_int32: bool = False) -> dict:
+                        plain_warm: bool = True, route: str | None = None, past_int32: bool = False) -> dict:
     """K17's counts against its plain version on the card, bitwise; given
-    ``copies``, the layout must keep that many shared copies (0: global
-    atomics); ``past_int32``: a count must pass 2^31."""
+    ``route``, the layout must take it ("class": the class order's shared
+    counters; "index": the caller's order); ``past_int32``: a count must pass
+    2^31."""
     import torch
 
     from squidpy_torch.ops.cooccur import _k17_layout, cooccur_block_pairs, cooccur_pairs
@@ -3330,10 +3335,11 @@ def check_cooccur_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.nd
     lab = torch.from_numpy(np.asarray(labs, np.int32)).cuda()
     thr_dev = torch.from_numpy(thr).cuda()
     layout = _k17_layout(n, dim, len(thr), n_cls)
-    if copies is not None and layout.copies != copies:
-        raise AssertionError(f"cooccur_pairs {name}: {layout.copies} shared copies, not {copies}")
-    result = _compare(f"cooccur_pairs {name} n={n} d={dim} C={n_cls} L={len(thr)} copies={layout.copies} "
-                      f"buckets={layout.n_buckets} row_tile={layout.row_tile} pairs={n * (n - 1) / 2:.3e}",
+    if route is not None and layout.route != route:
+        raise AssertionError(f"cooccur_pairs {name}: the {layout.route} route, not the {route} route")
+    result = _compare(f"cooccur_pairs {name} n={n} d={dim} C={n_cls} L={len(thr)} route={layout.route} "
+                      f"copies={layout.copies} buckets={layout.n_buckets} row_tile={layout.row_tile} "
+                      f"pairs={n * (n - 1) / 2:.3e}",
                       lambda: cooccur_pairs(p, lab, thr, n_cls), lambda: cooccur_block_pairs(p, lab, thr_dev, n_cls, 2048),
                       repeats=3, bound=_k17_bound(n, dim, len(thr), n_cls), plain_warm=plain_warm)
     top = int(cooccur_pairs(p, lab, thr, n_cls).max())
@@ -3344,12 +3350,111 @@ def check_cooccur_pairs(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.nd
     return result
 
 
+def _k17_instructions_per_pair() -> float | None:
+    """The class route's instructions a pair in 2-D off the diagonal, from
+    the built library's SASS (``cuobjdump -sass``): the loop of
+    ``class_sweep_kernel<2, 1, 0>`` that makes one row's four pairs a
+    pass (four shared atomics, four bucket-byte loads, one row load, four
+    direction compares), its instructions over four. None where
+    ``cuobjdump`` is missing."""
+    import re
+    import shutil
+
+    from squidpy_torch import _cuda
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    kernel = "class_sweep_kernelILi2ELi1ELi0E"
+    names = [line.split("Function properties for", 1)[1].strip() for line in _cuda.build_log.splitlines()
+             if "Function properties for" in line and kernel in line]  # the mangled name, where this process built
+    ins: list[tuple[int, str]] = []
+    with subprocess.Popen([tool, "-sass", *(["-fun", names[0]] if names else []), _cuda.library()._name],
+                          stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True) as proc:  # others lack it
+        inside = False
+        for line in proc.stdout:
+            if "Function :" in line:
+                inside = kernel in line
+            elif inside:
+                m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+                if m:
+                    ins.append((int(m.group(1), 16), m.group(2).strip()))
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    best = None
+    for i, (a, text) in enumerate(ins):
+        m = re.search(r"BRA (?:P\d, )?0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= a or int(m.group(1), 16) not in at:
+            continue
+        body = [t for _, t in ins[at[int(m.group(1), 16)] : i + 1]]
+        count = {op: sum(op in t for t in body) for op in ("ATOMS", "LDS.U8", "LDS.64", "ISETP.GT")}
+        if count == {"ATOMS": 4, "LDS.U8": 4, "LDS.64": 1, "ISETP.GT": 4}:
+            best = max(best or 0.0, len(body) / 4)
+    return best
+
+
+def cooccur_pairs_split(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int) -> None:
+    """K17's ``[diag] cooccur_pairs`` line: for the class route and the
+    index route (its own layout), the sweep with d2 and the bin alone (the
+    bins summed in a register written once, mode 1), with each pair added
+    to one fixed counter a lane (mode 2), and whole, each timed by CUDA
+    events after a warm-up; the bound, and the floor of the class route's
+    instructions a pair (:func:`_k17_instructions_per_pair`) at four warp
+    instructions a clock on each SM at the card's highest SM clock."""
+    import torch
+
+    from squidpy_torch.ops.cooccur import _cooccur_k17, _k17_index_layout, _k17_layout
+
+    thr = np.asarray(thr, np.float32)
+    n, dim = pts.shape
+    p = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda()
+    lab = torch.from_numpy(np.asarray(labs, np.int32)).cuda()
+    parts = {}
+    layouts = {"class": _k17_layout(n, dim, len(thr), n_cls), "index": _k17_index_layout(n, dim, len(thr), n_cls)}
+    for route, layout in layouts.items():
+        for mode, what in ((1, "d2_bin"), (2, "fixed_counter"), (0, "whole")):
+            parts[f"{route}_{what}_ms"] = _time_ms(lambda layout=layout, mode=mode: _cooccur_k17(
+                p, lab, thr, n_cls, layout=layout, mode=mode), 5)[1]
+    pairs = n * (n - 1) / 2
+    per_pair = _k17_instructions_per_pair()
+    floor = "not measured" if per_pair is None else \
+        f"{1e3 * pairs * per_pair / (32 * 4 * SMS * _sm_clock_hz()):.4f} ({per_pair} instructions a pair)"
+    bound = _k17_bound(n, dim, len(thr), n_cls)
+    print(f"[diag] cooccur_pairs {name} n={n} C={n_cls} L={len(thr)} pairs={pairs:.4e}: "
+          + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+          + f" bound_ms={bound[0]:.4f} ({bound[1]}) instruction_floor_ms={floor}", flush=True)
+
+
+def cooccur_turns(name: str, pts: np.ndarray, labs: np.ndarray, thr: np.ndarray, n_cls: int) -> None:
+    """K17's class route against the earlier design (the index route with
+    its own layout) in turns (old, new, new, old), three calls a turn; both
+    results equal."""
+    import torch
+
+    from squidpy_torch.ops.cooccur import _cooccur_k17, _k17_index_layout
+
+    thr = np.asarray(thr, np.float32)
+    n, dim = pts.shape
+    p = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda()
+    lab = torch.from_numpy(np.asarray(labs, np.int32)).cuda()
+    old = _k17_index_layout(n, dim, len(thr), n_cls)
+    (new_out, old_out), new_ms, old_ms = _turns(lambda: _cooccur_k17(p, lab, thr, n_cls),
+                                                lambda: _cooccur_k17(p, lab, thr, n_cls, layout=old), 3)
+    if not torch.equal(new_out, old_out):
+        raise AssertionError(f"cooccur_pairs turns {name}: the class route and the index route differ")
+    print(f"[diag] cooccur_pairs turns {name} n={n} C={n_cls} L={len(thr)}: class route "
+          + " / ".join(f"{t:.4f}" for t in new_ms) + " ms, the index route (copies="
+          + f"{old.copies}) " + " / ".join(f"{t:.4f}" for t in old_ms) + " ms (old, new, new, old)", flush=True)
+
+
 def cooccur_kernel_checks(data: dict) -> list[dict]:
-    """K17 on part h1's own inputs (the 99k section, then Visium), then in
-    the branches h1 does not take: one class at 99k (a bin past 2^31), 200
-    classes (global atomics), 3-D coordinates, labels of -1, n = 3,001,
-    coincident points against a threshold of 0, NaN coordinates, repeated
-    thresholds and 3000 thresholds (buckets holding several: the walk)."""
+    """K17 on part h1's own inputs (the 99k section, then Visium), with the
+    section's ``[diag]`` split and turns, then in the branches h1 does not
+    take: one class at 99k (a bin past 2^31), 200 classes (the class
+    route's shared counters, the index route's global atomics: in turns), 3-D
+    coordinates, labels of -1, n = 3,001, coincident points against a
+    threshold of 0, NaN coordinates, repeated thresholds and 3000
+    thresholds (buckets holding several, past the class route: the index
+    route)."""
     from squidpy_torch.gr._ppatterns import _find_min_max
 
     def default_thr(pts: np.ndarray) -> np.ndarray:
@@ -3360,13 +3465,17 @@ def cooccur_kernel_checks(data: dict) -> list[dict]:
     for name, adata in data.items():
         pts = np.asarray(adata.obsm["spatial"], np.float32)
         out.append(check_cooccur_pairs(f"part h1 {name}", pts, adata.obs["cluster"].cat.codes, default_thr(pts),
-                                       N_CLS))
+                                       N_CLS, route="class"))
     pts = np.asarray(data["section"].obsm["spatial"], np.float32)
     thr = default_thr(pts)
+    section_labels = np.asarray(data["section"].obs["cluster"].cat.codes, np.int32)
+    cooccur_pairs_split("part h1 section", pts, section_labels, thr, N_CLS)
+    cooccur_turns("part h1 section", pts, section_labels, thr, N_CLS)
     rng = np.random.default_rng(53)
     out.append(check_cooccur_pairs("one class", pts, np.zeros(len(pts), np.int32), thr, 1, past_int32=True))
-    out.append(check_cooccur_pairs(f"{COOC_MANY_CLS} classes", pts, rng.integers(0, COOC_MANY_CLS, len(pts)), thr,
-                                   COOC_MANY_CLS, copies=0))
+    many_labels = rng.integers(0, COOC_MANY_CLS, len(pts))
+    out.append(check_cooccur_pairs(f"{COOC_MANY_CLS} classes", pts, many_labels, thr, COOC_MANY_CLS, route="class"))
+    cooccur_turns(f"{COOC_MANY_CLS} classes", pts, many_labels, thr, COOC_MANY_CLS)
     p3 = rng.uniform(0, 1500, (30_000, 3)).astype(np.float32)
     out.append(check_cooccur_pairs("3-D", p3, rng.integers(0, N_CLS, 30_000), default_thr(p3[:, :2]), N_CLS))
     out.append(check_cooccur_pairs("labels of -1", pts[:30_000], rng.integers(-1, N_CLS, 30_000), thr, N_CLS))
@@ -3380,8 +3489,9 @@ def cooccur_kernel_checks(data: dict) -> list[dict]:
     out.append(check_cooccur_pairs("NaN coordinates", nan, rng.integers(0, N_CLS, 30_000), thr, N_CLS))
     out.append(check_cooccur_pairs("repeated thresholds", pts[:30_000], rng.integers(0, N_CLS, 30_000),
                                    np.sort(np.r_[thr[::5], thr[::5], thr[10]]).astype(np.float32), N_CLS))
-    many = np.sort(rng.uniform(0.0, float(thr[-1]), 3000)).astype(np.float32)  # past the table's 4096 buckets / 4
-    out.append(check_cooccur_pairs("3000 thresholds", pts[:30_000], rng.integers(0, 4, 30_000), many, 4))
+    many = np.sort(rng.uniform(0.0, float(thr[-1]), 3000)).astype(np.float32)  # past the class route's 254
+    out.append(check_cooccur_pairs("3000 thresholds", pts[:30_000], rng.integers(0, 4, 30_000), many, 4,
+                                   route="index"))
     return out
 
 

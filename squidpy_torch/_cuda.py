@@ -32,7 +32,9 @@ entry (two: the runs and the tree); K15 (``ivf_search``) counts each call
 (the filter route's starts two CUDA kernels: the members' terms and the
 sweep); K16 (``ivf_refine``) counts each launch. K8's wrapper bins its points and
 queries by K6's bounds, bin and scatter, and those calls count as K6's.
-K17 (``cooccur_pairs``) counts each call: the sweep and the cumulative sum.
+K17 (``cooccur_pairs``) counts each call into either route: the class route's
+class order and tiles, sweep and cumulative sum, or the index route's sweep
+and sum.
 
 ``build_seconds`` gives, after a build in this process, each source's
 seconds from the start of all compiles to the end of its own, and the link's.
@@ -148,7 +150,8 @@ _SIGNATURES = {
     "sqt_ivf_search": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "sqt_ivf_search_filter": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-    "sqt_cooccur_pairs": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "sqt_cooccur_pairs": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _L, _P, _P],
+    "sqt_cooccur_pairs_index": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

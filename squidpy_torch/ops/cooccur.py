@@ -23,28 +23,55 @@ from squidpy_torch.ops.ripley import _k7_row_tile, _k7_table
 
 __all__ = ["co_occurrence_counts", "co_occurrence_probs", "cooccur_block_pairs", "cooccur_pairs"]
 
-# K17's shared memory: the bucket table (16 bytes a bucket), the staged rows
-# and labels, then copies of the (L, C, C) uint32 first-bin counters; a
-# second and later copy only while the block stays under _K17_COPIES_BYTES
-# (two blocks an SM), at most one a warp. The buckets: 4L, a power of two,
-# within [1024, 4096] (past 1024 thresholds some buckets hold several, and
-# their pairs walk the thresholds)
+# K17's routes (csrc/cooccur_pairs.cu). The class route: points in class
+# order, 2 (L + 2) uint32 counters a lane in shared memory (shared by the 8
+# warps of a block), beside the bucket bytes and the thresholds, each copied
+# once a lane (1024 buckets), for up to 254 distinct thresholds (a bucket's
+# byte holds L + 1). The index route (past it): the bucket table (16 bytes a
+# bucket), the staged rows and labels, then copies of the (L, C, C) uint32
+# first-bin counters; a second and later copy only while the block stays
+# under _K17_COPIES_BYTES (two blocks an SM), at most one a warp. Its
+# buckets: 4L, a power of two, within [1024, 4096] (past 1024 thresholds
+# some buckets hold several, and their pairs walk the thresholds)
 _K17_SMEM_BYTES = 224 * 1024
 _K17_COPIES_BYTES = 96 * 1024
 _K17_MAX_COPIES = 8
 _K17_MIN_BUCKETS, _K17_MAX_BUCKETS = 1024, 4096
+_K17_COLS = 1024
+_K17_CLASS_BUCKETS = 1024
+_K17_CLASS_MAX_THR = 254
 
 
 class K17Layout(NamedTuple):
-    copies: int  # shared copies of the (L, C, C) counters; 0: 64-bit global atomics
-    n_buckets: int  # the bucket table's (`_k17_table`): a power of two
+    route: str  # "class": class order, lane-private bins; "index": the caller's order, (L, C, C) copies
+    copies: int  # the index route's shared copies of the (L, C, C) counters; 0: 64-bit global atomics
+    n_buckets: int  # the bucket table's: a power of two
     row_tile: int
+
+
+def _k17_class_smem(dim: int, n_thr: int, row_tile: int) -> int:
+    """Shared bytes of a class-route block: the counters of both directions,
+    the thresholds and the bucket bytes, each a lane, the staged rows (1-3
+    dimensions) and their indices."""
+    rows = row_tile * ((dim if dim <= 3 else 0) + 1)
+    return 4 * ((3 * n_thr + 7) * 32 + (_K17_CLASS_BUCKETS // 4 + 1) * 32 + rows)
 
 
 def _k17_layout(n: int, dim: int, n_thr: int, n_cls: int) -> K17Layout:
     """K17's launch for ``n`` points in ``dim`` dimensions, ``n_thr``
-    thresholds and ``n_cls`` classes: the counters' copies, the bucket
-    table's size and the row tile (K7's rule for one set)."""
+    thresholds and ``n_cls`` classes: the class route wherever its block
+    fits, else the index route (:func:`_k17_index_layout`); the row tile is
+    K7's rule for one set."""
+    row_tile = _k7_row_tile(1, n)
+    if n_thr <= _K17_CLASS_MAX_THR and _k17_class_smem(dim, n_thr, row_tile) <= _K17_SMEM_BYTES:
+        return K17Layout("class", 0, _K17_CLASS_BUCKETS, row_tile)
+    return _k17_index_layout(n, dim, n_thr, n_cls)
+
+
+def _k17_index_layout(n: int, dim: int, n_thr: int, n_cls: int) -> K17Layout:
+    """The index route's launch (the earlier design): its bucket table's size,
+    the copies of its (L, C, C) counters that fit shared memory (0: 64-bit
+    global atomics) and K7's row tile."""
     row_tile = _k7_row_tile(1, n)
     n_buckets = min(max(_K17_MIN_BUCKETS, 1 << (4 * n_thr - 1).bit_length()), _K17_MAX_BUCKETS)
     fixed = (n_buckets + 1) * 16 + row_tile * ((dim if dim <= 3 else 0) + 1) * 4
@@ -54,11 +81,71 @@ def _k17_layout(n: int, dim: int, n_thr: int, n_cls: int) -> K17Layout:
         copies = 1
         while copies < _K17_MAX_COPIES and fixed + 2 * copies * copy <= _K17_COPIES_BYTES:
             copies *= 2
-    return K17Layout(copies, n_buckets, row_tile)
+    return K17Layout("index", copies, n_buckets, row_tile)
+
+
+def _k17_scratch_words(n: int, dim: int, n_thr: int, n_cls: int, row_tile: int) -> int:
+    """The class route's int64 scratch: the row and column tile tables (int4
+    each), a header of 4, the row tiles' item offsets, the (L, C, C) counts,
+    then, as int32 and float32 pairs, the class starts, each point's index
+    and the points in class order."""
+    max_rt = -(-n // row_tile) + n_cls
+    max_ct = -(-n // _K17_COLS) + n_cls
+    return (2 * max_rt + 2 * max_ct + 4 + max_rt + 1 + n_thr * n_cls * n_cls + (n_cls + 2) // 2 + (n + 1) // 2
+            + (n * dim + 1) // 2)
+
+
+def _bucket_bounds(thr: np.ndarray, n_buckets: int) -> tuple[np.float32, np.ndarray, np.ndarray]:
+    """The scale and each bucket's least and largest d2 (float32, ``n_buckets
+    + 1`` each) for ascending ``thr``: a d2 takes bucket ``min(floor(float32(d2
+    * scale)), n_buckets)``, the top bucket also every d2 past ``thr[-1]``, inf
+    and NaN (its largest is inf). As :func:`_k7_table` finds them."""
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        scale = np.float32(n_buckets) / thr[-1]
+    if not (np.isfinite(scale) and scale > 0):
+        scale = np.float32(0.0)
+    inf = 0x7F800000
+    b = np.arange(1, n_buckets + 1, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        x0 = (b / np.float64(scale)).astype(np.float32).view(np.int32).astype(np.int64)
+        cand = np.clip(x0[:, None] + np.arange(-4, 5), 0, inf)
+        prod = (cand.astype(np.int32).view(np.float32).astype(np.float64) * np.float64(scale)).astype(np.float32)
+        ok = np.concatenate([prod >= b[:, None].astype(np.float32), np.ones((len(b), 1), bool)], axis=1)
+    cand = np.concatenate([cand, np.full((len(b), 1), inf)], axis=1)
+    lo = np.r_[0, cand[np.arange(len(b)), ok.argmax(axis=1)]]
+    hi = np.r_[np.maximum(lo[1:] - 1, 0), inf]  # the bucket's largest d2, as bits
+    return scale, lo.astype(np.int32).view(np.float32), hi.astype(np.int32).view(np.float32)
+
+
+def _k17_lane_tables(thr: np.ndarray,
+                     n_buckets: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.float32, int]:
+    """The class route's tables for distinct ascending float32 ``thr`` (L,):
+    the bucket bytes, ``(n_buckets // 4 + 1) * 128`` uint8, bucket b's at
+    ``[b // 4][lane][b % 4]`` for each of 32 lanes: the count ``e`` of
+    thresholds up to the bucket's largest d2, or L + 1 where more than two
+    lie inside it (a walk); the thresholds, ``(L + 3) * 32`` float32, ``[r]
+    [lane]`` holding ``thr[r - 2]`` and -inf in rows 0, 1 and L + 2; each
+    bucket's first threshold at or above its least d2, int32 ``(n_buckets +
+    1,)``; the scale; and the most thresholds a bucket holds, 1 or 2, or 3
+    for more. A pair's bin, searchsorted's (L: none), is ``e - (thr[e - 1]
+    >= d2) - (thr[e - 2] >= d2)``, the second term only where a bucket holds
+    two: a threshold below the bucket is below its d2."""
+    n_thr = len(thr)
+    scale, lo, hi = _bucket_bounds(thr, n_buckets)
+    first = np.searchsorted(thr, lo, side="left")
+    e = np.searchsorted(thr, hi, side="right")
+    most = int((e - first).max())
+    entry = np.where(e - first <= 2, e, n_thr + 1)
+    padded = np.full((n_buckets // 4 + 1) * 4, n_thr, np.uint8)
+    padded[: n_buckets + 1] = entry
+    bins = np.repeat(padded.reshape(-1, 1, 4), 32, axis=1).reshape(-1)
+    neg = np.float32(-np.inf)
+    thr_rep = np.repeat(np.r_[neg, neg, np.asarray(thr, np.float32), neg].astype(np.float32)[:, None], 32, axis=1)
+    return np.ascontiguousarray(bins), thr_rep.reshape(-1), first.astype(np.int32), scale, max(min(most, 3), 1)
 
 
 def _k17_table(thr: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """K17's bucket table for ascending ``thr`` (L,) float32: int32
+    """The index route's bucket table for ascending ``thr`` (L,) float32: int32
     ``(n_buckets + 2, 4)``, a row a bucket holding K7's split (as bits) and
     its two slot bins (:func:`_k7_table`) and a zero, then a row holding the
     scale's bits, so a pair's bucket is one 16-byte load."""
@@ -140,35 +227,72 @@ def cooccur_pairs(
     return out
 
 
-def _cooccur_k17(coords: torch.Tensor, labels: torch.Tensor, thr: np.ndarray, n_cls: int) -> torch.Tensor:
+def _cooccur_k17(coords: torch.Tensor, labels: torch.Tensor, thr: np.ndarray, n_cls: int,
+                 layout: K17Layout | None = None, mode: int = 0) -> torch.Tensor:
     """Kernel K17's counts ``(L, C, C)`` for ``coords`` (n, d) float32 and
-    ``labels`` (n,) int32 on the card and ascending host thresholds ``thr``."""
+    ``labels`` (n,) int32 on the card and ascending host thresholds ``thr``,
+    by the route of :func:`_k17_layout` unless ``layout`` is given. ``mode``
+    1 and 2 (d = 2) run the kernel's measuring modes, which count nothing:
+    ``out`` then holds no counts, and no launch is counted."""
     n, dim = coords.shape
     if n < 2 or thr.size == 0 or n_cls == 0 or dim == 0:
         return torch.zeros((thr.size, n_cls, n_cls), dtype=torch.int64, device=coords.device)
-    if n >= 2**31 - 2 * 1024 or thr.size * n_cls * n_cls >= 2**31:
+    if n >= 2**31 - 2 * _K17_COLS or thr.size * n_cls * n_cls >= 2**31:
         raise ValueError("K17 takes fewer than 2^31 points and L * C^2 counters.")
-    layout = _k17_layout(n, dim, thr.size, n_cls)
-    thr_dev, table = _k17_inputs(thr.tobytes(), layout.n_buckets, str(coords.device))
+    layout = layout or _k17_layout(n, dim, thr.size, n_cls)
     _cuda.require(coords, "coords", torch.float32)
     _cuda.require(labels, "labels", torch.int32, (n,))
-    hist = torch.zeros(thr.size * n_cls * n_cls + 1, dtype=torch.int64, device=coords.device)
     out = torch.empty((thr.size, n_cls, n_cls), dtype=torch.int64, device=coords.device)
-    code = _cuda.library().sqt_cooccur_pairs(
-        coords.data_ptr(), labels.data_ptr(), n, dim, thr_dev.data_ptr(), thr.size, n_cls, table.data_ptr(),
-        layout.n_buckets, layout.copies, layout.row_tile, hist.data_ptr(), out.data_ptr(), _cuda.stream_ptr(),
-    )
+    if layout.route == "class":
+        bins, thr_rep, first, scale, tab, inverse = _k17_lane_inputs(thr.tobytes(), layout.n_buckets,
+                                                                      str(coords.device))
+        n_thr = thr_rep.numel() // 32 - 3  # the distinct thresholds
+        words = _k17_scratch_words(n, dim, n_thr, n_cls, layout.row_tile)
+        scratch = torch.zeros(words, dtype=torch.int64, device=coords.device)
+        counts = out if inverse is None else torch.empty((n_thr, n_cls, n_cls), dtype=torch.int64,
+                                                         device=coords.device)
+        code = _cuda.library().sqt_cooccur_pairs(
+            coords.data_ptr(), labels.data_ptr(), n, dim, n_thr, n_cls, bins.data_ptr(), thr_rep.data_ptr(),
+            first.data_ptr(), scale, layout.n_buckets, tab, layout.row_tile, mode, scratch.data_ptr(), words,
+            counts.data_ptr(), _cuda.stream_ptr(),
+        )
+        if inverse is not None:  # a repeated threshold's counts are its value's
+            torch.index_select(counts, 0, inverse, out=out)
+    else:
+        thr_dev, table = _k17_inputs(thr.tobytes(), layout.n_buckets, str(coords.device))
+        scratch = torch.zeros(thr.size * n_cls * n_cls + 1, dtype=torch.int64, device=coords.device)
+        code = _cuda.library().sqt_cooccur_pairs_index(
+            coords.data_ptr(), labels.data_ptr(), n, dim, thr_dev.data_ptr(), thr.size, n_cls, table.data_ptr(),
+            layout.n_buckets, layout.copies, layout.row_tile, mode, scratch.data_ptr(), out.data_ptr(),
+            _cuda.stream_ptr(),
+        )
     _cuda.check(code, "cooccur_pairs")
-    _cuda.launches["cooccur_pairs"] += 1
+    if mode == 0:
+        _cuda.launches["cooccur_pairs"] += 1
     return out
 
 
 @functools.lru_cache(maxsize=8)
 def _k17_inputs(thr_bytes: bytes, n_buckets: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Ascending float32 thresholds (given as bytes) and K17's bucket table
-    for them, built on the host and moved to ``device`` once a support."""
+    """Ascending float32 thresholds (given as bytes) and the index route's
+    bucket table for them, built on the host and moved to ``device`` once a
+    support."""
     thr = torch.frombuffer(bytearray(thr_bytes), dtype=torch.float32)
     return thr.to(device), _k17_table(thr, n_buckets).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _k17_lane_inputs(thr_bytes: bytes, n_buckets: int,
+                     device: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, float, int, torch.Tensor | None]:
+    """The class route's tables (:func:`_k17_lane_tables`) for the distinct
+    values of ascending float32 thresholds given as bytes, built on the host
+    and moved to ``device`` once a support, and each threshold's place among
+    the distinct values where some repeat (else None)."""
+    uniq, inverse = np.unique(np.frombuffer(thr_bytes, np.float32), return_inverse=True)
+    bins, thr_rep, first, scale, tab = _k17_lane_tables(uniq, n_buckets)
+    places = None if uniq.size * 4 == len(thr_bytes) else torch.from_numpy(inverse.reshape(-1)).to(device)
+    return (torch.from_numpy(bins).to(device), torch.from_numpy(thr_rep).to(device),
+            torch.from_numpy(first).to(device), float(scale), tab, places)
 
 
 def co_occurrence_counts(

@@ -79,7 +79,27 @@ Phases (any failure exits non-zero; no error is caught and passed over):
       lane, and whole) and the index route timed in turns with the class
       route on h1's section and at 200 classes, and ``co_occurrence`` at
       20,000 cells card vs CPU (``occ`` bitwise; ~30 s in all);
-   g. (run last, after steps 4-5 of parts a-f and part h, so it changes
+   i. (after part h, before part g) the image path of a Visium section
+      with pandas blocked: a synthetic 12,000 x 12,000 x 3 uint8 H&E slide
+      drawn on the card from a seed (smooth eosin tissue, ~200k haematoxylin
+      nuclei of radius 3-6 px) and its 4,992 spots on Visium's 78 x 64 hex
+      grid at a 162 px pitch, ``spot_diameter_fullres`` 89 (89 x 89 crops);
+      i2: ``im.calculate_image_features`` (summary, histogram, texture: one
+      launch each of K19, K20 and K18) twice, then with ``spot_scale=2``
+      (177 x 177 crops); i3: ``im.process`` smooth (sigma 2) on the whole
+      slide, then gray; i4: ``im.segment`` (watershed, nuclei darker than
+      0.4 gray) on a 2048 x 2048 corner, then ``calculate_image_features``
+      (summary, segmentation: the per-crop path, K19 by ``jnp.quantile``'s
+      rule a crop and channel) on the ~180 spots inside it; then K18-K20
+      held bitwise to their plain versions on i2's batches at both spot
+      scales (K19 beside ``torch.sort`` of the crops' (crops x channels,
+      pixels) matrix and the same gathers) and in their branches: K18 on 300
+      x 300 crops (89,700 pairs an offset: its global counters), a constant
+      300 x 300 crop, levels 33 with ``symmetric`` and ``ignore_level``, its
+      count entry; K19 by ``jnp.quantile``'s rule and on 200 x 200 crops
+      (past its shared keys); K20 over a fixed range and by
+      ``jnp.histogram``'s rule (~15 s in all);
+   g. (run last, after steps 4-5 of parts a-f and parts h and i, so it changes
       none of their measurements, then its own kernel checks and its
       card-vs-CPU check) niches (``calculate_niche``) on planted spatial domains: a Voronoi
       partition of the section into 12 domains, each with its own mix of 16
@@ -3512,6 +3532,290 @@ def cooccur_reference_check(n: int) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+IMG_SIDE = 12_000  # i: a whole H&E slide of a Visium section's capture area at full resolution
+IMG_NUCLEI = 200_000
+IMG_ROWS, IMG_COLS, IMG_PITCH = 78, 64, 162.0  # Visium's 4,992 spots on a hex grid, 100 um apart
+IMG_DIAMETER = 89.0  # 55 um spots at 162 px / 100 um: 89 x 89 crops
+IMG_SEG_SIDE = 2048  # i4: the watershed's corner of the slide
+IMG_NUCLEUS_GRAY = 0.4  # i4: nuclei are darker (gray ~0.22) than the tissue (~0.63) and the glass (~0.94)
+IMG_QUANTILES = (0.9, 0.5, 0.1)
+IMG_OFFSETS = ((0, 1), (1, 1), (1, 0), (1, -1))  # distance 1 at 0, pi/4, pi/2, 3 pi/4
+
+
+class ImageStandIn:
+    """Numpy-only stand-in for a Visium AnnData: the spots' names, centres
+    (x, y) in full-resolution pixels and ``uns['spatial']``."""
+
+    def __init__(self, coords: np.ndarray, names: list[str]) -> None:
+        self.obs: dict = {}
+        self.obsm = {"spatial": coords}
+        self.obs_names = names
+        self.uns = {"spatial": {"section": {"scalefactors": {"spot_diameter_fullres": IMG_DIAMETER}}}}
+
+
+def _he_image(seed: int) -> np.ndarray:
+    """A synthetic H&E slide, IMG_SIDE^2 x 3 uint8, drawn on the card from a
+    seed: white glass, smooth eosin-pink tissue over most of it (a bilinear
+    field of a coarse random grid), about IMG_NUCLEI dark haematoxylin
+    disks of radius 3-6 px where there is tissue, and pixel noise."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    side = IMG_SIDE
+    coarse = torch.rand((1, 1, 24, 24), generator=gen, device="cuda")
+    tissue = F.interpolate(coarse, size=(side, side), mode="bilinear", align_corners=False)[0, 0]
+    tissue = ((tissue - 0.3) * 3.0).clamp_(0.0, 1.0)  # glass where the field is low
+    glass = torch.tensor([242.0, 240.0, 245.0], device="cuda")
+    eosin = torch.tensor([226.0, 140.0, 190.0], device="cuda")
+    img = glass + tissue[..., None] * (eosin - glass)
+    img += torch.randn((side, side, 3), generator=gen, device="cuda") * 6.0
+    centres = (torch.rand((IMG_NUCLEI * 2, 2), generator=gen, device="cuda") * (side - 16) + 8).long()
+    keep = tissue[centres[:, 0], centres[:, 1]] > 0.2
+    centres = centres[keep][:IMG_NUCLEI]
+    radius = torch.randint(3, 7, (centres.shape[0],), generator=gen, device="cuda")
+    dy, dx = torch.meshgrid(torch.arange(-6, 7, device="cuda"), torch.arange(-6, 7, device="cuda"), indexing="ij")
+    inside = (dy * dy + dx * dx)[None] <= (radius * radius)[:, None, None]
+    ys = (centres[:, 0, None, None] + dy[None]).expand_as(inside)[inside]
+    xs = (centres[:, 1, None, None] + dx[None]).expand_as(inside)[inside]
+    haem = torch.tensor([70.0, 45.0, 125.0], device="cuda")
+    img[ys, xs] = haem + torch.randn((ys.numel(), 3), generator=gen, device="cuda") * 10.0
+    out = img.clamp_(0, 255).to(torch.uint8).cpu().numpy()
+    return out
+
+
+def _visium_spots() -> ImageStandIn:
+    """Visium's 78 x 64 hex grid at IMG_PITCH, centred on the slide."""
+    rows, cols = np.divmod(np.arange(IMG_ROWS * IMG_COLS), IMG_COLS)
+    x = cols * IMG_PITCH + (rows % 2) * IMG_PITCH / 2
+    y = rows * IMG_PITCH * np.sqrt(3) / 2
+    x += (IMG_SIDE - x.max()) / 2
+    y += (IMG_SIDE - y.max()) / 2
+    return ImageStandIn(np.c_[x, y], [f"spot_{i}" for i in range(len(x))])
+
+
+def _blocked_pandas(fn):
+    saved = sys.modules.get("pandas")
+    sys.modules["pandas"] = None  # any import of pandas raises ImportError
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            sys.modules.pop("pandas", None)
+        else:
+            sys.modules["pandas"] = saved
+
+
+def _check_features(name: str, res, n: int, cols: int, side: int) -> None:
+    """A batched frame without pandas: ``cols`` finite columns of ``n`` rows,
+    and each channel's histogram counting every pixel of its side x side crop."""
+    if type(res).__name__ != "Columns" or len(res.columns) != cols or len(res.index) != n:
+        raise AssertionError(f"part {name}: {type(res).__name__} of {len(res.columns)} columns x {len(res.index)} rows")
+    for key, col in res.columns.items():
+        if col.shape != (n,) or not np.all(np.isfinite(np.asarray(col, dtype=np.float64))):
+            raise AssertionError(f"part {name}: column {key} is not {n} finite values")
+    for c in range(3):
+        counts = np.sum([np.asarray(v) for k, v in res.columns.items() if k.startswith(f"histogram_ch-{c}_bin-")], axis=0)
+        if not np.all(counts == side * side):
+            raise AssertionError(f"part {name}: channel {c}'s histograms do not count every pixel of a crop")
+
+
+def image_path() -> tuple[dict, dict, dict]:
+    """Part i: the image path of a Visium section through the public API, with
+    pandas blocked. i1: the synthetic slide and its 4,992 spots; i2:
+    ``calculate_image_features`` (summary, histogram, texture: K19, K20, K18)
+    twice, then with ``spot_scale=2`` (177 x 177 crops); i3: ``process``
+    smooth (sigma 2) on the whole slide, then gray; i4: ``segment``
+    (watershed) on a 2048 x 2048 corner and ``calculate_image_features``
+    (summary, segmentation: the per-crop path, K19) on the spots inside it.
+    Returns the data the kernel checks take, the launches of each call and
+    the seconds."""
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+
+    secs: dict[str, float] = {}
+    launches: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    img = sqt.im.ImageContainer(_he_image(seed=61), layer="image")
+    spots = _visium_spots()
+    secs["i1_setup_s"] = time.perf_counter() - t0
+    feats = ["summary", "histogram", "texture"]
+    for call, kw in (("i2_first", {}), ("i2", {}), ("i2_scale2", {"spot_scale": 2})):
+        _cuda.reset_launches()
+        _, secs[f"{call}_s"] = _sync_time(lambda kw=kw: _blocked_pandas(
+            lambda: sqt.im.calculate_image_features(spots, img, features=feats, key_added=call, **kw)))
+        launches[call] = dict(_cuda.launches)
+        side = 2 * int(round(IMG_DIAMETER // 2 * kw.get("spot_scale", 1.0))) + 1
+        _check_features(call, spots.obsm[call], len(spots.obs_names), 3 * (5 + 10 + 20), side)
+    _cuda.reset_launches()
+    _, secs["i3_smooth_s"] = _sync_time(lambda: sqt.im.process(img, layer="image", method="smooth", sigma=2))
+    _, secs["i3_gray_s"] = _sync_time(lambda: sqt.im.process(img, layer="image", method="gray"))
+    smooth, gray = img["image_smooth"], img["image_gray"]
+    if smooth.shape != img["image"].shape or smooth.dtype != np.uint8 or gray.shape != (IMG_SIDE, IMG_SIDE, 1, 1):
+        raise AssertionError(f"part i3: smooth {smooth.shape} {smooth.dtype}, gray {gray.shape}")
+    if not (np.abs(smooth[::97, ::97].astype(np.int16) - img["image"][::97, ::97]).mean() > 0
+            and 0.0 <= float(gray.min()) and float(gray.max()) <= 1.0):
+        raise AssertionError("part i3: smoothing changed nothing, or gray left [0, 1]")
+    launches["i3"] = dict(_cuda.launches)
+    y0 = x0 = (IMG_SIDE - IMG_SEG_SIDE) // 2
+    corner = img.crop_corner(y0, x0, size=IMG_SEG_SIDE)
+    _, secs["i4_segment_s"] = _sync_time(lambda: sqt.im.segment(corner, layer="image_gray", method="watershed",
+                                                                thresh=IMG_NUCLEUS_GRAY, geq=False))
+    labels = corner["segmented_watershed"]
+    n_nuclei = len(np.unique(labels)) - 1
+    if n_nuclei < 100:
+        raise AssertionError(f"part i4: the watershed found {n_nuclei} nuclei on the corner")
+    xy = spots.obsm["spatial"]
+    inside = (xy[:, 0] >= x0) & (xy[:, 0] < x0 + IMG_SEG_SIDE) & (xy[:, 1] >= y0) & (xy[:, 1] < y0 + IMG_SEG_SIDE)
+    sub = ImageStandIn(xy[inside], [n for n, k in zip(spots.obs_names, inside) if k])
+    _cuda.reset_launches()
+    _, secs["i4_features_s"] = _sync_time(lambda: _blocked_pandas(lambda: sqt.im.calculate_image_features(
+        sub, corner, layer="image", features=["summary", "segmentation"],
+        features_kwargs={"segmentation": {"label_layer": "segmented_watershed",
+                                          "props": ("label", "area", "mean_intensity")}})))
+    launches["i4"] = dict(_cuda.launches)
+    res = sub.obsm["img_features"]
+    if len(res.index) != int(inside.sum()) or not np.all(np.asarray(res.columns["segmentation_label"]) >= 0):
+        raise AssertionError("part i4: the per-crop frame does not hold every spot of the corner")
+    secs["i4_spots"] = int(inside.sum())
+    secs["i4_nuclei"] = n_nuclei
+    del smooth, gray
+    return {"img": img, "spots": spots, "corner": corner, "sub": sub}, launches, secs
+
+
+def _spot_batch(data: dict, spot_scale: float = 1.0):
+    """The batch the featurization took: the spots' crops stacked (n, h, w, 3) uint8 on the card."""
+    import torch
+
+    crops = [c[:, :, 0, :] for c in data["img"].generate_spot_crops(data["spots"], as_array="image", squeeze=False,
+                                                                      spot_scale=spot_scale)]
+    return torch.from_numpy(np.stack(crops)).cuda()
+
+
+def _k18_bound(n_items: int, h: int, w: int, offsets, n_ch_layout: int) -> tuple[float, str]:
+    """Each uint8 pixel read once, six float64 props a (item, offset)
+    written; about 12 integer operations a pair (the count, its square's
+    increment, seven moments, the |i - j| histogram)."""
+    pairs = sum(max(h - abs(dr), 0) * max(w - abs(dc), 0) for dr, dc in offsets)
+    return _bound(n_items * h * w + n_items * len(offsets) * 48, 12.0 * n_items * pairs)
+
+
+def check_glcm(name: str, imgs, channels, offsets, levels: int = 256, symmetric: bool = False,
+               ignore_level: int | None = None, counts: bool = False, plain_warm: bool = False) -> dict:
+    """K18 against its plain version on the card: props (or counts) bitwise."""
+    from squidpy_torch.ops import features as F
+
+    offsets = [tuple(o) for o in offsets]
+    n, h, w, _ = imgs.shape
+    bound = _k18_bound(n * len(channels), h, w, offsets, imgs.shape[3])
+    if counts:
+        kernel = lambda: F._glcm_k18(imgs, channels, offsets, levels, symmetric, ignore_level, counts=True)  # noqa: E731
+        planes = imgs.permute(0, 3, 1, 2)[:, channels].reshape(-1, h, w)
+        plain = lambda: F._glcm_counts_plain(planes, offsets, levels)  # noqa: E731
+    else:
+        kernel = lambda: F._glcm_k18(imgs, channels, offsets, levels, symmetric, ignore_level, counts=False)  # noqa: E731
+        plain = lambda: F._glcm_props_batched_plain(imgs, channels, offsets, levels, symmetric,  # noqa: E731
+                                                    ignore_level)
+    route = "packed" if F.k18_packed(h, w, offsets, symmetric) else "global"
+    return _compare(f"glcm {name} n={n} {h}x{w} ch={len(channels)} off={len(offsets)} L={levels} "
+                    f"sym={symmetric} ignore={ignore_level} {'counts' if counts else 'props'} route={route}",
+                    kernel, plain, repeats=3, bound=bound, plain_warm=plain_warm)
+
+
+def check_crop_summary(name: str, x, rule: int = 0, plain_warm: bool = False) -> dict:
+    """K19 against its plain version: quantiles, mean and std bitwise (the
+    values are integers, so the double sums are exact); beside it
+    ``torch.sort`` of the (crops x channels, pixels) matrix and the same
+    gathers."""
+    import torch
+
+    from squidpy_torch.ops import features as F
+
+    n, p, c = x.shape
+    table = F.quantile_table(IMG_QUANTILES, p, rule)
+
+    def flat(out):
+        return torch.cat([t.reshape(-1) for t in out])
+
+    lo, hi = (torch.from_numpy(t).long().cuda() for t in table[:2])
+    wlo, whi = (torch.from_numpy(t).cuda() for t in table[2:])
+
+    def library():
+        s = torch.sort(x.permute(0, 2, 1).reshape(n * c, p), dim=1).values
+        return s[:, lo] * wlo + s[:, hi] * whi
+
+    bound = _bound(n * p * c * 4 + n * c * (len(IMG_QUANTILES) + 2) * 4, 4.0 * n * p * c)
+    return _compare(f"crop_summary {name} n={n} p={p} c={c} rule={rule} "
+                    f"route={'shared' if p <= F.SMEM_KEYS else 'global'}",
+                    lambda: flat(F._summary_k19(x, table, rule)), lambda: flat(F._summary_plain(x, table, rule)),
+                    repeats=3, bound=bound, plain_warm=plain_warm, library=library)
+
+
+def check_crop_histogram(name: str, x, bins: int, v_range, rule: int = 0) -> dict:
+    """K20 against its plain version: counts bitwise."""
+    import torch
+
+    from squidpy_torch.ops import features as F
+
+    n, p, c = x.shape
+    lo = torch.full((n,), 0.0 if v_range is None else float(v_range[0]), device="cuda")
+    hi = torch.full((n,), 0.0 if v_range is None else float(v_range[1]), device="cuda")
+    bound = _bound(n * p * c * 4 + n * c * bins * 4, 6.0 * n * p * c)
+    return _compare(f"crop_histogram {name} n={n} p={p} c={c} bins={bins} range={v_range} rule={rule}",
+                    lambda: F._histogram_k20(x, bins, rule, lo, hi, v_range is None),
+                    lambda: F._histogram_plain(x, bins, rule, lo, hi, v_range is None), repeats=3, bound=bound)
+
+
+def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
+    """K18-K20 on part i's own batches (i2's 89 x 89 crops, then i2_scale2's
+    177 x 177), then in their branches: 300 x 300 crops (89,700 pairs an
+    offset: K18's global counters), a constant 300 x 300 crop (every pair in
+    one cell), levels 33 with ``symmetric`` and ``ignore_level`` (the
+    experimental per-cell texture's call), K18's count entry, K19 by
+    ``jnp.quantile``'s rule and past its shared keys (200 x 200), K20 over a
+    fixed range and by ``jnp.histogram``'s rule."""
+    import torch
+
+    from squidpy_torch.ops import features as F
+
+    out: dict[str, list[dict]] = {"glcm": [], "crop_summary": [], "crop_histogram": []}
+    batch = _spot_batch(data)
+    n = batch.shape[0]
+    x = batch.reshape(n, -1, 3).to(torch.float32).contiguous()
+    out["glcm"].append(check_glcm("part i2", batch, [0, 1, 2], IMG_OFFSETS))
+    out["crop_summary"].append(check_crop_summary("part i2", x))
+    out["crop_histogram"].append(check_crop_histogram("part i2", x, 10, None))
+    del x
+    big = _spot_batch(data, spot_scale=2)
+    xb = big.reshape(n, -1, 3).to(torch.float32).contiguous()
+    out["glcm"].append(check_glcm("part i2 spot_scale=2", big, [0, 1, 2], IMG_OFFSETS))
+    out["crop_summary"].append(check_crop_summary("part i2 spot_scale=2", xb))
+    out["crop_histogram"].append(check_crop_histogram("part i2 spot_scale=2", xb, 10, None))
+    del big, xb
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(62)
+    wide = torch.from_numpy(rng.integers(0, 256, (64, 300, 300, 3), dtype=np.uint8)).cuda()
+    out["glcm"].append(check_glcm("300x300", wide, [0, 1, 2], IMG_OFFSETS))
+    const = torch.full((4, 300, 300, 1), 137, dtype=torch.uint8, device="cuda")
+    out["glcm"].append(check_glcm("constant 300x300", const, [0], IMG_OFFSETS))
+    q = torch.from_numpy(rng.integers(0, 33, (2000, 24, 24, 1), dtype=np.uint8)).cuda()
+    q[:, :4] = 32  # the sentinel rows of a ragged cell's bounding box (32 grey levels and the sentinel)
+    out["glcm"].append(check_glcm("levels 33", q, [0], [(0, 1)], levels=33, symmetric=True, ignore_level=32))
+    out["glcm"].append(check_glcm("count entry", batch[:16], [1], IMG_OFFSETS, counts=True))
+    one = batch[:1, :, :, :1].reshape(1, -1, 1).to(torch.float32).contiguous()
+    out["crop_summary"].append(check_crop_summary("one crop, jnp.quantile", one, rule=1))
+    xg = torch.from_numpy(rng.integers(0, 256, (300, 200 * 200, 3)).astype(np.float32)).cuda()
+    out["crop_summary"].append(check_crop_summary("200x200", xg))
+    xs = batch.reshape(n, -1, 3).to(torch.float32).contiguous()
+    out["crop_histogram"].append(check_crop_histogram("fixed range", xs, 10, (50.0, 200.0)))
+    lo_hi = (float(xs[0, :, 0].min()), float(xs[0, :, 0].max()))
+    out["crop_histogram"].append(check_crop_histogram("one crop, jnp.histogram", xs[:1, :, :1].contiguous(), 10,
+                                                      lo_hi, rule=1))
+    if F.k18_packed(300, 300, list(IMG_OFFSETS), False):
+        raise AssertionError("K18's 300 x 300 check did not take the global route")
+    return out
+
+
 NICHE_CELLS = 200_000  # g1, g2: the largest section the JAX package clusters on its exact kNN graph
 NICHE_BIG_CELLS = 1_000_000  # g3: cellcharter builds no kNN graph
 NICHE_GENES, NICHE_TYPES, NICHE_DOMAINS = 300, 16, 12
@@ -4543,6 +4847,29 @@ def main() -> int:
     del cooc_data
     cooccur_reference_check(COOC_CPU_CELLS)
     phases["cooccur_checks"] = time.perf_counter() - t_phase
+
+    # part i: the image path of a Visium section (K18-K20), then its kernels
+    # held to their plain versions on its own batches and in their branches
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    image_data, launches_i, secs_i = image_path()
+    print(f"[main path i] {IMG_SIDE}x{IMG_SIDE} H&E, {IMG_ROWS * IMG_COLS} spots of {IMG_DIAMETER:.0f} px, "
+          f"pandas blocked " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                                        for k, v in secs_i.items()), flush=True)
+    wanted_i = {"i2_first": ("glcm", "crop_summary", "crop_histogram"), "i2": ("glcm", "crop_summary", "crop_histogram"),
+                "i2_scale2": ("glcm", "crop_summary", "crop_histogram"), "i3": (), "i4": ("crop_summary",)}
+    for part, counts in launches_i.items():
+        print(f"[launches {part}] {counts}", flush=True)
+        missing = [k for k in wanted_i[part] if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"part {part}: {missing} not launched")
+        launches = {k: launches[k] + counts[k] for k in launches}
+    phases["main_path_i"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    checks.update(image_kernel_checks(image_data))
+    del image_data
+    torch.cuda.empty_cache()
+    phases["image_checks"] = time.perf_counter() - t_phase
 
     # part g last, so it leaves every earlier measurement as it was: its
     # path, its kernels on its own inputs and in their branches, card vs CPU

@@ -9,6 +9,15 @@ from squidpy_torch._constants._utils import ModeEnum
 
 
 @unique
+class ImageFeature(ModeEnum):
+    TEXTURE = "texture"
+    SUMMARY = "summary"
+    COLOR_HIST = "histogram"
+    SEGMENTATION = "segmentation"
+    CUSTOM = "custom"
+
+
+@unique
 class CorrAxis(ModeEnum):
     INTERACTIONS = "interactions"
     CLUSTERS = "clusters"
@@ -33,6 +42,21 @@ class CoordType(ModeEnum):
 
 
 @unique
+class Processing(ModeEnum):
+    SMOOTH = "smooth"
+    GRAY = "gray"
+
+
+@unique
+class SegmentationBackend(ModeEnum):
+    LOG = "log"
+    DOG = "dog"
+    DOH = "doh"
+    WATERSHED = "watershed"
+    CUSTOM = "custom"
+
+
+@unique
 class SpatialAutocorr(ModeEnum):
     MORAN = "moran"
     GEARY = "geary"
@@ -43,6 +67,13 @@ class Centrality(ModeEnum):
     DEGREE = "degree_centrality"
     CLUSTERING = "average_clustering"
     CLOSENESS = "closeness_centrality"
+
+
+@unique
+class InferDimensions(ModeEnum):
+    DEFAULT = "default"
+    CHANNELS_LAST = "channels_last"
+    Z_LAST = "z_last"
 
 
 @unique

@@ -34,7 +34,9 @@ sweep); K16 (``ivf_refine``) counts each launch. K8's wrapper bins its points an
 queries by K6's bounds, bin and scatter, and those calls count as K6's.
 K17 (``cooccur_pairs``) counts each call into either route: the class route's
 class order and tiles, sweep and cumulative sum, or the index route's sweep
-and sum.
+and sum. K18 (``glcm``), K19 (``crop_summary``) and K20
+(``crop_histogram``) count each launch, one a call of their wrappers, which
+takes every crop and channel of the call (and with K18 every offset).
 
 ``build_seconds`` gives, after a build in this process, each source's
 seconds from the start of all compiles to the end of its own, and the link's.
@@ -88,6 +90,9 @@ KERNELS = {
     "ivf_search": ("squidpy_torch/csrc/ivf_search.cu", "squidpy_tpu/ops/ivf_knn.py:251"),
     "ivf_refine": ("squidpy_torch/csrc/ivf_refine.cu", "squidpy_tpu/ops/ivf_knn.py:312"),
     "cooccur_pairs": ("squidpy_torch/csrc/cooccur_pairs.cu", "squidpy_tpu/ops/cooccur.py:133"),
+    "glcm": ("squidpy_torch/csrc/glcm.cu", "squidpy_tpu/ops/features.py:218"),
+    "crop_summary": ("squidpy_torch/csrc/crop_summary.cu", "squidpy_tpu/ops/features.py:149"),
+    "crop_histogram": ("squidpy_torch/csrc/crop_histogram.cu", "squidpy_tpu/ops/features.py:182"),
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -152,6 +157,9 @@ _SIGNATURES = {
     "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "sqt_cooccur_pairs": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _L, _P, _P],
     "sqt_cooccur_pairs_index": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sqt_glcm": [_P, _I, _I, _P, _I, _I, _L, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "sqt_crop_summary": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "sqt_crop_histogram": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

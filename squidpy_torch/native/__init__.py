@@ -1,13 +1,15 @@
-"""Host C++ for the niche clustering: Leiden, Louvain and the kNN symmetrisation
+"""Host C++ for the niche clustering (Leiden, Louvain, the kNN symmetrisation)
+and the image segmentation (the watershed and the tiles' label merge)
 (counterpart of ``squidpy_tpu/native/__init__.py``).
 
-``louvain.cpp`` and ``knngraph.cpp`` are copies of the JAX package's sources,
+``louvain.cpp``, ``knngraph.cpp`` and ``watershed.cpp`` are copies of the JAX package's sources,
 built here with the same ``g++`` flags (``-O3 -march=native -shared -fPIC
 -std=c++17``) at first use, into ``squidpy_torch/_build/`` under a name keyed
 by a hash of the sources and flags, and loaded with ``ctypes``. In ISO C++
 mode g++ contracts no multiply-add into an FMA, so one CSR gives the same
-labels as the JAX package's library. The wrappers take the JAX package's
-signatures.
+labels, and one elevation map the same watershed, as the JAX package's
+library. The wrappers take the JAX package's signatures; ``felzenszwalb``
+comes with the ``experimental`` slice.
 """
 
 from __future__ import annotations
@@ -23,11 +25,11 @@ from typing import Any
 import numpy as np
 from scipy import sparse as sp
 
-__all__ = ["ensure_built", "leiden_csr", "louvain_csr", "symmetrize_knn"]
+__all__ = ["ensure_built", "leiden_csr", "louvain_csr", "relabel_merge", "symmetrize_knn", "watershed"]
 
 _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE.parent / "_build"
-_SRCS = (_HERE / "louvain.cpp", _HERE / "knngraph.cpp")
+_SRCS = (_HERE / "louvain.cpp", _HERE / "knngraph.cpp", _HERE / "watershed.cpp")
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _LIB: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -71,6 +73,11 @@ def _lib() -> ctypes.CDLL:
             lib.symmetrize_knn.argtypes = [p(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64, p(ctypes.c_int64),
                                            p(ctypes.c_int32)]
             lib.symmetrize_knn.restype = ctypes.c_int64
+            lib.watershed.argtypes = [p(ctypes.c_float), p(ctypes.c_int32), p(ctypes.c_uint8), ctypes.c_int64,
+                                      ctypes.c_int64, p(ctypes.c_int32)]
+            lib.watershed.restype = None
+            lib.relabel_merge.argtypes = [p(ctypes.c_int64), ctypes.c_int64, p(ctypes.c_int64), ctypes.c_int64]
+            lib.relabel_merge.restype = ctypes.c_int64
             _LIB = lib
     return _LIB
 
@@ -131,3 +138,35 @@ def symmetrize_knn(idx: np.ndarray, n: int | None = None) -> sp.csr_matrix:
     if nnz < 0:
         raise ValueError("symmetrize_knn: bad arguments")
     return sp.csr_matrix((np.ones(nnz, dtype=np.float64), indices[:nnz], indptr), shape=(n, n))
+
+
+def watershed(image: np.ndarray, markers: np.ndarray, mask: np.ndarray | None = None) -> np.ndarray:
+    """Priority-flood watershed (4-connectivity, FIFO tie-break).
+
+    ``image`` is the elevation map (flooding ascends), ``markers`` the int
+    seed labels, ``mask`` an optional boolean region restriction.
+    """
+    image = np.ascontiguousarray(image, dtype=np.float32)
+    markers = np.ascontiguousarray(markers, dtype=np.int32)
+    if image.shape != markers.shape or image.ndim != 2:
+        raise ValueError(f"Expected matching 2D image/markers, found `{image.shape}`, `{markers.shape}`.")
+    h, w = image.shape
+    out = np.zeros((h, w), dtype=np.int32)
+    mask_ptr = None
+    if mask is not None:
+        mask = np.ascontiguousarray(mask, dtype=np.uint8)
+        if mask.shape != image.shape:
+            raise ValueError("Mask shape must match image shape.")
+        mask_ptr = _ptr(mask, ctypes.c_uint8)
+    _lib().watershed(_ptr(image, ctypes.c_float), _ptr(markers, ctypes.c_int32), mask_ptr, h, w,
+                     _ptr(out, ctypes.c_int32))
+    return out
+
+
+def relabel_merge(labels: np.ndarray, pairs: np.ndarray) -> tuple[np.ndarray, int]:
+    """Merge equivalent labels (union-find) and relabel to consecutive ids:
+    the tiles' labels of a tiled segmentation reconciled across their halos."""
+    labels = np.ascontiguousarray(labels, dtype=np.int64).copy()
+    pairs = np.ascontiguousarray(np.asarray(pairs, dtype=np.int64).reshape(-1, 2))
+    n_out = _lib().relabel_merge(_ptr(labels, ctypes.c_int64), labels.size, _ptr(pairs, ctypes.c_int64), len(pairs))
+    return labels, int(n_out)

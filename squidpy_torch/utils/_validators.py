@@ -5,7 +5,7 @@ from __future__ import annotations
 from collections.abc import Sequence
 from typing import Any
 
-__all__ = ["check_tuple_needles"]
+__all__ = ["assert_in_range", "assert_non_negative", "check_tuple_needles"]
 
 
 def check_tuple_needles(
@@ -25,3 +25,13 @@ def check_tuple_needles(
             continue
         filtered.append((a, b))
     return filtered
+
+
+def assert_non_negative(value: float, *, name: str) -> None:
+    if value < 0:
+        raise ValueError(f"Expected `{name}` to be non-negative, found `{value}`.")
+
+
+def assert_in_range(value: float, minn: float, maxx: float, *, name: str) -> None:
+    if not (minn <= value <= maxx):
+        raise ValueError(f"Expected `{name}` to be in interval `[{minn}, {maxx}]`, found `{value}`.")

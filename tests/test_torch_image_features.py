@@ -1,0 +1,453 @@
+"""squidpy_torch's image features (K18-K20's plain versions and
+``im.calculate_image_features``) against squidpy_tpu's on the same inputs.
+
+Tolerances, each derived from how JAX computes the value:
+
+- Counts (``graycomatrix``, ``glcm_batch``, both histogram rules) and
+  quantiles (both rules): bitwise. The port's quantile weights and its fused
+  interpolation (``fma(v_lo, w_lo, v_hi w_hi)`` batched,
+  ``fma(v_hi, w_hi, v_lo w_lo)`` per crop) and ``jnp.linspace``'s edges
+  reproduce XLA:CPU's rounding, which the tests here pin.
+- GLCM props: JAX sums 65,536 float32 terms of the normalised matrix; the
+  port divides exact integer sums in float64. Contrast, dissimilarity,
+  homogeneity and ASM sum non-negative terms: |port - JAX| <= 1e-5 * the
+  value (PERF.md section 2's 1e-5 of the sum of |terms|); energy is the
+  square root of ASM, so the same. Correlation divides centred sums, whose
+  terms cancel: JAX's float32 error scales with the uncentred magnitude, so
+  the bound is 1e-5 * (E|ij| + |mean_i mean_j|) / (std_i std_j).
+- Mean and std: JAX reduces in float32, the port in float64: |port - JAX|
+  <= 1e-5 * mean|x| for the mean and 1e-5 * (mean|x| + std) for the std.
+- Frames: quantile, histogram and segmentation columns exactly; mean, std
+  and texture columns within rtol = atol = 1e-5 (the bounds above at these
+  crops' values), correlation within 1e-4 (the bound above: E|ij| / (std_i
+  std_j) stays below 10 on uniform uint8 crops).
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import squidpy_torch as sqt
+import squidpy_tpu as sq
+from squidpy_torch.ops import features as tf
+from squidpy_tpu.ops import features as jf
+
+torch.set_num_threads(1)
+ROOT = Path(sqt.__file__).resolve().parent.parent
+ANGLES = [0, np.pi / 4, np.pi / 2, 3 * np.pi / 4]
+PROPS = ("contrast", "dissimilarity", "homogeneity", "ASM", "energy", "correlation")
+SUM_TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    with sqt.set_device("cpu"):
+        yield
+
+
+def _exact_stats(images: np.ndarray, dr: int, dc: int, levels: int, symmetric: bool = False,
+                 ignore: int | None = None) -> dict[str, np.ndarray]:
+    """Means, stds and E|ij| of each crop's normalised GLCM, from numpy."""
+    out = {k: [] for k in ("mi", "mj", "si", "sj", "eij")}
+    for img in images.astype(np.int64):
+        h, w = img.shape
+        y0, y1, x0, x1 = max(0, -dr), min(h, h - dr), max(0, -dc), min(w, w - dc)
+        i = img[y0:y1, x0:x1].ravel()
+        j = img[y0 + dr : y1 + dr, x0 + dc : x1 + dc].ravel()
+        if ignore is not None:
+            keep = (i != ignore) & (j != ignore)
+            i, j = i[keep], j[keep]
+        if symmetric:
+            i, j = np.r_[i, j], np.r_[j, i]
+        if not len(i):  # no pair: both give JAX's empty-matrix props
+            i = j = np.zeros(1, np.int64)
+        for k, v in zip(("mi", "mj", "si", "sj", "eij"), (i.mean(), j.mean(), i.std(), j.std(), (i * j).mean())):
+            out[k].append(v)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _assert_props_close(got: np.ndarray, want: np.ndarray, stats: dict[str, np.ndarray]) -> None:
+    """``got``/``want`` (n, 6) in PROPS order; the module docstring's bounds."""
+    for p in range(5):
+        tol = SUM_TOL * np.abs(got[:, p]) + 1e-300
+        bad = np.abs(got[:, p] - want[:, p]) > tol
+        assert not bad.any(), (PROPS[p], got[bad, p], want[bad, p])
+    denom = stats["si"] * stats["sj"]
+    scale = np.where(denom > 0, (np.abs(stats["eij"]) + np.abs(stats["mi"] * stats["mj"])) / np.where(denom > 0, denom, 1),
+                     0.0)
+    bad = np.abs(got[:, 5] - want[:, 5]) > SUM_TOL * scale
+    assert not bad.any(), ("correlation", got[bad, 5], want[bad, 5])
+
+
+def _crops(kind: str, n: int, h: int, w: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.integers(0, 256, (n, h, w), dtype=np.uint8)
+    if kind == "smooth":  # tissue-like: a ramp plus noise, few levels a crop
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = (yy[None] * 3 + xx[None] * 2 + rng.integers(0, 80, (n, 1, 1))) % 200
+        return (base + rng.integers(0, 12, (n, h, w))).astype(np.uint8)
+    return np.full((n, h, w), 91, dtype=np.uint8)  # constant
+
+
+# ------------------------------------------------------------------- K18
+
+
+@pytest.mark.parametrize("kind", ["uniform", "smooth", "constant"])
+@pytest.mark.parametrize("shape", [(9, 9), (17, 12), (33, 33)])
+def test_glcm_counts_bitwise(kind, shape):
+    imgs = _crops(kind, 6, *shape, seed=sum(shape))
+    got = tf.glcm_batch(imgs, [1, 2], ANGLES)
+    want = jf.glcm_batch(imgs, [1, 2], ANGLES)
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("normed", [False, True])
+def test_graycomatrix_bitwise(symmetric, normed):
+    img = _crops("smooth", 1, 21, 19, seed=3)[0]
+    got = tf.graycomatrix(img, [1, 2], ANGLES, symmetric=symmetric, normed=normed)
+    want = jf.graycomatrix(img, [1, 2], ANGLES, symmetric=symmetric, normed=normed)
+    assert np.array_equal(got, want)
+    # the per-crop texture reads these counts through the copied host graycoprops
+    for p in PROPS:
+        assert np.array_equal(tf.graycoprops(got, p), jf.graycoprops(want, p))
+
+
+def test_graycomatrix_past_256_levels_on_the_cpu():
+    """int32 images of more than 256 levels (no uint8 cast): the plain
+    version counts them as JAX does; K18 takes uint8 crops only."""
+    img = np.random.default_rng(5).integers(0, 300, (11, 13)).astype(np.int32)
+    assert np.array_equal(tf.graycomatrix(img, [1, 3], ANGLES, levels=300), jf.graycomatrix(img, [1, 3], ANGLES, levels=300))
+
+
+def test_graycomatrix_levels_and_dtype_checks():
+    img = np.arange(40, dtype=np.int32).reshape(5, 8)
+    assert np.array_equal(tf.graycomatrix(img, [1], [0], levels=40), jf.graycomatrix(img, [1], [0], levels=40))
+    with pytest.raises(ValueError, match="must be smaller than"):
+        tf.graycomatrix(img, [1], [0], levels=39)
+    with pytest.raises(ValueError, match="invalid property"):
+        tf.glcm_props_batch(img[None].astype(np.uint8), [1], [0], ("mean",), levels=40)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "smooth", "constant"])
+@pytest.mark.parametrize("distance", [1, 2])
+@pytest.mark.parametrize("shape", [(9, 9), (33, 28)])
+def test_glcm_props_batch_against_jax(kind, distance, shape):
+    imgs = _crops(kind, 8, *shape, seed=distance * 7 + shape[0])
+    got = tf.glcm_props_batch(imgs, [distance], ANGLES, PROPS)
+    want = jf.glcm_props_batch(imgs, [distance], ANGLES, PROPS)
+    assert got.shape == want.shape == (8, 1, 4, 6)
+    for a, (dr, dc) in enumerate(tf._offsets([distance], ANGLES)):
+        _assert_props_close(got[:, 0, a], want[:, 0, a], _exact_stats(imgs, dr, dc, 256))
+    if kind == "constant":
+        assert np.array_equal(got, want)  # a single cell: every prop exact in both
+
+
+@pytest.mark.parametrize("offset", [(0, 1), (1, 1), (1, -1), (2, 0)])
+def test_glcm_symmetric_ignore_level_against_jax(offset):
+    """``per_cell_texture_batch``'s call: 33 levels, the sentinel 32 ignored, symmetric."""
+    rng = np.random.default_rng(sum(offset) + 5)
+    q = rng.integers(0, 33, (10, 14, 15)).astype(np.int32)
+    q[:, :3, :] = 32  # padding rows of a ragged bbox
+    q[0] = 32  # a crop of sentinels only: no pair
+    got = tf.glcm_props(torch.from_numpy(q)[..., None], [0], [offset], 33, symmetric=True, ignore_level=32)[:, 0, 0]
+    want = np.asarray(jf._glcm_props_kernel(jnp.asarray(q), *offset, 33, PROPS, ignore_level=32, symmetric=True))
+    _assert_props_close(got.numpy(), want.astype(np.float64), _exact_stats(q, *offset, 33, True, 32))
+    assert np.array_equal(got[0].numpy(), [0, 0, 0, 0, 0, 1])  # JAX's empty matrix: correlation 1
+
+
+def test_glcm_props_from_integers_bitwise_counts():
+    """The plain version's sums against the counts matrix: sum c^2 over P + P^T
+    and the |i - j| histogram."""
+    imgs = _crops("smooth", 4, 13, 11, seed=9)
+    t = torch.from_numpy(imgs).to(torch.int64)
+    for sym in (False, True):
+        sums, hist = tf._glcm_sums_plain(t, 1, -1, 256, sym, None)
+        P = jf.glcm_batch(imgs, [1], [3 * np.pi / 4])[..., 0, 0]
+        if sym:
+            P = P + np.transpose(P, (0, 2, 1))
+        assert np.array_equal(sums[:, 8].numpy(), (P.astype(np.int64) ** 2).sum(axis=(1, 2)))
+        assert hist.sum(1).tolist() == sums[:, 0].tolist()
+
+
+def test_k18_route_rule():
+    offs = tf._offsets([1], ANGLES)
+    assert tf.k18_packed(89, 89, offs, False) and tf.k18_packed(177, 177, offs, False)
+    assert not tf.k18_packed(300, 300, offs, False)  # 89,700 pairs an offset
+    assert tf.k18_packed(255, 257, offs, False)  # 65,280 pairs at most
+    assert not tf.k18_packed(256, 257, offs, False)  # 65,536 at angle 0
+    assert not tf.k18_packed(200, 200, offs, True)  # symmetric: the diagonal counts 2 a pair
+
+
+# ------------------------------------------------------------------- K19
+
+
+@pytest.mark.parametrize("data", ["uint8", "float", "ties"])
+@pytest.mark.parametrize("quantiles", [(0.9, 0.5, 0.1), (0.0, 0.33, 1.0, 0.75)])
+def test_summary_batch_against_jax(data, quantiles):
+    rng = np.random.default_rng(len(quantiles))
+    if data == "uint8":
+        crops = rng.integers(0, 256, (25, 11, 13, 3)).astype(np.uint8)
+    elif data == "float":
+        crops = rng.normal(40, 25, (25, 11, 13, 3)).astype(np.float32)
+    else:
+        crops = rng.integers(0, 4, (25, 11, 13, 3)).astype(np.float32) / np.float32(3)
+    got, want = tf.summary_features_batch(crops, quantiles), jf.summary_features_batch(crops, quantiles)
+    assert np.array_equal(got["quantiles"], want["quantiles"])
+    x = np.abs(crops.reshape(25, -1, 3).astype(np.float64))
+    assert np.all(np.abs(got["mean"] - want["mean"]) <= SUM_TOL * x.mean(1))
+    assert np.all(np.abs(got["std"] - want["std"]) <= SUM_TOL * (x.mean(1) + want["std"]))
+
+
+def test_summary_batch_nan_sorts_last():
+    crops = np.random.default_rng(1).uniform(0, 1, (4, 6, 6, 2)).astype(np.float32)
+    crops[0, 0, 0, 0] = np.nan
+    crops[1, :3, :, 1] = np.nan
+    got, want = tf.summary_features_batch(crops, (0.9, 0.5, 0.1)), jf.summary_features_batch(crops, (0.9, 0.5, 0.1))
+    np.testing.assert_array_equal(got["quantiles"], want["quantiles"])  # NaN where JAX has NaN
+    assert np.isnan(got["mean"][0, 0]) and np.isnan(got["std"][1, 1])
+
+
+@pytest.mark.parametrize("size", [1, 2, 9, 97, 1000])
+def test_summary_per_crop_against_jnp_quantile(size):
+    rng = np.random.default_rng(size)
+    for arr in (rng.uniform(-5, 300, size).astype(np.float32), rng.integers(0, 256, size).astype(np.uint8)):
+        q = (0.9, 0.5, 0.1, 0.01, 0.999)
+        got, want = tf.summary_features(arr, q), jf.summary_features(arr, q)
+        assert np.array_equal(got["quantiles"], want["quantiles"])
+        x = np.abs(arr.astype(np.float64))
+        assert abs(got["mean"] - want["mean"]) <= SUM_TOL * x.mean()
+        assert abs(got["std"] - want["std"]) <= SUM_TOL * (x.mean() + want["std"])
+    nan = rng.uniform(0, 1, size).astype(np.float32)
+    nan[size // 2] = np.nan
+    got, want = tf.summary_features(nan, (0.5, 0.1)), jf.summary_features(nan, (0.5, 0.1))
+    np.testing.assert_array_equal(got["quantiles"], want["quantiles"])  # all NaN, as jnp.quantile gives
+
+
+def test_fma32_rounds_once():
+    """The plain versions' fused multiply-add against exact rational arithmetic."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.uniform(-1, 1, 4000).astype(np.float32) * np.float32(2.0) ** rng.integers(-20, 20, 4000)
+               for _ in range(3))
+    got = tf._fma32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    for k in range(0, 4000, 7):
+        exact = Fraction(float(a[k])) * Fraction(float(b[k])) + Fraction(float(c[k]))
+        lo = np.float32(float(exact))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)), np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact), int(np.float32(v).view(np.int32)) & 1))
+        assert got[k] == best, (a[k], b[k], c[k])
+
+
+# ------------------------------------------------------------------- K20
+
+
+@pytest.mark.parametrize("v_range", [None, (0.0, 1.0), (0.2, 0.7), (0.5, 0.5), (0.9, 0.1)])
+@pytest.mark.parametrize("bins", [1, 7, 10, 16])
+def test_histogram_batch_against_jax(v_range, bins):
+    rng = np.random.default_rng(bins)
+    crops = rng.uniform(-0.1, 1.1, (12, 9, 10, 3)).astype(np.float32)
+    crops[3] = np.float32(0.5)  # a constant crop: span 1
+    got, want = tf.histogram_features_batch(crops, bins, v_range), jf.histogram_features_batch(crops, bins, v_range)
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_histogram_batch_uint8_and_nan():
+    rng = np.random.default_rng(2)
+    crops = rng.integers(0, 256, (10, 12, 12, 3)).astype(np.uint8)
+    assert np.array_equal(tf.histogram_features_batch(crops, 10, None), jf.histogram_features_batch(crops, 10, None))
+    f = crops.astype(np.float32)
+    f[2, 0, 0, 1] = np.nan  # the crop's range is NaN: it counts nothing
+    for vr in (None, (10, 200)):
+        assert np.array_equal(tf.histogram_features_batch(f, 10, vr), jf.histogram_features_batch(f, 10, vr))
+
+
+@pytest.mark.parametrize("bins", [1, 2, 3, 7, 10, 16, 33, 34, 64, 100])
+def test_histogram_edges_against_jnp_linspace(bins):
+    rng = np.random.default_rng(bins)
+    lo = np.r_[rng.uniform(-100, 100, 300), rng.integers(0, 255, 200)].astype(np.float32)
+    hi = (lo + np.r_[rng.uniform(0.001, 300, 300), rng.integers(1, 255, 200)]).astype(np.float32)
+    lo[:5] = hi[:5]  # an empty range: lo - 0.5 .. hi + 0.5
+    got = tf.histogram_edges(torch.from_numpy(lo), torch.from_numpy(hi), bins).numpy()
+    want = np.stack([np.asarray(jnp.histogram_bin_edges(jnp.zeros(1, jnp.float32), bins, (a, b)))
+                     for a, b in zip(lo, hi)])
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("data", ["uint8", "float"])
+@pytest.mark.parametrize("bins", [3, 10, 16])
+def test_histogram_per_crop_against_jnp_histogram(data, bins):
+    rng = np.random.default_rng(bins)
+    for t in range(12):
+        arr = rng.integers(0, 256, (9, 11)).astype(np.uint8) if data == "uint8" else \
+            rng.uniform(-2, 9, (9, 11)).astype(np.float32)
+        for vr in ((float(arr.min()), float(arr.max())), (20.0, 100.0), (3.0, 3.0)):
+            got, want = tf.histogram_features(arr, bins, vr), jf.histogram_features(arr, bins, vr)
+            assert got.dtype == want.dtype and np.array_equal(got, want), (t, vr)
+    arr = rng.uniform(0, 1, 50).astype(np.float32)
+    arr[7] = np.nan
+    assert np.array_equal(tf.histogram_features(arr, 10, (0.0, 1.0)), jf.histogram_features(arr, 10, (0.0, 1.0)))
+
+
+# ---------------------------------------------------------- the slice
+
+
+def _section(pkg, n: int = 40, size: int = 160, seed: int = 0, dtype=np.uint8, diameter: float = 15.0):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (size, size, 3)).astype(dtype)
+    if dtype != np.uint8:
+        img = img / dtype(255.0)
+    adata = pkg.AnnData(X=np.zeros((n, 1)), obs=pd.DataFrame(index=[f"spot{i}" for i in range(n)]))
+    adata.obsm["spatial"] = rng.uniform(5, size - 5, (n, 2))  # spots near the border: padded crops
+    adata.uns["spatial"] = {"lib": {"scalefactors": {"spot_diameter_fullres": diameter}}}
+    return adata, pkg.im.ImageContainer(img, layer="image")
+
+
+def _assert_frames_close(got: pd.DataFrame, want: pd.DataFrame) -> None:
+    assert list(got.columns) == list(want.columns) and list(got.index) == list(want.index)
+    for col in want.columns:
+        g, w = got[col].to_numpy(), want[col].to_numpy()
+        if "texture" in col or col.endswith(("_mean", "_std")):
+            rel = 1e-4 if "correlation" in col else SUM_TOL  # texture columns: float32 props of JAX
+            assert np.allclose(g.astype(np.float64), w.astype(np.float64), rtol=rel, atol=rel, equal_nan=True), col
+        else:
+            assert np.array_equal(g.astype(np.float64), w.astype(np.float64), equal_nan=True), col
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"spot_scale": 2}, {"features_kwargs": {
+    "summary": {"quantiles": (0.25, 0.75), "channels": [0, 2]}, "histogram": {"bins": 5, "v_range": (50, 200)},
+    "texture": {"props": ("energy", "contrast"), "distances": (1, 2), "angles": (0, np.pi / 2)}}}],
+    ids=["defaults", "spot_scale", "features_kwargs"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_calculate_image_features_batched(kwargs, dtype):
+    """Equal crops take the batched path: one K19, K20 and K18 launch."""
+    frames = []
+    for pkg in (sqt, sq):
+        adata, img = _section(pkg, dtype=dtype)
+        assert pkg.im.calculate_image_features(adata, img, features=["summary", "histogram", "texture"], **kwargs) \
+            is None
+        frames.append(adata.obsm["img_features"])
+    _assert_frames_close(*frames)
+
+
+def test_calculate_image_features_per_crop_with_segmentation():
+    """``segmentation`` (and ``custom``) take the per-crop path: K19 and K20
+    by ``jnp.quantile``'s and ``jnp.histogram``'s rules, K18's counts entry."""
+    frames = []
+    for pkg in (sqt, sq):
+        adata, img = _section(pkg, n=12, size=120, seed=4)
+        img.add_img(_blobs(120), layer="segmented")
+        frames.append(pkg.im.calculate_image_features(
+            adata, img, layer="image", features=["summary", "histogram", "texture", "segmentation", "custom"],
+            features_kwargs={"segmentation": {"label_layer": "segmented",
+                                              "props": ("label", "area", "centroid", "mean_intensity")},
+                             "custom": {"func": lambda a: float(a.mean())}},
+            copy=True))
+    got, want = frames
+    assert list(got.columns) == list(want.columns)
+    for col in want.columns:
+        if col == "segmentation_centroid":
+            for g, w in zip(got[col], want[col]):
+                assert np.array_equal(g, w)
+        elif "mean_intensity" in col:
+            assert np.allclose(got[col].astype(float), want[col].astype(float), rtol=SUM_TOL, atol=0, equal_nan=True), col
+        elif col.startswith("texture") or col.endswith(("_mean", "_std")):
+            _assert_frames_close(got[[col]], want[[col]])
+        else:
+            assert np.array_equal(got[col].to_numpy(np.float64), want[col].to_numpy(np.float64), equal_nan=True), col
+
+
+def _blobs(size: int) -> np.ndarray:
+    """A label image of a few square cells."""
+    lab = np.zeros((size, size), dtype=np.uint32)
+    for k, (y, x) in enumerate([(10, 10), (30, 60), (70, 20), (90, 90), (50, 45)], start=1):
+        lab[y : y + 12, x : x + 9] = k
+    return lab
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_calculate_image_features_ragged_crops(dtype):
+    """Two libraries with other spot diameters give crops of two sizes: the
+    per-crop path (float crops through ``_img_as_ubyte`` for the texture)."""
+    frames = []
+    for pkg in (sqt, sq):
+        rng = np.random.default_rng(7)
+        pixels = rng.integers(0, 256, (100, 100, 2, 3)).astype(np.uint8)
+        if dtype == np.float32:
+            pixels = pixels.astype(np.float32) / np.float32(255)
+        img = pkg.im.ImageContainer(pixels, layer="image", library_id=["a", "b"])
+        n = 16
+        lib = np.where(np.arange(n) < 8, "a", "b")
+        adata = pkg.AnnData(X=np.zeros((n, 1)), obs=pd.DataFrame({"lib": pd.Categorical(lib)},
+                                                                  index=[f"s{i}" for i in range(n)]))
+        adata.obsm["spatial"] = rng.uniform(10, 90, (n, 2))
+        adata.uns["spatial"] = {"a": {"scalefactors": {"spot_diameter_fullres": 11.0}},
+                                "b": {"scalefactors": {"spot_diameter_fullres": 17.0}}}
+        frames.append(pkg.im.calculate_image_features(adata, img, library_id="lib",
+                                                      features=["summary", "histogram", "texture"], copy=True))
+    _assert_frames_close(*frames)
+
+
+_NO_PANDAS = textwrap.dedent(
+    """
+    import sys
+    for name in ("pandas", "jax", "squidpy_tpu", "PIL", "h5py"):
+        sys.modules[name] = None
+    import numpy as np, torch
+    torch.set_num_threads(1)
+    import squidpy_torch as sqt
+    sqt.set_device("cpu")
+    data = np.load(sys.argv[1])
+
+    class StandIn:
+        def __init__(self, coords):
+            self.obs, self.obsm = {}, {"spatial": coords}
+            self.uns = {"spatial": {"lib": {"scalefactors": {"spot_diameter_fullres": 15.0}}}}
+
+    out = {}
+    for path in ("batched", "per_crop"):
+        adata = StandIn(data["coords"])
+        img = sqt.im.ImageContainer(data["img"], layer="image")
+        feats = ["summary", "histogram", "texture"] + (["custom"] if path == "per_crop" else [])
+        sqt.im.calculate_image_features(adata, img, features=feats,
+                                        features_kwargs={"custom": {"func": np.mean}})
+        res = adata.obsm["img_features"]
+        assert type(res).__name__ == "Columns" and list(res.index) == list(range(len(data["coords"])))
+        for k, v in res.columns.items():
+            out[f"{path}|{k}"] = np.asarray(v, dtype=np.float64)
+    assert sys.modules.get("pandas") is None
+    np.savez(sys.argv[2], names=np.asarray(list(out)), **{f"c{i}": v for i, v in enumerate(out.values())})
+    print("OK")
+    """
+)
+
+
+def test_calculate_image_features_without_pandas(tmp_path):
+    """With pandas blocked, both paths give a Columns: JAX's columns, order and values."""
+    adata, img = _section(sq, n=20)
+    np.savez(tmp_path / "in.npz", coords=adata.obsm["spatial"], img=img["image"][:, :, 0, :])
+    proc = subprocess.run([sys.executable, "-c", _NO_PANDAS, str(tmp_path / "in.npz"), str(tmp_path / "out.npz")],
+                          capture_output=True, text=True, timeout=300, cwd=str(ROOT), check=False)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+    res = np.load(tmp_path / "out.npz")
+    names = list(res["names"])
+    for path in ("batched", "per_crop"):
+        feats = ["summary", "histogram", "texture"] + (["custom"] if path == "per_crop" else [])
+        adata, img = _section(sq, n=20)
+        want = sq.im.calculate_image_features(adata, img, features=feats,
+                                              features_kwargs={"custom": {"func": np.mean}}, copy=True)
+        cols = [n.split("|", 1)[1] for n in names if n.startswith(f"{path}|")]
+        assert cols == list(want.columns)
+        got = pd.DataFrame({c: res[f"c{names.index(f'{path}|{c}')}"] for c in cols}, index=want.index)
+        _assert_frames_close(got, want.astype(np.float64))

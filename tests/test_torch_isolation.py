@@ -1,4 +1,5 @@
-"""squidpy_torch stands alone: no jax, squidpy_tpu, pandas or sklearn, and an explicit device."""
+"""squidpy_torch stands alone: no jax, squidpy_tpu, pandas, sklearn, h5py, PIL or matplotlib, and an
+explicit device."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ PKG = Path(sqt.__file__).resolve().parent
 _SLICE = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "jaxlib", "pandas", "sklearn", "squidpy_tpu", "h5py", "PIL"):
+    for name in ("jax", "jaxlib", "pandas", "sklearn", "squidpy_tpu", "h5py", "PIL", "matplotlib"):
         sys.modules[name] = None  # any import of them raises ImportError
     import numpy as np, torch
     torch.set_num_threads(1)
@@ -93,6 +94,19 @@ _SLICE = textwrap.dedent(
     assert set(adata.obs["sliding_window_assignment"]) == {f"window_{i}" for i in range(25)}
     windows = sqt.tl.sliding_window(adata, window_size=100, overlap=40, copy=True)
     assert all(c.dtype == bool for k, c in windows.columns.items() if k.startswith("sliding_window_assignment_"))
+    img = rng.integers(0, 256, (120, 140, 3)).astype(np.uint8)
+    cont = sqt.im.ImageContainer(img)
+    sqt.im.process(cont, method="smooth", sigma=1.5)
+    sqt.im.process(cont, layer="image", method="gray")
+    sqt.im.segment(cont, layer="image_gray", method="watershed", thresh=0.5)
+    spots = StandIn(rng.uniform(10, 110, (20, 2)), np.zeros(20, np.int32), 1, np.zeros((20, 1)))
+    spots.uns["spatial"] = {"lib": {"scalefactors": {"spot_diameter_fullres": 17.0}}}
+    sqt.im.calculate_image_features(spots, cont, layer="image", features=["summary", "histogram", "texture"])
+    sqt.im.calculate_image_features(spots, cont, layer="image", features=["summary", "segmentation"], key_added="seg",
+                                    features_kwargs={"segmentation": {"label_layer": "segmented_watershed"}})
+    batched, per_crop = spots.obsm["img_features"], spots.obsm["seg"]
+    assert len(batched.columns) == 3 * (5 + 10 + 20) and len(batched.index) == 20
+    assert "segmentation_label" in per_crop.columns and np.isfinite(per_crop.columns["summary_ch-0_mean"]).all()
     import squidpy_torch.read
     from squidpy_torch.im import _zarr
     for call in (sqt.AnnData, lambda: squidpy_torch.read.read_10x_mtx("."), lambda: sqt.read_h5ad("x.h5ad")):
@@ -102,7 +116,8 @@ _SLICE = textwrap.dedent(
             assert "`pandas`" in str(err) or "`h5py`" in str(err), err
         else:
             raise AssertionError("a container or reader ran without pandas or h5py")
-    leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu", "h5py", "PIL") if sys.modules.get(m) is not None]
+    leaked = [m for m in ("jax", "pandas", "sklearn", "squidpy_tpu", "h5py", "PIL", "matplotlib")
+              if sys.modules.get(m) is not None]
     assert not leaked, leaked
     print("SLICE OK")
     """
@@ -130,7 +145,8 @@ def _module_level_imports(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
 def test_no_module_level_import_of_jax_pandas_sklearn(path):
-    assert not _module_level_imports(path) & {"jax", "jaxlib", "squidpy_tpu", "pandas", "sklearn", "h5py", "PIL"}
+    assert not _module_level_imports(path) & {"jax", "jaxlib", "squidpy_tpu", "pandas", "sklearn", "h5py", "PIL",
+                                              "matplotlib"}
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

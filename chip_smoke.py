@@ -312,6 +312,12 @@ Phases (any failure exits non-zero; no error is caught and passed over):
 Prints one JSON line of kernels (``plain_input`` names the share of the
 input that ``plain_ms`` was taken on, null where the check does not say), the ``nvidia-smi`` name/power line, and as its
 last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --turns OTHER_TREE . [--order 0110]
+
+times K18, K19 and K20 of two checkouts of this repository in turns on one
+card instead (``image_turns``): each checkout's ``squidpy_torch`` in a
+process of its own, on the crops of part i's slide.
 """
 
 from __future__ import annotations
@@ -3716,23 +3722,24 @@ def check_glcm(name: str, imgs, channels, offsets, levels: int = 256, symmetric:
         kernel = lambda: F._glcm_k18(imgs, channels, offsets, levels, symmetric, ignore_level, counts=False)  # noqa: E731
         plain = lambda: F._glcm_props_batched_plain(imgs, channels, offsets, levels, symmetric,  # noqa: E731
                                                     ignore_level)
-    route = "packed" if F.k18_packed(h, w, offsets, symmetric) else "global"
-    return _compare(f"glcm {name} n={n} {h}x{w} ch={len(channels)} off={len(offsets)} L={levels} "
-                    f"sym={symmetric} ignore={ignore_level} {'counts' if counts else 'props'} route={route}",
-                    kernel, plain, repeats=3, bound=bound, plain_warm=plain_warm)
+    route = F.k18_route(h, w, offsets, symmetric, levels, F._k18_images(imgs[:1], levels).dtype)
+    return _compare(f"glcm {name} n={n} {h}x{w} {str(imgs.dtype)[6:]} ch={len(channels)} off={len(offsets)} "
+                    f"L={levels} sym={symmetric} ignore={ignore_level} {'counts' if counts else 'props'} "
+                    f"route={route}", kernel, plain, repeats=3, bound=bound, plain_warm=plain_warm)
 
 
-def check_crop_summary(name: str, x, rule: int = 0, plain_warm: bool = False) -> dict:
+def check_crop_summary(name: str, x, rule: int = 0, plain_warm: bool = False, quantiles=IMG_QUANTILES) -> dict:
     """K19 against its plain version: quantiles, mean and std bitwise (the
     values are integers, so the double sums are exact); beside it
     ``torch.sort`` of the (crops x channels, pixels) matrix and the same
     gathers."""
     import torch
 
+    from squidpy_torch import _cuda
     from squidpy_torch.ops import features as F
 
     n, p, c = x.shape
-    table = F.quantile_table(IMG_QUANTILES, p, rule)
+    table = F.quantile_table(tuple(quantiles), p, rule)
 
     def flat(out):
         return torch.cat([t.reshape(-1) for t in out])
@@ -3744,9 +3751,11 @@ def check_crop_summary(name: str, x, rule: int = 0, plain_warm: bool = False) ->
         s = torch.sort(x.permute(0, 2, 1).reshape(n * c, p), dim=1).values
         return s[:, lo] * wlo + s[:, hi] * whi
 
-    bound = _bound(n * p * c * 4 + n * c * (len(IMG_QUANTILES) + 2) * 4, 4.0 * n * p * c)
-    return _compare(f"crop_summary {name} n={n} p={p} c={c} rule={rule} "
-                    f"route={'shared' if p <= F.SMEM_KEYS else 'global'}",
+    ranks = F._k19_ranks(table)[0]
+    route, threads, blocks, _ = F._k19_layout(n * c, p, len(ranks), *_cuda.device_info())
+    bound = _bound(n * p * c * 4 + n * c * (len(quantiles) + 2) * 4, 4.0 * n * p * c)
+    return _compare(f"crop_summary {name} n={n} p={p} c={c} q={len(quantiles)} ranks={len(ranks)} rule={rule} "
+                    f"route={route} threads={threads} blocks={blocks}",
                     lambda: flat(F._summary_k19(x, table, rule)), lambda: flat(F._summary_plain(x, table, rule)),
                     repeats=3, bound=bound, plain_warm=plain_warm, library=library)
 
@@ -3761,9 +3770,152 @@ def check_crop_histogram(name: str, x, bins: int, v_range, rule: int = 0) -> dic
     lo = torch.full((n,), 0.0 if v_range is None else float(v_range[0]), device="cuda")
     hi = torch.full((n,), 0.0 if v_range is None else float(v_range[1]), device="cuda")
     bound = _bound(n * p * c * 4 + n * c * bins * 4, 6.0 * n * p * c)
-    return _compare(f"crop_histogram {name} n={n} p={p} c={c} bins={bins} range={v_range} rule={rule}",
+    hist_shared, edges_shared = F._k20_layout(c, bins, rule)
+    route = f"hist={'shared' if hist_shared else 'global'}" + (
+        f" edges={'shared' if edges_shared else 'global'}" if rule == 1 else "")
+    return _compare(f"crop_histogram {name} n={n} p={p} c={c} bins={bins} range={v_range} rule={rule} {route}",
                     lambda: F._histogram_k20(x, bins, rule, lo, hi, v_range is None),
                     lambda: F._histogram_plain(x, bins, rule, lo, hi, v_range is None), repeats=3, bound=bound)
+
+
+def image_branch_checks(batch) -> dict[str, list[dict]]:
+    """K18-K20 on inputs past their shared-memory routes, bitwise their plain
+    versions: 300 levels on int32 crops (K18's global route, counts and
+    props), a bright 4,000 x 4,000 crop (15,996,000 pairs an offset, sums
+    i^2 past 2^63 / S: the 128-bit centred products, its pairs split over
+    blocks), a 65,600 x 65,600 crop nearly all 0 (4.3e9 pairs on cell (0, 0):
+    the count entry's 64-bit counters) and 46,400 x 46,400 of it with
+    ``symmetric`` (cell (0, 0) past 2^32, sum c^2 past 2^64: 64-bit counters
+    and 128-bit sums), 1,500 quantiles (K19's sort route), one crop past the
+    shared keys over several blocks (K19's split route: a 300 x 300 crop by
+    ``jnp.quantile``'s rule and a 400 x 400 one by the batched rule), 2,000
+    bins by ``jnp.histogram``'s rule (K20's edges in global memory and
+    their binary search) and 30,000 bins by the batched rule (K20's
+    histogram in global memory)."""
+    import torch
+
+    out: dict[str, list[dict]] = {"glcm": [], "crop_summary": [], "crop_histogram": []}
+    rng = np.random.default_rng(63)
+    lv = torch.from_numpy(rng.integers(0, 300, (16, 48, 48, 1)).astype(np.int32)).cuda()
+    out["glcm"].append(check_glcm("300 levels", lv, [0], IMG_OFFSETS, levels=300))
+    out["glcm"].append(check_glcm("300 levels", lv, [0], IMG_OFFSETS, levels=300, counts=True))
+    out["glcm"].append(check_glcm("300 levels symmetric", lv, [0], IMG_OFFSETS[:1], levels=300, symmetric=True,
+                                  ignore_level=299))
+    bright = torch.from_numpy(np.clip(rng.normal(250, 4, (1, 4000, 4000, 1)), 0, 255).astype(np.uint8)).cuda()
+    bright[0, :2000, :2000] = 255  # a saturated quarter
+    out["glcm"].append(check_glcm("bright 4000x4000", bright, [0], IMG_OFFSETS))
+    del bright
+    side = 65_600
+    slide = torch.zeros((1, side, side, 1), dtype=torch.uint8, device="cuda")
+    slide[0, ::1000] = 255
+    slide[0, 7::997, ::3] = 90
+    out["glcm"].append(check_glcm("65600x65600, a cell past 2^32", slide, [0], [(0, 1)], counts=True))
+    sub = slide[:, :46_400, :46_400].contiguous()
+    del slide
+    out["glcm"].append(check_glcm("46400x46400 symmetric, a cell past 2^32", sub, [0], [(0, 1)], symmetric=True))
+    del sub
+    torch.cuda.empty_cache()
+    xs = batch[:200].reshape(200, -1, 3).to(torch.float32).contiguous()
+    qs = tuple(np.linspace(0.0, 1.0, 1500).tolist())
+    out["crop_summary"].append(check_crop_summary("1500 quantiles", xs, quantiles=qs))
+    large = torch.from_numpy(rng.integers(0, 256, (1, 300 * 300, 1)).astype(np.float32)).cuda()
+    out["crop_summary"].append(check_crop_summary("one 300x300 crop, jnp.quantile", large, rule=1))
+    wide = torch.from_numpy(rng.integers(0, 256, (1, 400 * 400, 3)).astype(np.float32)).cuda()
+    out["crop_summary"].append(check_crop_summary("one 400x400 crop, past the shared keys", wide))
+    out["crop_histogram"].append(check_crop_histogram("2000 bins, jnp.histogram", xs[:1, :, :1].contiguous(), 2000,
+                                                      (40.0, 250.0), rule=1))
+    out["crop_histogram"].append(check_crop_histogram("30000 bins", xs, 30_000, None))
+    return out
+
+
+TURN_REPEATS = 5
+
+
+def _turns_worker(tree: str) -> None:
+    """One turn of ``image_turns``: ``tree``'s ``squidpy_torch`` (built there)
+    on part i's slide (``_he_image``, seed 61) and the 4,992 spot crops of
+    ``_visium_spots`` at 89 x 89 and 177 x 177; prints one JSON line of
+    ``_time_ms`` times (``TURN_REPEATS`` calls after a warm-up) and a hash of
+    every output."""
+    import hashlib
+
+    sys.path.insert(0, str(os.path.abspath(tree)))
+    import torch
+
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+    from squidpy_torch.ops import features as F
+
+    sqt.set_device("cuda")
+    _cuda.library()
+    digest = hashlib.sha256()
+
+    def timed(fn) -> float:
+        out, ms = _time_ms(fn, TURN_REPEATS)
+        for t in out if isinstance(out, tuple) else (out,):
+            digest.update(t.cpu().numpy().tobytes())
+        return ms
+
+    torch.use_deterministic_algorithms(True)  # the nuclei overlap: the slide's scatter must not race
+    img = _he_image(61)
+    torch.use_deterministic_algorithms(False)
+    xy = np.round(_visium_spots().obsm["spatial"]).astype(int)
+    out = {"tree": tree, "squidpy_torch": os.path.dirname(sqt.__file__)}
+    for tag, r in (("i2", 44), ("s2", 88)):
+        crops = torch.from_numpy(np.stack([img[y - r : y + r + 1, x - r : x + r + 1] for x, y in xy])).cuda()
+        n = crops.shape[0]
+        x = crops.reshape(n, -1, 3).to(torch.float32).contiguous()
+        table = F.quantile_table(IMG_QUANTILES, x.shape[1], 0)
+        out[f"k18_{tag}_ms"] = timed(lambda: F._glcm_k18(crops, [0, 1, 2], list(IMG_OFFSETS), 256, False, None,
+                                                          False))
+        out[f"k19_{tag}_ms"] = timed(lambda: F._summary_k19(x, table, 0))
+        if tag == "i2":
+            one = x[:1, :, :1].contiguous()
+            table1 = F.quantile_table(IMG_QUANTILES, one.shape[1], 1)
+            out["k19_one_ms"] = timed(lambda: F._summary_k19(one, table1, 1))
+            zero = torch.zeros(n, dtype=torch.float32, device="cuda")
+            out["k20_i2_ms"] = timed(lambda: F._histogram_k20(x, 10, 0, zero, zero, True))
+        del crops, x
+        torch.cuda.empty_cache()
+    xg = torch.from_numpy(np.random.default_rng(62).integers(0, 256, (300, 200 * 200, 3)).astype(np.float32)).cuda()
+    out["k19_200_ms"] = timed(lambda: F._summary_k19(xg, F.quantile_table(IMG_QUANTILES, xg.shape[1], 0), 0))
+    out["digest"] = digest.hexdigest()[:16]
+    print(json.dumps(out), flush=True)
+
+
+def image_turns(argv: list[str]) -> int:
+    """K18, K19 and K20 of two checkouts (``trees``, each a repository root,
+    for instance ``git archive`` of a parent commit unpacked under a
+    git-ignored directory, and ``.``) in turns on one card, in the order
+    given (default: first, second, second, first), each turn a process of its
+    own (``_turns_worker``): ``k18_i2_ms`` / ``k18_s2_ms`` K18's props of the
+    89 x 89 / 177 x 177 batches (three channels, ``IMG_OFFSETS``),
+    ``k19_i2_ms`` / ``k19_s2_ms`` K19 on them as (n, pixels, 3) float32,
+    ``k19_one_ms`` K19 on one crop's channel by ``jnp.quantile``'s rule,
+    ``k19_200_ms`` K19 on 300 crops of 200 x 200 x 3 random integers,
+    ``k20_i2_ms`` K20, 10 bins over each crop's range. The outputs of every
+    turn must hash alike (each kernel is bitwise its plain version)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py --turns")
+    parser.add_argument("trees", nargs=2, help="two checkouts' roots")
+    parser.add_argument("--order", default="0110", help="the turns, as indices into the trees")
+    args = parser.parse_args(argv)
+    digests = set()
+    for i in args.order:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--turns-worker", args.trees[int(i)]],
+                             capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return res.returncode
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        digests.add(json.loads(line)["digest"])
+    print(_nvidia_smi())
+    if len(digests) != 1:
+        print(f"outputs differ between the checkouts: {sorted(digests)}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
@@ -3772,8 +3924,8 @@ def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
     offset: K18's global counters), a constant 300 x 300 crop (every pair in
     one cell), levels 33 with ``symmetric`` and ``ignore_level`` (the
     experimental per-cell texture's call), K18's count entry, K19 by
-    ``jnp.quantile``'s rule and past its shared keys (200 x 200), K20 over a
-    fixed range and by ``jnp.histogram``'s rule."""
+    ``jnp.quantile``'s rule and at 200 x 200, K20 over a fixed range and by
+    ``jnp.histogram``'s rule, and ``image_branch_checks``."""
     import torch
 
     from squidpy_torch.ops import features as F
@@ -3806,13 +3958,17 @@ def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
     out["crop_summary"].append(check_crop_summary("one crop, jnp.quantile", one, rule=1))
     xg = torch.from_numpy(rng.integers(0, 256, (300, 200 * 200, 3)).astype(np.float32)).cuda()
     out["crop_summary"].append(check_crop_summary("200x200", xg))
+    del xg
     xs = batch.reshape(n, -1, 3).to(torch.float32).contiguous()
     out["crop_histogram"].append(check_crop_histogram("fixed range", xs, 10, (50.0, 200.0)))
     lo_hi = (float(xs[0, :, 0].min()), float(xs[0, :, 0].max()))
     out["crop_histogram"].append(check_crop_histogram("one crop, jnp.histogram", xs[:1, :, :1].contiguous(), 10,
                                                       lo_hi, rule=1))
-    if F.k18_packed(300, 300, list(IMG_OFFSETS), False):
+    del xs
+    if F.k18_route(300, 300, list(IMG_OFFSETS), False, 256) != "global":
         raise AssertionError("K18's 300 x 300 check did not take the global route")
+    for name, extra in image_branch_checks(batch).items():
+        out[name] += extra
     return out
 
 
@@ -4920,4 +5076,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns"]:
+        sys.exit(image_turns(sys.argv[2:]))
+    if sys.argv[1:2] == ["--turns-worker"]:
+        sys.exit(_turns_worker(sys.argv[2]))
     sys.exit(main())

@@ -35,8 +35,11 @@ queries by K6's bounds, bin and scatter, and those calls count as K6's.
 K17 (``cooccur_pairs``) counts each call into either route: the class route's
 class order and tiles, sweep and cumulative sum, or the index route's sweep
 and sum. K18 (``glcm``), K19 (``crop_summary``) and K20
-(``crop_histogram``) count each launch, one a call of their wrappers, which
-takes every crop and channel of the call (and with K18 every offset).
+(``crop_histogram``) count each call into their C interface, one a call of
+their wrappers, which takes every crop and channel of the call (and with K18
+every offset): K18's shared route starts two CUDA kernels (the counts, then
+the props), its global route one to three an offset and group of items;
+K19's split route one a digit; K20 one.
 
 ``build_seconds`` gives, after a build in this process, each source's
 seconds from the start of all compiles to the end of its own, and the link's.
@@ -157,9 +160,11 @@ _SIGNATURES = {
     "sqt_ivf_refine": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "sqt_cooccur_pairs": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _L, _P, _P],
     "sqt_cooccur_pairs_index": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
-    "sqt_glcm": [_P, _I, _I, _P, _I, _I, _L, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "sqt_crop_summary": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "sqt_crop_histogram": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+    "sqt_glcm": [_P, _I, _I, _I, _P, _I, _I, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                 _P],
+    "sqt_crop_summary": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                         _P],
+    "sqt_crop_histogram": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

@@ -5,18 +5,21 @@ histograms (K20) and region properties (counterpart of
 Each kernel has its plain torch version beside it, which the CPU runs; a CUDA
 tensor goes to the kernel, never to the plain version.
 
-- K18 (``csrc/glcm.cu``): the co-occurrence counts of a batch of uint8
-  crops, one (crop, channel) a block, and from exact integer sums over the
-  pairs the skimage props in double (``_glcm_props_plain`` does the same
-  operations in the same order). ``graycomatrix`` and ``glcm_batch`` return
-  the counts, equal to JAX's; the props differ from JAX's float32 sums by
-  their rounding only.
-- K19 (``csrc/crop_summary.cu``): one sort per (crop, channel), the
-  quantiles at JAX's positions, weights and rounding (``_quantile_table``:
-  the batched kernel's rule, or ``jnp.quantile``'s), and the mean and std
-  from double sums.
+- K18 (``csrc/glcm.cu``): the co-occurrence counts of a batch of crops
+  (uint8, or any integer type at any number of levels), and from exact
+  integer sums over the pairs the skimage props in double
+  (``_glcm_props_plain`` does the same operations in the same order; the
+  sums and the centred products are exact past int64, and a cell counts
+  past 2^32). ``graycomatrix`` and
+  ``glcm_batch`` return the counts, equal to JAX's; the props differ from
+  JAX's float32 sums by their rounding only. Routes: ``k18_route``.
+- K19 (``csrc/crop_summary.cu``): a radix select of the ranks the quantiles
+  read a (crop, channel), at JAX's positions, weights and rounding
+  (``quantile_table``: the batched kernel's rule, or ``jnp.quantile``'s),
+  and the mean and std from double sums. Routes: ``_k19_layout``.
 - K20 (``csrc/crop_histogram.cu``): the batched kernel's bin rule over a
   fixed or a per-crop range, or ``jnp.histogram``'s edges and search.
+  Routes: ``_k20_layout``.
 
 ``regionprops``' segment reductions are plain torch ``index_add_`` /
 ``scatter_reduce`` in float64 on the device; ``graycoprops``,
@@ -45,12 +48,29 @@ __all__ = [
 
 GLCM_PROPS = ("contrast", "dissimilarity", "homogeneity", "ASM", "energy", "correlation")
 PACKED_MAX = 65_535  # K18's 16-bit shared counters: the most one cell may count
-PAIRS_MAX = 11_900_000  # pairs an offset for which S * sum i^2 (<= S^2 * 255^2) stays below 2^63
-KERNEL_LEVELS = 256  # K18 takes uint8 crops
-SMEM_KEYS = 32_768  # K19 sorts a channel of at most this many values in shared memory
+SHARED_LEVELS = 256  # K18's shared route: uint8 crops, a levels^2 matrix of 16-bit counters in shared memory
+PLANE_MAX = 81_920  # K18's shared route: bytes of the staged channel plane (rows padded to 4 bytes)
+K18_SCRATCH = 1 << 28  # bytes of counters K18's global route holds at once (a group of items)
+K18_MOMENTS = 6  # K18's global route: sum i, sum j, sum i^2, sum j^2, sum ij, sum c^2, each two 64-bit words
+SMEM_KEYS = 32_768  # K19's sort route sorts a channel of at most this many values in shared memory
+SELECT_RANKS = 32  # K19's select resolves at most this many distinct ranks; more take the sort route
+K19_STATE_BYTES = 656  # csrc/crop_summary.cu `Select`
+K20_SMEM = 160 * 1024  # K20's shared histogram and edges, bytes; past it the histogram counts in global memory
+K20_SHARED_EDGES = 1024  # K20's rule 1 keeps at most this many edges in shared memory
 LINSPACE_UNROLLED_BINS = 33  # XLA:CPU unrolls jnp.linspace's loop up to here: e_1 then fuses lo (1 - c)
-SCRATCH_BLOCKS = 264  # grid of K18's and K19's global-scratch routes: two blocks an SM of an H100
-_TREE = 256  # terms of the homogeneity's pairwise sum at up to 256 levels
+SCRATCH_BLOCKS = 264  # grid of K19's global sort route: two blocks an SM of an H100
+_TREE = 256  # least terms of the homogeneity's pairwise sum
+_PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 26}  # pixel pairs K18's plain versions hold at once
+
+
+_DEVICE_INFO: dict[int | None, tuple[int, int]] = {}
+
+
+def _device_info(dev: torch.device) -> tuple[int, int]:
+    """``_cuda.device_info`` of ``dev``, asked once."""
+    if dev.index not in _DEVICE_INFO:
+        _DEVICE_INFO[dev.index] = _cuda.device_info()
+    return _DEVICE_INFO[dev.index]
 
 
 # --------------------------------------------------------------------- K18
@@ -72,75 +92,134 @@ def _checked(images: np.ndarray, levels: int) -> np.ndarray:
     return images
 
 
-def _pairs(img: torch.Tensor, dr: int, dc: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (m, pairs) reference and partner values of offset (dr, dc) of
-    ``img`` (m, h, w), over in-bounds pairs, row-major."""
-    _, h, w = img.shape
+def _pair_chunks(img: torch.Tensor, dr: int, dc: int):
+    """The (m, k) int64 reference and partner values of offset (dr, dc) of
+    ``img`` (m, h, w) over its in-bounds pairs, row-major, a run of whole
+    pair rows of about ``_PLAIN_PAIRS`` values at a time."""
+    m, h, w = img.shape
     y0, y1, x0, x1 = max(0, -dr), min(h, h - dr), max(0, -dc), min(w, w - dc)
-    if y1 <= y0 or x1 <= x0:
-        empty = img.new_zeros((img.shape[0], 0))
-        return empty, empty
-    i = img[:, y0:y1, x0:x1].reshape(img.shape[0], -1)
-    j = img[:, y0 + dr : y1 + dr, x0 + dc : x1 + dc].reshape(img.shape[0], -1)
-    return i, j
+    if y1 <= y0 or x1 <= x0 or m == 0:
+        return
+    step = max(1, _PLAIN_PAIRS[img.device.type] // (m * (x1 - x0)))
+    for r in range(y0, y1, step):
+        r1 = min(r + step, y1)
+        yield (img[:, r:r1, x0:x1].reshape(m, -1).to(torch.int64),
+               img[:, r + dr : r1 + dr, x0 + dc : x1 + dc].reshape(m, -1).to(torch.int64))
 
 
 def _glcm_counts_plain(img: torch.Tensor, offsets: list[tuple[int, int]], levels: int) -> torch.Tensor:
     """(m, n_off, levels^2) int64 counts of ``img`` (m, h, w): K18's count entry."""
-    img = img.to(torch.int64)
     m = img.shape[0]
     out = torch.zeros((m, len(offsets), levels * levels), dtype=torch.int64, device=img.device)
     rows = torch.arange(m, device=img.device)[:, None] * (levels * levels)
     for o, (dr, dc) in enumerate(offsets):
-        i, j = _pairs(img, dr, dc)
-        ok = (i >= 0) & (j >= 0) & (i < levels) & (j < levels)
-        flat = (rows + i * levels + j)[ok]
-        out[:, o] = torch.bincount(flat, minlength=m * levels * levels).view(m, -1)
+        for i, j in _pair_chunks(img, dr, dc):
+            ok = (i >= 0) & (j >= 0) & (i < levels) & (j < levels)
+            flat = (rows + i * levels + j)[ok]
+            out[:, o] += torch.bincount(flat, minlength=m * levels * levels).view(m, -1)
     return out
 
 
+def _sums_fit(pairs: int, levels: int) -> bool:
+    """K18's sums of an offset of ``pairs`` pixel pairs stay in int64, doubled
+    by ``symmetric``: sum i^2 <= pairs (levels - 1)^2, sum c^2 <= pairs^2."""
+    return 4 * pairs * max(pairs, (levels - 1) ** 2) < 2**63
+
+
 def _glcm_sums_plain(img: torch.Tensor, dr: int, dc: int, levels: int, symmetric: bool,
-                     ignore_level: int | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K18's integers of one offset for each of the m crops of ``img``:
-    (m, 9) int64 sums (pairs, sum i, sum j, sum i^2, sum j^2, sum ij,
-    sum |i - j|, sum (i - j)^2, sum of the squared counts over the full
-    matrix, with ``symmetric`` of P + P^T) and the (m, levels) pairs at each
-    |i - j|."""
-    img = img.to(torch.int64)
-    m = img.shape[0]
-    i, j = _pairs(img, dr, dc)
-    keep = (i >= 0) & (j >= 0) & (i < levels) & (j < levels)
-    if ignore_level is not None:
-        keep &= (i != ignore_level) & (j != ignore_level)
-    w = keep.to(torch.int64)
-    i, j = i * w, j * w
-    d = (i - j).abs()
-    sums = torch.stack([w.sum(1), i.sum(1), j.sum(1), (i * i).sum(1), (j * j).sum(1), (i * j).sum(1), d.sum(1),
-                        (d * d).sum(1)], dim=1)
-    hist = torch.zeros((m, levels), dtype=torch.int64, device=img.device).scatter_add_(1, d, w)
-    rows = torch.arange(m, device=img.device)[:, None] * (levels * levels)
-    if symmetric:
-        cell, inc = torch.minimum(i, j) * levels + torch.maximum(i, j), w * (1 + (i == j).to(torch.int64))
-    else:
-        cell, inc = i * levels + j, w
-    counts = torch.zeros(m * levels * levels, dtype=torch.int64, device=img.device)
-    counts.index_add_(0, (rows + cell).reshape(-1), inc.reshape(-1))
+                     ignore_level: int | None) -> tuple[torch.Tensor | list[list[int]], torch.Tensor]:
+    """K18's integers of one offset for each of the m crops of ``img``: the
+    sums (pairs, sum i, sum j, sum i^2, sum j^2, sum ij, sum |i - j|,
+    sum (i - j)^2, sum of the squared counts over the full matrix, with
+    ``symmetric`` of P + P^T), an (m, 9) int64 tensor where ``_sums_fit``
+    and else m rows of Python integers, and the (m, levels) pairs at each
+    |i - j|. The sums come from the histograms of i, j and |i - j| and the
+    counts; sum ij = (sum i^2 + sum j^2 - sum (i - j)^2) / 2."""
+    m, h, w = img.shape
+    dev = img.device
+    hists = torch.zeros((3, m, levels), dtype=torch.int64, device=dev)  # i, j, |i - j|
+    counts = torch.zeros(m * levels * levels, dtype=torch.int64, device=dev)
+    rows = torch.arange(m, device=dev)[:, None] * (levels * levels)
+    for i, j in _pair_chunks(img, dr, dc):
+        keep = (i >= 0) & (j >= 0) & (i < levels) & (j < levels)
+        if ignore_level is not None:
+            keep &= (i != ignore_level) & (j != ignore_level)
+        wt = keep.to(torch.int64)
+        i, j = i * wt, j * wt
+        for k, v in enumerate((i, j, (i - j).abs())):
+            hists[k].scatter_add_(1, v, wt)
+        if symmetric:
+            cell, inc = torch.minimum(i, j) * levels + torch.maximum(i, j), wt * (1 + (i == j).to(torch.int64))
+        else:
+            cell, inc = i * levels + j, wt
+        counts.index_add_(0, (rows + cell).reshape(-1), inc.reshape(-1))
     counts = counts.view(m, levels * levels)
-    sq = counts * counts
-    if symmetric:  # an upper cell off the diagonal stands for two mirrored cells
-        diag = torch.arange(levels, device=img.device) * (levels + 1)
-        sq = 2 * sq
-        sq[:, diag] //= 2
-    return torch.cat([sums, sq.sum(1, keepdim=True)], dim=1), hist
+    diag = torch.arange(levels, device=dev) * (levels + 1)
+    if _sums_fit(_max_pairs(h, w, [(dr, dc)]), levels):
+        v = torch.arange(levels, dtype=torch.int64, device=dev)
+        hi, hj, hd = hists
+        sq = counts * counts
+        if symmetric:  # an upper cell off the diagonal stands for two mirrored cells
+            sq = 2 * sq
+            sq[:, diag] //= 2
+        Sii, Sjj, D2 = (hi * v * v).sum(1), (hj * v * v).sum(1), (hd * v * v).sum(1)
+        sums = torch.stack([hd.sum(1), (hi * v).sum(1), (hj * v).sum(1), Sii, Sjj, (Sii + Sjj - D2) // 2,
+                            (hd * v).sum(1), D2, sq.sum(1)], dim=1)
+        return sums, hists[2]
+    exact = []
+    for k in range(m):
+        hi, hj, hd = (hists[t, k].tolist() for t in range(3))
+        row = counts[k]
+        Q = sum(c * c for c in row[row > 0].tolist())
+        if symmetric:
+            Q = 2 * Q - sum(c * c for c in row[diag].tolist())
+        Sii, Sjj, D2 = (sum(c * x * x for x, c in enumerate(t)) for t in (hi, hj, hd))
+        exact.append([sum(hd), sum(c * x for x, c in enumerate(hi)), sum(c * x for x, c in enumerate(hj)), Sii, Sjj,
+                      (Sii + Sjj - D2) // 2, sum(c * x for x, c in enumerate(hd)), D2, Q])
+    return exact, hists[2]
 
 
-def _glcm_props_plain(sums: torch.Tensor, hist: torch.Tensor, symmetric: bool) -> torch.Tensor:
+def _centred(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``a b - c d`` of non-negative int64 tensors, exact, rounded to float64
+    once (as ``csrc/glcm.cu`` `centred` does it in 128 bits): in int64 where
+    both products stay below 2^62, in Python integers on the other entries."""
+    out = (a * b - c * d).to(torch.float64)
+    f64 = torch.float64
+    big = (a.to(f64) * b.to(f64) >= 2.0**62) | (c.to(f64) * d.to(f64) >= 2.0**62)
+    if bool(big.any()):
+        exact = [float(int(w) * int(x) - int(y) * int(z))
+                 for w, x, y, z in zip(a[big].tolist(), b[big].tolist(), c[big].tolist(), d[big].tolist())]
+        out[big] = torch.tensor(exact, dtype=torch.float64, device=out.device)
+    return out
+
+
+def _props_integers(sums: torch.Tensor | list[list[int]], symmetric: bool, dev: torch.device) -> torch.Tensor:
+    """(..., 7) float64 S, sum |i - j|, sum (i - j)^2, sum c^2 and the
+    centred products S sum i^2 - (sum i)^2, its j twin and S sum ij -
+    sum i sum j of K18's sums (with ``symmetric`` of P + P^T), each the exact
+    integer rounded to double once: int64 sums in tensors, Python integers
+    past them."""
+    if isinstance(sums, torch.Tensor):
+        S, Si, Sj, Sii, Sjj, Sij, D1, D2, Q = sums.unbind(-1)
+        if symmetric:
+            S, Si, Sj, Sii, Sjj, Sij, D1, D2 = 2 * S, Si + Sj, Si + Sj, Sii + Sjj, Sii + Sjj, 2 * Sij, 2 * D1, 2 * D2
+        f64 = torch.float64
+        return torch.stack([S.to(f64), D1.to(f64), D2.to(f64), Q.to(f64), _centred(S, Sii, Si, Si),
+                            _centred(S, Sjj, Sj, Sj), _centred(S, Sij, Si, Sj)], dim=-1)
+    out = []
+    for S, Si, Sj, Sii, Sjj, Sij, D1, D2, Q in sums:
+        if symmetric:
+            S, Si, Sj, Sii, Sjj, Sij, D1, D2 = 2 * S, Si + Sj, Si + Sj, Sii + Sjj, Sii + Sjj, 2 * Sij, 2 * D1, 2 * D2
+        out.append([float(S), float(D1), float(D2), float(Q), float(S * Sii - Si * Si), float(S * Sjj - Sj * Sj),
+                    float(S * Sij - Si * Sj)])
+    return torch.tensor(out, dtype=torch.float64, device=dev).reshape(len(out), 7)
+
+
+def _glcm_props_plain(sums: torch.Tensor | list[list[int]], hist: torch.Tensor, symmetric: bool) -> torch.Tensor:
     """(..., 6) float64 props (``GLCM_PROPS`` order) from K18's integers, the
     operations of ``csrc/glcm.cu`` `glcm_props_from_sums` and
     `homogeneity_tree` in the same order."""
-    S, Si, Sj, Sii, Sjj, Sij, D1, D2, Q = sums.unbind(-1)
     if symmetric:
-        S, Si, Sj, Sii, Sjj, Sij, D1, D2 = 2 * S, Si + Sj, Si + Sj, Sii + Sjj, Sii + Sjj, 2 * Sij, 2 * D1, 2 * D2
         hist = 2 * hist
     n_terms = max(_TREE, 1 << (hist.shape[-1] - 1).bit_length())
     d = torch.arange(n_terms, dtype=torch.int64, device=hist.device)
@@ -149,13 +228,11 @@ def _glcm_props_plain(sums: torch.Tensor, hist: torch.Tensor, symmetric: bool) -
     while terms.shape[-1] > 1:
         terms = terms[..., 0::2] + terms[..., 1::2]
     homog = terms[..., 0]
-    sd = torch.where(S == 0, torch.ones_like(S), S).to(torch.float64)
-    asm = Q.to(torch.float64) / (sd * sd)
-    vi, vj, cov = S * Sii - Si * Si, S * Sjj - Sj * Sj, S * Sij - Si * Sj
-    corr = torch.where((vi == 0) | (vj == 0), torch.ones_like(asm),
-                       cov.to(torch.float64) / torch.sqrt(vi.to(torch.float64) * vj.to(torch.float64)))
-    return torch.stack([D2.to(torch.float64) / sd, D1.to(torch.float64) / sd, homog / sd, asm, torch.sqrt(asm), corr],
-                       dim=-1)
+    S, D1, D2, Q, vi, vj, cov = _props_integers(sums, symmetric, hist.device).unbind(-1)
+    sd = torch.where(S == 0, torch.ones_like(S), S)
+    asm = Q / (sd * sd)
+    corr = torch.where((vi == 0) | (vj == 0), torch.ones_like(asm), cov / torch.sqrt(vi * vj))
+    return torch.stack([D2 / sd, D1 / sd, homog / sd, asm, torch.sqrt(asm), corr], dim=-1)
 
 
 def _max_pairs(h: int, w: int, offsets: list[tuple[int, int]]) -> int:
@@ -163,44 +240,88 @@ def _max_pairs(h: int, w: int, offsets: list[tuple[int, int]]) -> int:
 
 
 def k18_packed(h: int, w: int, offsets: list[tuple[int, int]], symmetric: bool) -> bool:
-    """K18's route: the 16-bit shared counters hold every cell of an offset
-    (``symmetric`` counts 2 a pair on the diagonal), else global uint32."""
+    """K18's 16-bit shared counters hold every cell of an offset
+    (``symmetric`` counts 2 a pair on the diagonal)."""
     return _max_pairs(h, w, offsets) * (2 if symmetric else 1) <= PACKED_MAX
+
+
+def k18_route(h: int, w: int, offsets: list[tuple[int, int]], symmetric: bool, levels: int,
+              dtype: torch.dtype = torch.uint8) -> str:
+    """K18's route: ``shared`` (uint8 crops at up to 256 levels, the packed
+    counters, the plane staged in shared memory) or ``global``."""
+    shared = (dtype == torch.uint8 and levels <= SHARED_LEVELS and k18_packed(h, w, offsets, symmetric)
+              and h * ((w + 3) & ~3) <= PLANE_MAX)
+    return "shared" if shared else "global"
+
+
+def _k18_images(imgs: torch.Tensor, levels: int) -> torch.Tensor:
+    """The kernel's pixels: uint8 as they are, any other type as int32 (a
+    value outside [0, levels) drops its pairs in both versions)."""
+    if imgs.dtype == torch.uint8:
+        return imgs.contiguous()
+    if imgs.dtype not in (torch.int8, torch.int16, torch.int32):
+        imgs = imgs.to(torch.int64).clamp(-1, levels)
+    return imgs.to(torch.int32).contiguous()
+
+
+_K18_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def _k18_device_table(channels: list[int], offsets: list[tuple[int, int]], dev: torch.device) -> torch.Tensor:
+    """The channels and the offsets' (dr, dc) as one int32 tensor on ``dev``,
+    made once for each call shape (a copy to the card waits for the card)."""
+    key = (str(dev), tuple(channels), tuple(offsets))
+    if key not in _K18_TABLES:
+        if len(_K18_TABLES) >= 64:
+            _K18_TABLES.clear()
+        flat = np.r_[np.asarray(channels, np.int32), np.asarray(offsets, np.int32).reshape(-1)]
+        _K18_TABLES[key] = torch.from_numpy(flat.astype(np.int32)).to(dev)
+    return _K18_TABLES[key]
 
 
 def _glcm_k18(imgs: torch.Tensor, channels: list[int], offsets: list[tuple[int, int]], levels: int,
               symmetric: bool, ignore_level: int | None, counts: bool) -> torch.Tensor:
-    """K18 on ``imgs`` (n, h, w, C) uint8 on the card: props (n, len(channels),
+    """K18 on ``imgs`` (n, h, w, C) on the card: props (n, len(channels),
     n_off, 6) float64, or with ``counts`` the (n * len(channels), n_off,
     levels^2) counts."""
     n, h, w, n_c = imgs.shape
-    if levels > KERNEL_LEVELS:
-        raise ValueError(f"K18 counts uint8 crops: at most {KERNEL_LEVELS} levels on the card, found `{levels}`.")
-    if _max_pairs(h, w, offsets) > PAIRS_MAX:
-        raise ValueError(f"K18 takes at most {PAIRS_MAX} pixel pairs an offset, found crops of {h} x {w}.")
-    _cuda.require(imgs, "images", torch.uint8)
+    imgs = _k18_images(imgs, levels)
+    _cuda.require(imgs, "images", imgs.dtype)
     dev = imgs.device
-    n_items, n_off = n * len(channels), len(offsets)
-    ch = torch.tensor(channels, dtype=torch.int32, device=dev)
-    offs = torch.tensor(offsets, dtype=torch.int32, device=dev).reshape(-1, 2).contiguous()
-    packed = k18_packed(h, w, offsets, symmetric)
-    grid = min(n_items, SCRATCH_BLOCKS)
-    gcells = None if packed else torch.empty((grid, levels * levels), dtype=torch.int32, device=dev)
+    n_items, n_off, cells = n * len(channels), len(offsets), levels * levels
+    table = _k18_device_table(channels, offsets, dev)
+    host_offs = np.ascontiguousarray(np.asarray(offsets, dtype=np.int32).reshape(-1, 2))
+    route = k18_route(h, w, offsets, symmetric, levels, imgs.dtype)
+    wide = _max_pairs(h, w, offsets) * (2 if symmetric else 1) >= 2**32  # a cell may pass uint32: 64-bit counters
+    cdt, csize = (torch.int64, 8) if wide else (torch.int32, 4)
+    group, gcnt, gsums, ghist = 0, None, None, None
+    if route == "shared" and not counts:  # each (item, offset)'s moments and d histogram, for the props kernel
+        gsums = torch.empty((n_items * n_off, 6), dtype=torch.int32, device=dev)
+        ghist = torch.empty((n_items * n_off, _TREE), dtype=torch.int16, device=dev)
+    elif route == "global" and not counts:
+        group = max(1, min(n_items, K18_SCRATCH // (csize * cells), 65_535))
+        gcnt = torch.zeros((group, cells), dtype=cdt, device=dev)
+        gsums = torch.zeros((group, 2 * K18_MOMENTS), dtype=torch.int64, device=dev)
+        ghist = torch.zeros((group, levels), dtype=torch.int64, device=dev)
+    elif route == "global":
+        group = max(1, min(n_items, 65_535))  # a grid's y extent
     props = counts_out = None
     if counts:
-        counts_out = torch.empty((n_items, n_off, levels * levels), dtype=torch.int32, device=dev)
+        alloc = torch.zeros if route == "global" else torch.empty
+        counts_out = alloc((n_items, n_off, cells), dtype=cdt, device=dev)
     else:
         props = torch.empty((n_items, n_off, 6), dtype=torch.float64, device=dev)
     if n_items and n_off:
         code = _cuda.library().sqt_glcm(
-            imgs.data_ptr(), n, len(channels), ch.data_ptr(), h, w, h * w * n_c, n_c, offs.data_ptr(), n_off, levels,
-            int(symmetric), -1 if ignore_level is None else int(ignore_level), int(packed), SCRATCH_BLOCKS,
-            None if gcells is None else gcells.data_ptr(), None if props is None else props.data_ptr(),
-            None if counts_out is None else counts_out.data_ptr(), _cuda.stream_ptr())
+            imgs.data_ptr(), int(imgs.dtype != torch.uint8), n, len(channels), table.data_ptr(), h, w, h * w * n_c,
+            n_c, table.data_ptr() + 4 * len(channels), host_offs.ctypes.data, n_off, levels, int(symmetric),
+            -1 if ignore_level is None else int(ignore_level), int(route == "global"), int(wide), group,
+            _device_info(dev)[1],
+            *(None if t is None else t.data_ptr() for t in (gcnt, gsums, ghist, props, counts_out)), _cuda.stream_ptr())
         _cuda.check(code, "glcm")
         _cuda.launches["glcm"] += 1
     if counts:
-        return counts_out.to(torch.int64)
+        return counts_out if wide else counts_out.to(torch.int64) & 0xFFFFFFFF  # uint32 counters
     return props.view(n, len(channels), n_off, 6)
 
 
@@ -415,25 +536,73 @@ def _summary_plain(x: torch.Tensor, table: tuple[np.ndarray, ...], rule: int) ->
     return q, (sx / p).to(torch.float32), torch.sqrt(var).to(torch.float32)
 
 
+def _k19_ranks(table: tuple[np.ndarray, ...]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The distinct positions the quantiles read, ascending, and each
+    quantile's two indices into them."""
+    lo, hi = table[0], table[1]
+    ranks = np.unique(np.r_[lo, hi]).astype(np.int32)
+    return ranks, np.searchsorted(ranks, lo).astype(np.int32), np.searchsorted(ranks, hi).astype(np.int32)
+
+
+_K19_TABLES: dict[tuple, tuple[torch.Tensor, list[int]]] = {}
+
+
+def _k19_device_table(table: tuple[np.ndarray, ...], dev: torch.device) -> tuple[torch.Tensor, list[int]]:
+    """One int32 tensor on ``dev`` holding ranks, qlo, qhi and the two
+    weights' bits, and the element offset of each: made once for each table
+    and device (the per-crop path asks for the same one every crop)."""
+    key = (str(dev), *(t.tobytes() for t in table))
+    if key not in _K19_TABLES:
+        if len(_K19_TABLES) >= 64:
+            _K19_TABLES.clear()
+        ranks, qlo, qhi = _k19_ranks(table)
+        parts = [ranks, qlo, qhi, table[2].view(np.int32), table[3].view(np.int32)]
+        offsets = np.cumsum([0] + [len(t) for t in parts[:-1]]).tolist()
+        _K19_TABLES[key] = torch.from_numpy(np.concatenate(parts)).to(dev), offsets
+    return _K19_TABLES[key]
+
+
+def _k19_layout(n_items: int, p: int, nr: int, smem: int, sms: int) -> tuple[str, int, int, int]:
+    """K19's route, threads a block, blocks an item and room for candidate
+    keys: ``select`` (a block an item, the keys in shared memory), ``split``
+    (channels past the shared keys, an item over several blocks) or
+    ``sort`` (more than ``SELECT_RANKS`` distinct ranks)."""
+    if nr > SELECT_RANKS:
+        return "sort", 1024, 1, 0
+    room = smem - (nr * 1024 + 4 * p + K19_STATE_BYTES + 512)
+    if room >= 0:
+        threads = 128 if p <= 4096 else 256 if p <= 16_384 else 512 if p <= 32_768 else 1024
+        if n_items < sms:  # a few items: the widest block each
+            threads = 1024 if p > 4096 else max(threads, 512)
+        return "select", threads, 1, min(room // 4, max(2048, p // 4))
+    blocks = min(-(-p // 1024), max(-(-2 * sms // max(n_items, 1)), -(-p // 16_384)), 65_535)
+    return "split", 256, max(blocks, 1), 0
+
+
 def _summary_k19(x: torch.Tensor, table: tuple[np.ndarray, ...], rule: int) -> tuple[torch.Tensor, ...]:
     n, p, n_c = x.shape
     _cuda.require(x, "crops", torch.float32)
     dev = x.device
-    lo, hi, wlo, whi = (torch.from_numpy(t).to(dev) for t in table)
-    nq = len(table[0])
-    if nq > 1024:
-        raise ValueError(f"K19 takes at most 1024 quantiles, found `{nq}`.")
+    tab, at = _k19_device_table(table, dev)
+    nr, nq = at[1], len(table[0])
+    smem, sms = _device_info(dev)
+    route, threads, blocks, cap = _k19_layout(n * n_c, p, nr, smem, sms)
     p2 = 1 << max(p - 1, 0).bit_length()
-    gkeys = None if p2 <= SMEM_KEYS else torch.empty((min(n * n_c, SCRATCH_BLOCKS), p2), dtype=torch.int32,
-                                                          device=dev)
-    quant = torch.empty((n, nq, n_c), dtype=torch.float32, device=dev)
-    mean = torch.empty((n, n_c), dtype=torch.float32, device=dev)
-    std = torch.empty((n, n_c), dtype=torch.float32, device=dev)
+    scratch = None
+    if route == "split":
+        nbytes = n * n_c * (K19_STATE_BYTES + 1024 * nr + 16 * blocks + 4)
+        scratch = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    elif route == "sort" and p2 > SMEM_KEYS:
+        scratch = torch.empty((min(n * n_c, SCRATCH_BLOCKS), p2), dtype=torch.int32, device=dev)
+    ranks, qlo, qhi, wlo, whi = (tab.data_ptr() + 4 * a for a in at)
+    out = torch.empty(n * n_c * (nq + 2), dtype=torch.float32, device=dev)
+    quant = out[: n * nq * n_c].view(n, nq, n_c)
+    mean, std = out[n * nq * n_c :].view(2, n, n_c).unbind(0)
     if n * n_c and p:
         code = _cuda.library().sqt_crop_summary(
-            x.data_ptr(), n, p, n_c, p2, nq, lo.data_ptr(), hi.data_ptr(), wlo.data_ptr(), whi.data_ptr(), rule,
-            SCRATCH_BLOCKS, None if gkeys is None else gkeys.data_ptr(), quant.data_ptr(), mean.data_ptr(),
-            std.data_ptr(), _cuda.stream_ptr())
+            x.data_ptr(), n, p, n_c, ("select", "split", "sort").index(route), threads, blocks, cap, nr, ranks, nq,
+            qlo, qhi, wlo, whi, rule, p2, SCRATCH_BLOCKS, None if scratch is None else scratch.data_ptr(),
+            quant.data_ptr(), mean.data_ptr(), std.data_ptr(), _cuda.stream_ptr())
         _cuda.check(code, "crop_summary")
         _cuda.launches["crop_summary"] += 1
     return quant, mean, std
@@ -521,16 +690,28 @@ def _histogram_plain(x: torch.Tensor, bins: int, rule: int, lo: torch.Tensor, hi
     return torch.bincount(flat, minlength=n * n_c * bins).view(n, n_c, bins)
 
 
+def _k20_layout(n_c: int, bins: int, rule: int) -> tuple[bool, bool]:
+    """K20's (histogram in shared memory, edges in shared memory): the
+    histogram counts in shared memory while it and the edges fit
+    ``K20_SMEM``; rule 1 keeps its edges there up to ``K20_SHARED_EDGES``."""
+    edges_shared = rule == 1 and bins + 1 <= K20_SHARED_EDGES
+    hist_shared = 4 * n_c * bins + (4 * (bins + 1) if edges_shared else 0) <= K20_SMEM
+    return hist_shared, edges_shared
+
+
 def _histogram_k20(x: torch.Tensor, bins: int, rule: int, lo: torch.Tensor, hi: torch.Tensor,
                    per_crop_range: bool) -> torch.Tensor:
     n, p, n_c = x.shape
     _cuda.require(x, "crops", torch.float32)
-    if rule == 1 and bins + 1 > 1024:
-        raise ValueError(f"K20 takes at most 1023 bins by `jnp.histogram`'s rule, found `{bins}`.")
-    counts = torch.empty((n, n_c, bins), dtype=torch.int32, device=x.device)
+    hist_shared, edges_shared = _k20_layout(n_c, bins, rule)
+    counts = (torch.empty if hist_shared else torch.zeros)((n, n_c, bins), dtype=torch.int32, device=x.device)
+    gedges = None
+    if rule == 1 and not edges_shared:
+        gedges = torch.empty((n, bins + 1), dtype=torch.float32, device=x.device)
     if n:
-        code = _cuda.library().sqt_crop_histogram(x.data_ptr(), n, p, n_c, bins, rule, lo.data_ptr(), hi.data_ptr(),
-                                                  int(per_crop_range), counts.data_ptr(), _cuda.stream_ptr())
+        code = _cuda.library().sqt_crop_histogram(
+            x.data_ptr(), n, p, n_c, bins, rule, lo.data_ptr(), hi.data_ptr(), int(per_crop_range),
+            int(not hist_shared), None if gedges is None else gedges.data_ptr(), counts.data_ptr(), _cuda.stream_ptr())
         _cuda.check(code, "crop_histogram")
         _cuda.launches["crop_histogram"] += 1
     return counts.to(torch.int64)

@@ -125,7 +125,8 @@ def test_graycomatrix_bitwise(symmetric, normed):
 
 def test_graycomatrix_past_256_levels_on_the_cpu():
     """int32 images of more than 256 levels (no uint8 cast): the plain
-    version counts them as JAX does; K18 takes uint8 crops only."""
+    version counts them as JAX does; on the card K18's global route takes
+    them as int32 pixels (``tests/test_torch_image_card.py``)."""
     img = np.random.default_rng(5).integers(0, 300, (11, 13)).astype(np.int32)
     assert np.array_equal(tf.graycomatrix(img, [1, 3], ANGLES, levels=300), jf.graycomatrix(img, [1, 3], ANGLES, levels=300))
 
@@ -180,6 +181,118 @@ def test_glcm_props_from_integers_bitwise_counts():
         assert hist.sum(1).tolist() == sums[:, 0].tolist()
 
 
+def _exact_props(S, Si, Sj, Sii, Sjj, Sij, symmetric=False):
+    """Correlation from Python integers: each centred product exact, rounded
+    to double once (the rule of ``csrc/glcm.cu`` `centred`), and the true
+    value from the exact rational."""
+    from fractions import Fraction
+
+    if symmetric:
+        S, Si, Sj, Sii, Sjj, Sij = 2 * S, Si + Sj, Si + Sj, Sii + Sjj, Sii + Sjj, 2 * Sij
+    vi, vj, cov = S * Sii - Si * Si, S * Sjj - Sj * Sj, S * Sij - Si * Sj
+    rounded = 1.0 if vi == 0 or vj == 0 else float(cov) / np.sqrt(float(vi) * float(vj))
+    true = 1.0 if vi == 0 or vj == 0 else float(np.sign(cov)) * float(Fraction(cov * cov, vi * vj)) ** 0.5
+    return rounded, true
+
+
+def _hand_sums(pairs: dict[tuple[int, int], int]) -> tuple[list[int], list[int]]:
+    """K18's nine sums and the d histogram of the pairs (i, j) -> count."""
+    S = sum(pairs.values())
+    f = lambda g: sum(c * g(i, j) for (i, j), c in pairs.items())  # noqa: E731
+    sums = [S, f(lambda i, j: i), f(lambda i, j: j), f(lambda i, j: i * i), f(lambda i, j: j * j),
+            f(lambda i, j: i * j), f(lambda i, j: abs(i - j)), f(lambda i, j: (i - j) ** 2),
+            sum(c * c for c in pairs.values())]
+    hist = [0] * 256
+    for (i, j), c in pairs.items():
+        hist[abs(i - j)] += c
+    return sums, hist
+
+
+def test_glcm_props_past_int64_exact():
+    """The centred products past int64 (S sum i^2 > 2^63): the plain
+    version's correlation is the exact integers rounded to double once,
+    within 1e-12 of the true value. The first case is the 12,000^2 slide
+    taken as one crop at offset (0, 1): half its pairs at (0, 0), half at
+    (255, 255), 1,000 each at (0, 255) and (255, 0); int64 arithmetic wraps
+    its correlation to 0.998124, the exact value is 0.999972."""
+    S = 12_000 * 11_999
+    cases = [({(0, 0): (S - 2000) // 2, (255, 255): (S - 2000) // 2, (0, 255): 1000, (255, 0): 1000}, False)]
+    rng = np.random.default_rng(11)
+    for k in range(6):  # bright crops of 5,000-40,000 pixels a side: a few hundred cells each
+        n = int(rng.integers(5_000, 40_000)) ** 2
+        cells = rng.integers(180, 256, (int(rng.integers(2, 300)), 2))
+        w = rng.dirichlet(np.ones(len(cells)))
+        pairs: dict[tuple[int, int], int] = {}
+        for (i, j), c in zip(cells.tolist(), np.floor(w * n).astype(np.int64).tolist()):
+            pairs[(i, j)] = pairs.get((i, j), 0) + c
+        cases.append((pairs, k % 2 == 1))
+    rows, hists, want = [], [], []
+    for pairs, sym in cases:
+        sums, hist = _hand_sums(pairs)
+        assert sums[0] * sums[3] >= 2**63  # past int64
+        rows.append(sums)
+        hists.append(hist)
+        want.append(_exact_props(*sums[:6], symmetric=sym))
+    for (pairs, sym), sums, hist, (rounded, true) in zip(cases, rows, hists, want):
+        got = tf._glcm_props_plain(torch.tensor([sums]), torch.tensor([hist]), sym)[0]
+        assert float(got[5]) == rounded
+        assert abs(float(got[5]) - true) <= 1e-12
+    S, Si, Sj, Sii, Sjj, Sij = rows[0][:6]
+    wrapped = np.array([S, Si, Sj, Sii, Sjj, Sij], dtype=np.int64)
+    with np.errstate(over="ignore"):
+        vi = wrapped[0] * wrapped[3] - wrapped[1] * wrapped[1]
+        vj = wrapped[0] * wrapped[4] - wrapped[2] * wrapped[2]
+        cov = wrapped[0] * wrapped[5] - wrapped[1] * wrapped[2]
+    assert abs(float(cov) / np.sqrt(float(vi) * float(vj)) - 0.998124) < 1e-6  # what int64 gave
+    assert abs(want[0][1] - 0.999972) < 1e-6
+
+
+def test_centred_products_exact():
+    """``_centred`` (a b - c d rounded once) against Python integers on
+    entries on both sides of 2^62."""
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 2**62, 400, dtype=np.int64) >> rng.integers(0, 40, 400)
+    b, c, d = (rng.integers(0, 2**62, 400, dtype=np.int64) >> rng.integers(0, 40, 400) for _ in range(3))
+    got = tf._centred(*(torch.from_numpy(t) for t in (a, b, c, d))).numpy()
+    want = [float(int(w) * int(x) - int(y) * int(z)) for w, x, y, z in zip(a, b, c, d)]
+    assert np.array_equal(got, np.asarray(want))
+
+
+def test_glcm_moments_limit(monkeypatch):
+    """Props past the int64 sums: the plain version then keeps its sums in
+    Python integers (forced here on small crops through ``_sums_fit``),
+    which give its int64 sums and props exactly; no size is refused."""
+    assert tf._sums_fit(12_000 * 11_999, 256)  # a slide taken as one crop
+    assert not tf._sums_fit(46_400 * 46_399, 256) and not tf._sums_fit(2**30, 2**16)
+    rng = np.random.default_rng(12)
+    img = torch.from_numpy(rng.integers(0, 33, (5, 23, 19)).astype(np.int64))
+    img[0] = 7
+    img[1, :, :5] = 40  # outside the levels: those pairs drop
+    for sym, ignore in ((False, None), (True, None), (True, 3), (False, 32)):
+        for dr, dc in ((0, 1), (1, -1), (3, 0)):
+            want, want_hist = tf._glcm_sums_plain(img, dr, dc, 33, sym, ignore)
+            with monkeypatch.context() as m:
+                m.setattr(tf, "_sums_fit", lambda pairs, levels: False)
+                got, hist = tf._glcm_sums_plain(img, dr, dc, 33, sym, ignore)
+            assert isinstance(got, list) and got == want.tolist() and torch.equal(hist, want_hist)
+            assert torch.equal(tf._glcm_props_plain(got, hist, sym), tf._glcm_props_plain(want, want_hist, sym))
+    assert tf.glcm_props(torch.zeros((1, 4, 4, 1), dtype=torch.int32), [0], [(0, 1)], 300).shape == (1, 1, 1, 6)
+
+
+def test_glcm_plain_in_row_chunks(monkeypatch):
+    """The plain versions take an offset's pairs a run of whole rows at a
+    time: runs of one row give what one run of every row gives."""
+    img = torch.from_numpy(np.random.default_rng(13).integers(0, 40, (3, 17, 21)).astype(np.int32))
+    offs = [(0, 1), (2, -3), (-1, 2), (5, 0), (17, 0)]
+    counts = tf._glcm_counts_plain(img, offs, 40)
+    sums = [tf._glcm_sums_plain(img, dr, dc, 40, True, 5) for dr, dc in offs]
+    monkeypatch.setitem(tf._PLAIN_PAIRS, "cpu", 1)
+    assert torch.equal(tf._glcm_counts_plain(img, offs, 40), counts)
+    for (dr, dc), (want, want_hist) in zip(offs, sums):
+        got, hist = tf._glcm_sums_plain(img, dr, dc, 40, True, 5)
+        assert torch.equal(got, want) and torch.equal(hist, want_hist)
+
+
 def test_k18_route_rule():
     offs = tf._offsets([1], ANGLES)
     assert tf.k18_packed(89, 89, offs, False) and tf.k18_packed(177, 177, offs, False)
@@ -187,6 +300,15 @@ def test_k18_route_rule():
     assert tf.k18_packed(255, 257, offs, False)  # 65,280 pairs at most
     assert not tf.k18_packed(256, 257, offs, False)  # 65,536 at angle 0
     assert not tf.k18_packed(200, 200, offs, True)  # symmetric: the diagonal counts 2 a pair
+    assert tf.k18_route(89, 89, offs, False, 256) == "shared" == tf.k18_route(177, 177, offs, False, 256)
+    assert tf.k18_route(24, 24, [(0, 1)], True, 33) == "shared"
+    assert tf.k18_route(300, 300, offs, False, 256) == "global"  # past the 16-bit counters
+    assert tf.k18_route(48, 48, offs, False, 300, torch.int32) == "global"  # past 256 levels
+    assert tf.k18_route(48, 48, offs, False, 256, torch.int32) == "global"  # int32 pixels
+    assert tf.k18_route(1, 100_000, [(0, 1)], False, 256) == "global"  # a plane past the staged bytes
+    assert tf.k18_route(60_000, 1, [(1, 0)], False, 256) == "global"  # rows padded to 4 bytes pass them
+    assert tf._k18_images(torch.tensor([[-5, 3, 400]], dtype=torch.int64), 300).tolist() == [[-1, 3, 300]]
+    assert tf._k18_images(torch.tensor([[7]], dtype=torch.int16), 300).dtype == torch.int32
 
 
 # ------------------------------------------------------------------- K19
@@ -232,6 +354,106 @@ def test_summary_per_crop_against_jnp_quantile(size):
     nan[size // 2] = np.nan
     got, want = tf.summary_features(nan, (0.5, 0.1)), jf.summary_features(nan, (0.5, 0.1))
     np.testing.assert_array_equal(got["quantiles"], want["quantiles"])  # all NaN, as jnp.quantile gives
+
+
+def _float_keys(v: np.ndarray) -> np.ndarray:
+    """``csrc/crop_summary.cu`` `float_key`: order-preserving uint32 keys,
+    -0 as +0 and every NaN as the canonical quiet NaN."""
+    v = np.where(v == 0, np.float32(0), v).astype(np.float32)
+    v = np.where(np.isnan(v), np.float32(np.nan), v)
+    u = v.view(np.uint32).copy()
+    u[np.isnan(v)] = 0x7FC00000
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _select_model(keys: np.ndarray, ranks: np.ndarray, cap: int) -> np.ndarray:
+    """A numpy model of K19's select: four 8-bit digits from the top, a
+    pass counting the digit of each key under a live prefix into that
+    prefix's 256 bins, the resolve moving every rank into the bin that holds
+    it (the keys before it leave its rank), the live prefixes rebuilt from
+    the ranks in order, and after the second digit the keys under the live
+    prefixes copied out (in any order) when they fit ``cap``."""
+    pref = np.zeros(len(ranks), np.uint64)
+    rank = ranks.astype(np.int64).copy()
+    live, idx = np.zeros(1, np.uint64), np.zeros(len(ranks), np.int64)
+    pool = keys.astype(np.uint64)
+    for p in range(4):
+        shift = 24 - 8 * p
+        top = pool >> np.uint64(shift + 8)
+        where = np.searchsorted(live, top)
+        hit = (where < len(live)) & (live[np.minimum(where, len(live) - 1)] == top)
+        bins = np.zeros((len(live), 256), np.int64)
+        np.add.at(bins, (where[hit], ((pool[hit] >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)), 1)
+        in_bin = np.zeros(len(ranks), np.int64)
+        for k in range(len(ranks)):
+            cum = np.cumsum(bins[idx[k]])
+            digit = int(np.searchsorted(cum, rank[k], side="right"))
+            rank[k] -= int(cum[digit - 1]) if digit else 0
+            in_bin[k] = bins[idx[k], digit]
+            pref[k] = (pref[k] << np.uint64(8)) | np.uint64(digit)
+        live, first = np.unique(pref, return_index=True)
+        idx = np.searchsorted(live, pref)
+        under = int(in_bin[first].sum())  # the keys under the new live prefixes
+        if p == 1 and under <= cap:
+            keep = np.isin(pool >> np.uint64(16), live)
+            pool = np.random.default_rng(p).permutation(pool[keep])  # the ballot copy leaves any order
+            assert len(pool) == under
+    return pref.astype(np.uint32)
+
+
+@pytest.mark.parametrize("data", ["uint8", "ties", "signed", "specials", "constant"])
+@pytest.mark.parametrize("cap", [0, 1 << 30])
+def test_k19_select_model_against_sort(data, cap):
+    """The select's digit passes and rank bookkeeping for several ranks at
+    once give the keys ``np.sort`` puts at those ranks: uint8 pixels (a few
+    top digits), ties, signed values with -0 and +0, and +-inf and NaN."""
+    rng = np.random.default_rng(hash(data) % 1000)
+    if data == "uint8":
+        v = rng.integers(0, 256, 3000).astype(np.float32)
+    elif data == "ties":
+        v = rng.choice(np.float32([1.5, 1.5000001, 2.0, -3.0]), 2001)
+    elif data == "signed":
+        v = rng.normal(0, 1e3, 2500).astype(np.float32)
+        v[::7] = np.float32(0.0)
+        v[::11] = np.float32(-0.0)
+    elif data == "specials":
+        v = rng.uniform(-5, 5, 1500).astype(np.float32)
+        v[::9] = np.inf
+        v[::13] = -np.inf
+        v[::17] = np.nan
+    else:
+        v = np.full(777, np.float32(91.0))
+    keys = _float_keys(v)
+    p = len(keys)
+    for quantiles in ((0.9, 0.5, 0.1), (0.0, 1.0), tuple(np.linspace(0, 1, 16))):
+        for rule in (0, 1):
+            ranks = tf._k19_ranks(tf.quantile_table(quantiles, p, rule))[0]
+            assert len(ranks) <= tf.SELECT_RANKS
+            got = _select_model(keys, ranks, cap)
+            assert np.array_equal(got, np.sort(keys)[ranks]), (quantiles, rule)
+
+
+def test_k19_layout_and_tables():
+    """K19's route rule and its cached table on the device."""
+    smem, sms = 232_448, 132
+    assert tf._k19_layout(14_976, 7921, 6, smem, sms)[:3] == ("select", 256, 1)
+    assert tf._k19_layout(14_976, 31_329, 6, smem, sms)[:2] == ("select", 512)
+    assert tf._k19_layout(900, 40_000, 6, smem, sms)[:2] == ("select", 1024)
+    assert tf._k19_layout(1, 7921, 3, smem, sms)[:2] == ("select", 1024)  # the per-crop path: one wide block
+    assert tf._k19_layout(1, 40_000, 6, smem, sms)[:3] == ("select", 1024, 1)  # one crop whose keys fit
+    assert tf._k19_layout(1, 90_000, 6, smem, sms)[0] == "split"  # one large crop over several blocks
+    route, threads, blocks, cap = tf._k19_layout(1, 160_000, 6, smem, sms)
+    assert (route, threads) == ("split", 256) and blocks * 1024 >= 160_000 // 16 and cap == 0
+    assert tf._k19_layout(3, 60_000, 6, smem, sms)[0] == "split"  # past the shared keys
+    assert tf._k19_layout(600, 7921, 2999, smem, sms)[0] == "sort"  # 1,500 quantiles
+    table = tf.quantile_table((0.9, 0.5, 0.1), 7921, 0)
+    ranks, qlo, qhi = tf._k19_ranks(table)
+    assert np.array_equal(ranks[qlo], table[0]) and np.array_equal(ranks[qhi], table[1])
+    assert list(ranks) == sorted(set(ranks))
+    t1, at = tf._k19_device_table(table, torch.device("cpu"))
+    t2, _ = tf._k19_device_table(tuple(np.copy(t) for t in table), torch.device("cpu"))
+    assert t1 is t2 and at == [0, 6, 9, 12, 15]
+    assert np.array_equal(t1.numpy()[12:15].view(np.float32), table[2])
 
 
 def test_fma32_rounds_once():
@@ -298,6 +520,65 @@ def test_histogram_per_crop_against_jnp_histogram(data, bins):
     arr = rng.uniform(0, 1, 50).astype(np.float32)
     arr[7] = np.nan
     assert np.array_equal(tf.histogram_features(arr, 10, (0.0, 1.0)), jf.histogram_features(arr, 10, (0.0, 1.0)))
+
+
+def _edges_at_or_below(edges: np.ndarray, v: float) -> int:
+    """``csrc/crop_histogram.cu`` `edges_at_or_below`: the first edge above
+    v by a binary search."""
+    lo, hi = 0, len(edges)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if edges[mid] <= v:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _k20_bin(edges: np.ndarray, v: float) -> int:
+    """K20's rule-1 bin of v (-1: dropped): the search on non-decreasing
+    edges, the count edge by edge where an edge falls below its left
+    neighbour, the top edge into the last bin, NaN dropped."""
+    if np.isnan(v):
+        return -1
+    bins = len(edges) - 1
+    idx = int(np.sum(edges <= v)) if np.any(edges[1:] < edges[:-1]) else _edges_at_or_below(edges, v)
+    if v == edges[-1]:
+        idx = bins
+    return idx - 1 if 1 <= idx <= bins else -1
+
+
+@pytest.mark.parametrize("bins", [1, 2, 10, 1023, 2000, 30_000])
+def test_k20_binary_search_rule(bins):
+    """K20's binary search against the linear count on edges with ties, at,
+    between and outside the edges, NaN, and the plain version's bins."""
+    rng = np.random.default_rng(bins)
+    base = tf.histogram_edges(torch.tensor([np.float32(-3.0)]), torch.tensor([np.float32(7.0)]), bins)[0].numpy()
+    tied = np.sort(np.repeat(rng.choice(base, max(2, bins // 3)), rng.integers(1, 4, max(2, bins // 3))))[: bins + 1]
+    tied = np.sort(np.r_[tied, np.full(bins + 1 - len(tied), tied[-1])]).astype(np.float32)
+    for edges in (base, tied):
+        probes = np.r_[edges, (edges[:-1] + edges[1:]) / 2, np.nextafter(edges, np.float32(np.inf)),
+                       np.nextafter(edges, np.float32(-np.inf)), edges[0] - 1, edges[-1] + 1, np.nan].astype(np.float32)
+        probes = probes[rng.permutation(len(probes))[:3000]] if len(probes) > 3000 else probes
+        for v in probes:
+            assert _edges_at_or_below(edges, v) == int(np.sum(edges <= v)) or np.isnan(v)
+        plain = tf._histogram_plain(torch.from_numpy(probes).view(1, -1, 1), bins, 1,
+                                    torch.tensor([edges[0]]), torch.tensor([edges[-1]]), False)
+        if edges is base:  # the plain version's own edges
+            want = np.bincount([b for b in (_k20_bin(edges, v) for v in probes) if b >= 0], minlength=bins)
+            assert np.array_equal(plain[0, 0].numpy(), want)
+    falling = np.float32([0.0, 1.0, 0.5, 2.0])  # a falling edge: the count edge by edge
+    assert [_k20_bin(falling, v) for v in np.float32([0.75, 1.5, 2.0, -1.0])] == [1, 2, 2, -1]
+
+
+def test_k20_layout():
+    """K20's routes: the shared histogram and edges while they fit."""
+    assert tf._k20_layout(3, 10, 0) == (True, False)
+    assert tf._k20_layout(1, 1023, 1) == (True, True)
+    assert tf._k20_layout(1, 1024, 1) == (True, False)  # 1,025 edges: global, searched there
+    assert tf._k20_layout(1, 2000, 1) == (True, False)
+    assert tf._k20_layout(3, 30_000, 0) == (False, False)  # 360 KB of counters: global
+    assert tf._k20_layout(3, 13_653, 0) == (True, False) and tf._k20_layout(3, 13_654, 0) == (False, False)
 
 
 # ---------------------------------------------------------- the slice

@@ -318,6 +318,11 @@ last line ``{"ok": true, "device": {...}}``.
 times K18, K19 and K20 of two checkouts of this repository in turns on one
 card instead (``image_turns``): each checkout's ``squidpy_torch`` in a
 process of its own, on the crops of part i's slide.
+
+    python3 chip_smoke.py --k20-split
+
+cuts K20, its earlier design and the wrapper's host time into parts on one
+card (``k20_split``).
 """
 
 from __future__ import annotations
@@ -3633,11 +3638,13 @@ def image_path() -> tuple[dict, dict, dict]:
     twice, then with ``spot_scale=2`` (177 x 177 crops); i3: ``process``
     smooth (sigma 2) on the whole slide, then gray; i4: ``segment``
     (watershed) on a 2048 x 2048 corner and ``calculate_image_features``
-    (summary, segmentation: the per-crop path, K19) on the spots inside it.
-    Returns the data the kernel checks take, the launches of each call and
-    the seconds."""
+    (summary, segmentation: the per-crop path, K19) on the spots inside it,
+    ``native/`` built before the watershed's timed span. Returns the data
+    the kernel checks take, the launches of each call (K20's also by entry,
+    ``crop_histogram.uint8`` / ``.float32``) and the seconds."""
     import squidpy_torch as sqt
-    from squidpy_torch import _cuda
+    from squidpy_torch import _cuda, native
+    from squidpy_torch.ops import features as F
 
     secs: dict[str, float] = {}
     launches: dict[str, dict] = {}
@@ -3646,14 +3653,22 @@ def image_path() -> tuple[dict, dict, dict]:
     spots = _visium_spots()
     secs["i1_setup_s"] = time.perf_counter() - t0
     feats = ["summary", "histogram", "texture"]
-    for call, kw in (("i2_first", {}), ("i2", {}), ("i2_scale2", {"spot_scale": 2})):
+
+    def counted() -> dict:  # the kernels' launches, and K20's by entry
+        return dict(_cuda.launches, **{f"crop_histogram.{k}": v for k, v in F.k20_entry_launches.items()})
+
+    def reset() -> None:
         _cuda.reset_launches()
+        F.k20_entry_launches.update(dict.fromkeys(F.k20_entry_launches, 0))
+
+    for call, kw in (("i2_first", {}), ("i2", {}), ("i2_scale2", {"spot_scale": 2})):
+        reset()
         _, secs[f"{call}_s"] = _sync_time(lambda kw=kw: _blocked_pandas(
             lambda: sqt.im.calculate_image_features(spots, img, features=feats, key_added=call, **kw)))
-        launches[call] = dict(_cuda.launches)
+        launches[call] = counted()
         side = 2 * int(round(IMG_DIAMETER // 2 * kw.get("spot_scale", 1.0))) + 1
         _check_features(call, spots.obsm[call], len(spots.obs_names), 3 * (5 + 10 + 20), side)
-    _cuda.reset_launches()
+    reset()
     _, secs["i3_smooth_s"] = _sync_time(lambda: sqt.im.process(img, layer="image", method="smooth", sigma=2))
     _, secs["i3_gray_s"] = _sync_time(lambda: sqt.im.process(img, layer="image", method="gray"))
     smooth, gray = img["image_smooth"], img["image_gray"]
@@ -3662,9 +3677,10 @@ def image_path() -> tuple[dict, dict, dict]:
     if not (np.abs(smooth[::97, ::97].astype(np.int16) - img["image"][::97, ::97]).mean() > 0
             and 0.0 <= float(gray.min()) and float(gray.max()) <= 1.0):
         raise AssertionError("part i3: smoothing changed nothing, or gray left [0, 1]")
-    launches["i3"] = dict(_cuda.launches)
+    launches["i3"] = counted()
     y0 = x0 = (IMG_SIDE - IMG_SEG_SIDE) // 2
     corner = img.crop_corner(y0, x0, size=IMG_SEG_SIDE)
+    native.ensure_built()  # g++'s build of native/ (the watershed's first use) before the timed span
     _, secs["i4_segment_s"] = _sync_time(lambda: sqt.im.segment(corner, layer="image_gray", method="watershed",
                                                                 thresh=IMG_NUCLEUS_GRAY, geq=False))
     labels = corner["segmented_watershed"]
@@ -3674,12 +3690,12 @@ def image_path() -> tuple[dict, dict, dict]:
     xy = spots.obsm["spatial"]
     inside = (xy[:, 0] >= x0) & (xy[:, 0] < x0 + IMG_SEG_SIDE) & (xy[:, 1] >= y0) & (xy[:, 1] < y0 + IMG_SEG_SIDE)
     sub = ImageStandIn(xy[inside], [n for n, k in zip(spots.obs_names, inside) if k])
-    _cuda.reset_launches()
+    reset()
     _, secs["i4_features_s"] = _sync_time(lambda: _blocked_pandas(lambda: sqt.im.calculate_image_features(
         sub, corner, layer="image", features=["summary", "segmentation"],
         features_kwargs={"segmentation": {"label_layer": "segmented_watershed",
                                           "props": ("label", "area", "mean_intensity")}})))
-    launches["i4"] = dict(_cuda.launches)
+    launches["i4"] = counted()
     res = sub.obsm["img_features"]
     if len(res.index) != int(inside.sum()) or not np.all(np.asarray(res.columns["segmentation_label"]) >= 0):
         raise AssertionError("part i4: the per-crop frame does not hold every spot of the corner")
@@ -3760,22 +3776,41 @@ def check_crop_summary(name: str, x, rule: int = 0, plain_warm: bool = False, qu
                     repeats=3, bound=bound, plain_warm=plain_warm, library=library)
 
 
-def check_crop_histogram(name: str, x, bins: int, v_range, rule: int = 0) -> dict:
-    """K20 against its plain version: counts bitwise."""
+def check_crop_histogram(name: str, x, bins: int, v_range, rule: int = 0, library: bool = False) -> dict:
+    """K20 against its plain version on the crops as float32: counts
+    bitwise. The line names the entry (``_k20_layout``: uint8 crops take the
+    byte entry) and its routes. Bound: the crops' own bytes read once and
+    the counts written once, about six operations a value. ``library``:
+    ``torch.histc`` of the crop as float32 (one crop over a fixed range; it
+    rounds its bin edges otherwise than ``jnp.histogram``, so its counts are
+    not compared)."""
     import torch
 
+    from squidpy_torch import _cuda
     from squidpy_torch.ops import features as F
 
     n, p, c = x.shape
     lo = torch.full((n,), 0.0 if v_range is None else float(v_range[0]), device="cuda")
     hi = torch.full((n,), 0.0 if v_range is None else float(v_range[1]), device="cuda")
-    bound = _bound(n * p * c * 4 + n * c * bins * 4, 6.0 * n * p * c)
-    hist_shared, edges_shared = F._k20_layout(c, bins, rule)
-    route = f"hist={'shared' if hist_shared else 'global'}" + (
-        f" edges={'shared' if edges_shared else 'global'}" if rule == 1 else "")
-    return _compare(f"crop_histogram {name} n={n} p={p} c={c} bins={bins} range={v_range} rule={rule} {route}",
-                    lambda: F._histogram_k20(x, bins, rule, lo, hi, v_range is None),
-                    lambda: F._histogram_plain(x, bins, rule, lo, hi, v_range is None), repeats=3, bound=bound)
+    bound = _bound(x.numel() * x.element_size() + n * c * bins * 4, 6.0 * n * p * c)
+    lay = F._k20_layout(n, p, c, bins, rule, x.dtype == torch.uint8, *_cuda.device_info())
+    hist = f"hist={'shared' if lay.hist_shared else 'global'}"
+    if lay.entry == "uint8":
+        route = f"entry=uint8 splits={lay.splits} fused={lay.fused} {hist}"
+    else:
+        route = f"entry=float32 {hist}" + (f" edges={'shared' if lay.edges_shared else 'global'}" if rule == 1 else "")
+    histc = (lambda: torch.histc(x.to(torch.float32), bins=bins, min=float(v_range[0]),  # noqa: E731
+                                 max=float(v_range[1]))) if library else None
+
+    def kernel():
+        return F._histogram_k20(x, bins, rule, lo, hi, v_range is None)
+
+    held = kernel(), kernel()  # two outputs at once, as the timed loop holds them: the allocator's blocks made here
+    del held
+    return _compare(f"crop_histogram {name} n={n} p={p} c={c} {str(x.dtype)[6:]} bins={bins} range={v_range} "
+                    f"rule={rule} {route}", kernel,
+                    lambda: F._histogram_plain(x.to(torch.float32), bins, rule, lo, hi, v_range is None), repeats=10,
+                    bound=bound, library=histc)
 
 
 def image_branch_checks(batch) -> dict[str, list[dict]]:
@@ -3789,8 +3824,9 @@ def image_branch_checks(batch) -> dict[str, list[dict]]:
     and 128-bit sums), 1,500 quantiles (K19's sort route), one crop past the
     shared keys over several blocks (K19's split route: a 300 x 300 crop by
     ``jnp.quantile``'s rule and a 400 x 400 one by the batched rule), 2,000
-    bins by ``jnp.histogram``'s rule (K20's edges in global memory and
-    their binary search) and 30,000 bins by the batched rule (K20's
+    bins by ``jnp.histogram``'s rule and 30,000 bins by the batched rule,
+    each by K20's uint8 entry (the fold past the shared histogram) and its
+    float32 entry (edges in global memory and their binary search; the
     histogram in global memory)."""
     import torch
 
@@ -3822,13 +3858,31 @@ def image_branch_checks(batch) -> dict[str, list[dict]]:
     out["crop_summary"].append(check_crop_summary("one 300x300 crop, jnp.quantile", large, rule=1))
     wide = torch.from_numpy(rng.integers(0, 256, (1, 400 * 400, 3)).astype(np.float32)).cuda()
     out["crop_summary"].append(check_crop_summary("one 400x400 crop, past the shared keys", wide))
-    out["crop_histogram"].append(check_crop_histogram("2000 bins, jnp.histogram", xs[:1, :, :1].contiguous(), 2000,
-                                                      (40.0, 250.0), rule=1))
-    out["crop_histogram"].append(check_crop_histogram("30000 bins", xs, 30_000, None))
+    x8 = batch[:200].reshape(200, -1, 3)
+    for crops in (x8, xs):
+        out["crop_histogram"].append(check_crop_histogram("2000 bins, jnp.histogram", crops[:1, :, :1].contiguous(),
+                                                          2000, (40.0, 250.0), rule=1, library=True))
+        out["crop_histogram"].append(check_crop_histogram("30000 bins", crops, 30_000, None))
     return out
 
 
 TURN_REPEATS = 5
+ONE_CROP_REPEATS = 200  # a one-crop call is host-bound and short: more calls a time
+
+
+def _host_us(fn, calls: int = ONE_CROP_REPEATS) -> float:
+    """Mean microseconds of host time a call of ``fn`` takes (``perf_counter``
+    over ``calls`` calls after a warm-up, the card synchronised at the
+    end): the time of a call that keeps the card waiting on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / calls * 1e6
 
 
 def _turns_worker(tree: str) -> None:
@@ -3850,8 +3904,8 @@ def _turns_worker(tree: str) -> None:
     _cuda.library()
     digest = hashlib.sha256()
 
-    def timed(fn) -> float:
-        out, ms = _time_ms(fn, TURN_REPEATS)
+    def timed(fn, repeats: int = TURN_REPEATS) -> float:
+        out, ms = _time_ms(fn, repeats)
         for t in out if isinstance(out, tuple) else (out,):
             digest.update(t.cpu().numpy().tobytes())
         return ms
@@ -3869,13 +3923,38 @@ def _turns_worker(tree: str) -> None:
         out[f"k18_{tag}_ms"] = timed(lambda: F._glcm_k18(crops, [0, 1, 2], list(IMG_OFFSETS), 256, False, None,
                                                           False))
         out[f"k19_{tag}_ms"] = timed(lambda: F._summary_k19(x, table, 0))
+        # K20: the float32 entry, and the uint8 entry where the tree has one (the earlier design took the float32 copy)
+        bytes_in = crops.reshape(n, -1, 3) if hasattr(F, "K20Layout") else x
+        ranges = {"": (None, 0), "_fixed": ((50.0, 200.0), 0)}
         if tag == "i2":
             one = x[:1, :, :1].contiguous()
             table1 = F.quantile_table(IMG_QUANTILES, one.shape[1], 1)
             out["k19_one_ms"] = timed(lambda: F._summary_k19(one, table1, 1))
-            zero = torch.zeros(n, dtype=torch.float32, device="cuda")
-            out["k20_i2_ms"] = timed(lambda: F._histogram_k20(x, 10, 0, zero, zero, True))
-        del crops, x
+            ranges.update({"_one": ((40.0, 250.0), 1), "_2000": ((40.0, 250.0), 1), "_30000": (None, 0)})
+        for key, (v_range, rule) in ranges.items():
+            bins = {"_2000": 2000, "_30000": 30_000}.get(key, 10)
+            rows = {"_one": 1, "_2000": 1, "_30000": 200}.get(key, n)
+            chans = 1 if rule else 3
+            lo = torch.full((rows,), 0.0 if v_range is None else v_range[0], device="cuda")
+            hi = torch.full((rows,), 0.0 if v_range is None else v_range[1], device="cuda")
+            for entry, src in (("", x), ("_u8", bytes_in)):
+                part = src[:rows, :, :chans].contiguous()
+                out[f"k20_{tag}{key}{entry}_ms"] = timed(
+                    lambda part=part, bins=bins, rule=rule, lo=lo, hi=hi, v_range=v_range: F._histogram_k20(
+                        part, bins, rule, lo, hi, v_range is None), ONE_CROP_REPEATS if rows == 1 else TURN_REPEATS)
+            if rows == 1:  # host-bound: the wrapper's host time a call, and the float32 launch alone from ctypes
+                part = x[:1, :, :1].contiguous()
+                res = torch.empty((1, 1, bins), dtype=torch.int32, device="cuda")
+                gedges = torch.empty((1, bins + 1), dtype=torch.float32, device="cuda") if bins >= 1024 else None
+                out[f"k20_{tag}{key}_host_us"] = _host_us(lambda part=part, bins=bins, lo=lo, hi=hi: F._histogram_k20(
+                    part, bins, 1, lo, hi, False))
+                out[f"k20_{tag}{key}_launch_us"] = _host_us(
+                    lambda part=part, bins=bins, lo=lo, hi=hi, res=res, gedges=gedges: _cuda.check(
+                        _cuda.library().sqt_crop_histogram(
+                            part.data_ptr(), 1, part.shape[1], 1, bins, 1, lo.data_ptr(), hi.data_ptr(), 0, 0,
+                            None if gedges is None else gedges.data_ptr(), res.data_ptr(), _cuda.stream_ptr()),
+                        "crop_histogram"))
+        del crops, x, bytes_in
         torch.cuda.empty_cache()
     xg = torch.from_numpy(np.random.default_rng(62).integers(0, 256, (300, 200 * 200, 3)).astype(np.float32)).cuda()
     out["k19_200_ms"] = timed(lambda: F._summary_k19(xg, F.quantile_table(IMG_QUANTILES, xg.shape[1], 0), 0))
@@ -3893,8 +3972,12 @@ def image_turns(argv: list[str]) -> int:
     ``k19_i2_ms`` / ``k19_s2_ms`` K19 on them as (n, pixels, 3) float32,
     ``k19_one_ms`` K19 on one crop's channel by ``jnp.quantile``'s rule,
     ``k19_200_ms`` K19 on 300 crops of 200 x 200 x 3 random integers,
-    ``k20_i2_ms`` K20, 10 bins over each crop's range. The outputs of every
-    turn must hash alike (each kernel is bitwise its plain version)."""
+    ``k20_i2_ms`` / ``k20_s2_ms`` K20, 10 bins over each crop's range
+    (``_fixed``: over (50, 200); at i2 also ``_one``: one crop's channel by
+    ``jnp.histogram``'s rule, ``_2000``: 2,000 bins so, ``_30000``: 30,000
+    bins on 200 crops), by the float32 entry and (``_u8``) by the uint8
+    entry, or by a tree without one on the float32 crops. The outputs of
+    every turn must hash alike (each kernel is bitwise its plain version)."""
     import argparse
 
     parser = argparse.ArgumentParser(prog="chip_smoke.py --turns")
@@ -3918,6 +4001,120 @@ def image_turns(argv: list[str]) -> int:
     return 0
 
 
+def _k20_split_library():
+    """``examples/k20_split.cu`` (K20's earlier design with its measuring
+    modes) built with the kernels' flags into the git-ignored
+    ``squidpy_torch/_build/``."""
+    import ctypes
+    import hashlib
+
+    from squidpy_torch import _cuda
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, "examples", "k20_split.cu")
+    csrc = os.path.join(root, "squidpy_torch", "csrc")
+    with open(src, "rb") as f, open(os.path.join(csrc, "common.cuh"), "rb") as g:
+        digest = hashlib.sha256(f.read() + g.read()).hexdigest()[:16]
+    so = os.path.join(root, "squidpy_torch", "_build", f"libk20_split_{digest}.so")
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        flags = [f for f in _cuda.FLAGS if f not in ("-Xptxas", "-v")]
+        subprocess.run([_cuda._nvcc(), *flags, "-shared", "-I", csrc, "-o", so, src], check=True)
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sqt_k20_split.argtypes = [P, I, I, I, I, P, I, P]
+    return lib
+
+
+def k20_split() -> int:
+    """K20 cut into its parts on one card (``--k20-split``), on part i's crops
+    (``_he_image`` seed 61, ``_visium_spots``; ``i2`` 89 x 89, ``s2`` 177 x
+    177, three channels, 10 bins over each crop's own range), ``_time_ms``
+    times in ms (``TURN_REPEATS`` calls after a warm-up):
+
+    - ``old_*``: the earlier design (``examples/k20_split.cu``): ``whole``;
+      ``no_atomics`` the bin pass with the bins summed in a register;
+      ``fixed_counter`` each value added to one counter a lane;
+      ``range_only`` the range pass alone;
+    - ``u8_*``: the uint8 entry, ``whole`` (``_histogram_k20``) and
+      ``count_only`` (the counting kernel adding into a value table, no
+      fold); ``f32_*_whole``: the float32 entry;
+    - ``copy_u8_*`` / ``copy_f32_*``: ``Tensor.copy_`` of the crops, a
+      yardstick of reading and writing those bytes;
+    - ``host_*_us`` (``_host_us``), on one crop's channel by
+      ``jnp.histogram``'s rule at 10 bins: the wrapper on float32 and on
+      uint8, and its parts: the cached layout and device lookups, the
+      output's allocation and widening, the tensor's checks, the float32
+      launch from ctypes.
+
+    Each whole is checked bitwise against the plain version first. Prints
+    one JSON line and the card's name and power limit."""
+    import torch
+
+    import squidpy_torch as sqt
+    from squidpy_torch import _cuda
+    from squidpy_torch.ops import features as F
+
+    sqt.set_device("cuda")
+    lib, split = _cuda.library(), _k20_split_library()
+    torch.use_deterministic_algorithms(True)  # the nuclei overlap: the slide's scatter must not race
+    img = _he_image(61)
+    torch.use_deterministic_algorithms(False)
+    xy = np.round(_visium_spots().obsm["spatial"]).astype(int)
+    out: dict[str, float] = {}
+
+    def timed(fn) -> float:
+        return _time_ms(fn, TURN_REPEATS)[1]
+
+    for tag, r in (("i2", 44), ("s2", 88)):
+        u8 = torch.from_numpy(np.stack([img[y - r : y + r + 1, x - r : x + r + 1] for x, y in xy])).cuda()
+        n = u8.shape[0]
+        u8 = u8.reshape(n, -1, 3)
+        f32 = u8.to(torch.float32)
+        p = u8.shape[1]
+        zero = torch.zeros(n, dtype=torch.float32, device="cuda")
+        want = F._histogram_plain(f32, 10, 0, zero, zero, True)
+        counts = torch.empty((n, 3, 10), dtype=torch.int32, device="cuda")
+        for mode, what in ((0, "whole"), (1, "no_atomics"), (2, "fixed_counter"), (3, "range_only")):
+            def old(mode=mode):
+                _cuda.check(split.sqt_k20_split(f32.data_ptr(), n, p, 3, 10, counts.data_ptr(), mode,
+                                                _cuda.stream_ptr()), "k20_split")
+
+            old()
+            if mode == 0 and not torch.equal(counts.to(torch.int64), want):
+                raise AssertionError(f"{tag}: the earlier K20 differs from the plain version")
+            out[f"old_{tag}_{what}_ms"] = timed(old)
+        for entry, src in (("u8", u8), ("f32", f32)):
+            if not torch.equal(F._histogram_k20(src, 10, 0, zero, zero, True), want):
+                raise AssertionError(f"{tag}: K20's {entry} entry differs from the plain version")
+            out[f"{entry}_{tag}_whole_ms"] = timed(lambda src=src: F._histogram_k20(src, 10, 0, zero, zero, True))
+        layout = F._k20_layout(n, p, 3, 10, 0, True, *F._device_info(u8.device))
+        table = torch.zeros((n, 3, 256), dtype=torch.int32, device="cuda")
+        out[f"u8_{tag}_count_only_ms"] = timed(lambda: _cuda.check(lib.sqt_crop_histogram_u8(
+            u8.data_ptr(), n, p, 3, 10, 0, zero.data_ptr(), zero.data_ptr(), 1, 1, layout.chunk, 0, table.data_ptr(),
+            counts.data_ptr(), _cuda.stream_ptr()), "crop_histogram"))
+        out[f"copy_u8_{tag}_ms"] = timed(lambda: torch.empty_like(u8).copy_(u8))
+        out[f"copy_f32_{tag}_ms"] = timed(lambda: torch.empty_like(f32).copy_(f32))
+        if tag == "i2":
+            one, one8 = f32[:1, :, :1].contiguous(), u8[:1, :, :1].contiguous()
+            lo, hi = (torch.full((1,), v, device="cuda") for v in (40.0, 250.0))
+            res = torch.empty((1, 1, 10), dtype=torch.int32, device="cuda")
+            out["host_f32_wrapper_us"] = _host_us(lambda: F._histogram_k20(one, 10, 1, lo, hi, False))
+            out["host_u8_wrapper_us"] = _host_us(lambda: F._histogram_k20(one8, 10, 1, lo, hi, False))
+            out["host_layout_us"] = _host_us(lambda: F._k20_layout(1, p, 1, 10, 1, False, *F._device_info(one.device)))
+            out["host_alloc_us"] = _host_us(lambda: torch.empty((1, 1, 10), dtype=torch.int32,
+                                                                device="cuda").to(torch.int64))
+            out["host_require_us"] = _host_us(lambda: _cuda.require(one, "crops", torch.float32))
+            out["host_launch_us"] = _host_us(lambda: _cuda.check(lib.sqt_crop_histogram(
+                one.data_ptr(), 1, p, 1, 10, 1, lo.data_ptr(), hi.data_ptr(), 0, 0, None, res.data_ptr(),
+                _cuda.stream_ptr()), "crop_histogram"))
+        del u8, f32
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    print(_nvidia_smi())
+    return 0
+
+
 def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
     """K18-K20 on part i's own batches (i2's 89 x 89 crops, then i2_scale2's
     177 x 177), then in their branches: 300 x 300 crops (89,700 pairs an
@@ -3925,7 +4122,9 @@ def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
     one cell), levels 33 with ``symmetric`` and ``ignore_level`` (the
     experimental per-cell texture's call), K18's count entry, K19 by
     ``jnp.quantile``'s rule and at 200 x 200, K20 over a fixed range and by
-    ``jnp.histogram``'s rule, and ``image_branch_checks``."""
+    ``jnp.histogram``'s rule, and ``image_branch_checks``. K20 runs each
+    input by its uint8 entry (the main path's: i2's first check, which the
+    kernels line reports) and its float32 entry."""
     import torch
 
     from squidpy_torch.ops import features as F
@@ -3936,12 +4135,14 @@ def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
     x = batch.reshape(n, -1, 3).to(torch.float32).contiguous()
     out["glcm"].append(check_glcm("part i2", batch, [0, 1, 2], IMG_OFFSETS))
     out["crop_summary"].append(check_crop_summary("part i2", x))
+    out["crop_histogram"].append(check_crop_histogram("part i2", batch.reshape(n, -1, 3), 10, None))
     out["crop_histogram"].append(check_crop_histogram("part i2", x, 10, None))
     del x
     big = _spot_batch(data, spot_scale=2)
     xb = big.reshape(n, -1, 3).to(torch.float32).contiguous()
     out["glcm"].append(check_glcm("part i2 spot_scale=2", big, [0, 1, 2], IMG_OFFSETS))
     out["crop_summary"].append(check_crop_summary("part i2 spot_scale=2", xb))
+    out["crop_histogram"].append(check_crop_histogram("part i2 spot_scale=2", big.reshape(n, -1, 3), 10, None))
     out["crop_histogram"].append(check_crop_histogram("part i2 spot_scale=2", xb, 10, None))
     del big, xb
     torch.cuda.empty_cache()
@@ -3959,11 +4160,13 @@ def image_kernel_checks(data: dict) -> dict[str, list[dict]]:
     xg = torch.from_numpy(rng.integers(0, 256, (300, 200 * 200, 3)).astype(np.float32)).cuda()
     out["crop_summary"].append(check_crop_summary("200x200", xg))
     del xg
-    xs = batch.reshape(n, -1, 3).to(torch.float32).contiguous()
-    out["crop_histogram"].append(check_crop_histogram("fixed range", xs, 10, (50.0, 200.0)))
+    x8 = batch.reshape(n, -1, 3)
+    xs = x8.to(torch.float32).contiguous()
     lo_hi = (float(xs[0, :, 0].min()), float(xs[0, :, 0].max()))
-    out["crop_histogram"].append(check_crop_histogram("one crop, jnp.histogram", xs[:1, :, :1].contiguous(), 10,
-                                                      lo_hi, rule=1))
+    for crops in (x8, xs):
+        out["crop_histogram"].append(check_crop_histogram("fixed range", crops, 10, (50.0, 200.0)))
+        out["crop_histogram"].append(check_crop_histogram("one crop, jnp.histogram", crops[:1, :, :1].contiguous(), 10,
+                                                          lo_hi, rule=1, library=True))
     del xs
     if F.k18_route(300, 300, list(IMG_OFFSETS), False, 256) != "global":
         raise AssertionError("K18's 300 x 300 check did not take the global route")
@@ -5012,13 +5215,13 @@ def main() -> int:
     print(f"[main path i] {IMG_SIDE}x{IMG_SIDE} H&E, {IMG_ROWS * IMG_COLS} spots of {IMG_DIAMETER:.0f} px, "
           f"pandas blocked " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                                         for k, v in secs_i.items()), flush=True)
-    wanted_i = {"i2_first": ("glcm", "crop_summary", "crop_histogram"), "i2": ("glcm", "crop_summary", "crop_histogram"),
-                "i2_scale2": ("glcm", "crop_summary", "crop_histogram"), "i3": (), "i4": ("crop_summary",)}
+    i2_kernels = ("glcm", "crop_summary", "crop_histogram", "crop_histogram.uint8")  # K20 by its uint8 entry
+    wanted_i = {"i2_first": i2_kernels, "i2": i2_kernels, "i2_scale2": i2_kernels, "i3": (), "i4": ("crop_summary",)}
     for part, counts in launches_i.items():
         print(f"[launches {part}] {counts}", flush=True)
         missing = [k for k in wanted_i[part] if counts[k] <= 0]
-        if missing:
-            raise AssertionError(f"part {part}: {missing} not launched")
+        if missing or counts["crop_histogram.float32"]:
+            raise AssertionError(f"part {part}: {missing} not launched, or K20's float32 entry launched on uint8 crops")
         launches = {k: launches[k] + counts[k] for k in launches}
     phases["main_path_i"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -5080,4 +5283,6 @@ if __name__ == "__main__":
         sys.exit(image_turns(sys.argv[2:]))
     if sys.argv[1:2] == ["--turns-worker"]:
         sys.exit(_turns_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--k20-split"]:
+        sys.exit(k20_split())
     sys.exit(main())

@@ -39,7 +39,8 @@ and sum. K18 (``glcm``), K19 (``crop_summary``) and K20
 their wrappers, which takes every crop and channel of the call (and with K18
 every offset): K18's shared route starts two CUDA kernels (the counts, then
 the props), its global route one to three an offset and group of items;
-K19's split route one a digit; K20 one.
+K19's split route one a digit; K20 one or, its uint8 entry over a crop
+split between blocks, two (the counts, then the fold).
 
 ``build_seconds`` gives, after a build in this process, each source's
 seconds from the start of all compiles to the end of its own, and the link's.
@@ -164,7 +165,9 @@ _SIGNATURES = {
                  _P],
     "sqt_crop_summary": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P],
-    "sqt_crop_histogram": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "sqt_crop_histogram": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "sqt_crop_histogram_u8": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _L, _I, _P, _P, _P],
+    "sqt_crop_histogram_fold": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "sqt_device_info": [_P],
     "sqt_perm_autocorr": [_I, _I, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, _I, ctypes.c_int64,
                           ctypes.c_int64, _I, _P, _P, _P],

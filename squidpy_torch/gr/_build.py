@@ -3,8 +3,10 @@
 The deprecated ``spatial_neighbors`` facade, the five mode-specific
 functions, and ``mask_graph``. Results are written under the same keys as
 ``squidpy_tpu``: ``obsp['{key_added}_connectivities'/'_distances']`` and
-``uns['{key_added}_neighbors']``. Resolving SpatialData element centroids
-(``elements_to_coordinate_systems``) is not ported yet and raises.
+``uns['{key_added}_neighbors']``. With ``elements_to_coordinate_systems``,
+a SpatialData-like input's shapes, labels or points elements give the
+table's coordinates (their centroids), and a region key with more than one
+region becomes the library key, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -101,24 +103,139 @@ def _resolve_graph_builder(
     return KNNBuilder(n_neighs=n_neighs, **common, percentile=percentile)
 
 
+def _first_unique(values: np.ndarray) -> np.ndarray:
+    """The distinct ``values`` in order of first appearance (``pd.unique``'s order)."""
+    _, first = np.unique(values, return_index=True)
+    return values[np.sort(first)]
+
+
+def element_centroids(elem: Any) -> tuple[np.ndarray | None, np.ndarray]:
+    """Centroids of a SpatialData-style element as ``(instance_ids, (m, 2) xy)``.
+
+    Duck-typed, as the JAX package's ``element_centroids``:
+
+    - 2D integer array (labels image): per-label centroid; label 0 is
+      background and dropped.
+    - DataFrame with ``x``/``y`` columns (circles / points): those columns.
+    - GeoDataFrame-like with a ``geometry`` column of objects exposing
+      ``.centroid.x/.y`` (shapes).
+    - ``(m, 2)`` float array: treated as centroids directly.
+    """
+    if isinstance(elem, np.ndarray) or (hasattr(elem, "ndim") and hasattr(elem, "dtype")):
+        arr = np.asarray(elem)
+        if arr.ndim == 2 and np.issubdtype(arr.dtype, np.integer):
+            from squidpy_torch.experimental.im import compute_cell_info
+
+            info = compute_cell_info(arr)
+            ids = np.array(sorted(i for i in info if i != 0))
+            cent = np.array([[info[i].centroid_x, info[i].centroid_y] for i in ids], dtype=np.float64)
+            return ids, cent.reshape(-1, 2)
+        if arr.ndim == 2 and arr.shape[1] == 2:
+            return None, np.asarray(arr, dtype=np.float64)
+        raise TypeError(f"Cannot derive centroids from an array of shape {arr.shape} / dtype {arr.dtype}.")
+    if hasattr(elem, "columns") and "x" in elem.columns and "y" in elem.columns:
+        ids = np.asarray(elem.index)
+        return ids, np.asarray(elem[["x", "y"]], dtype=np.float64)
+    if hasattr(elem, "geometry"):
+        geoms = list(elem.geometry)
+        cent = np.array([[g.centroid.x, g.centroid.y] for g in geoms], dtype=np.float64)
+        ids = np.asarray(elem.index) if hasattr(elem, "index") else None
+        return ids, cent.reshape(-1, 2)
+    raise TypeError(f"Cannot derive centroids from element of type `{type(elem).__name__}`.")
+
+
+def _get_element(sdata: Any, name: str) -> Any:
+    try:
+        return sdata[name]
+    except (TypeError, KeyError):
+        pass
+    for attr in ("shapes", "labels", "points", "images"):
+        coll = getattr(sdata, attr, None)
+        if coll is not None and name in coll:
+            return coll[name]
+    raise KeyError(f"Element `{name}` not found in the SpatialData object.")
+
+
+def _attach_element_centroids(
+    sdata: Any,
+    table: Any,
+    elements_to_coordinate_systems: dict[str, str],
+    spatial_key: str,
+) -> str | None:
+    """Resolve per-cell coordinates from shapes/labels/points elements into
+    ``table.obsm[spatial_key]``; returns the table's region key (which becomes
+    the library key). Elements are taken as already expressed in their target
+    coordinate system (identity transform), as in the JAX package."""
+    attrs = dict(table.uns.get("spatialdata_attrs", {}))
+    region = attrs.get("region")
+    region_key = attrs.get("region_key")
+    instance_key = attrs.get("instance_key")
+
+    if region_key is not None and region_key in table.obs:
+        regions = np.asarray(table.obs[region_key])
+        ordered_regions = list(_first_unique(regions))
+    else:
+        region_key = None
+        ordered_regions = [region] if isinstance(region, str) and region else list(elements_to_coordinate_systems)
+
+    missing = [r for r in ordered_regions if r not in elements_to_coordinate_systems]
+    if missing:
+        raise ValueError(
+            f"The table annotates elements {missing} that are absent from "
+            f"`elements_to_coordinate_systems`; every annotated element needs a coordinate system."
+        )
+
+    blocks: list[np.ndarray] = []
+    for name in ordered_regions:
+        ids, cent = element_centroids(_get_element(sdata, name))
+        if region_key is not None and instance_key is not None and ids is not None:
+            inst = np.asarray(table.obs[instance_key])[regions == name]
+            pos = {v: i for i, v in enumerate(ids)}
+            try:
+                order = np.array([pos[v] for v in inst])
+            except KeyError as e:
+                raise ValueError(
+                    f"Table instance {e.args[0]!r} of region `{name}` has no centroid in the element."
+                ) from None
+            cent = cent[order]
+        blocks.append(cent)
+
+    centroids = np.concatenate(blocks, axis=0) if blocks else np.empty((0, 2))
+    if centroids.shape[0] != table.n_obs:
+        raise ValueError(
+            f"Resolved `{centroids.shape[0]}` centroids for a table of `{table.n_obs}` observations; "
+            f"the elements must annotate every table row exactly once."
+        )
+    table.obsm[spatial_key] = centroids
+    return region_key
+
+
 def _prepare_spatial_neighbors_input(
     data: Any,
     *,
     spatial_key: str,
     elements_to_coordinate_systems: dict[str, str] | None,
     table_key: str | None,
-) -> Any:
-    """The table to build on. The JAX package may also resolve element
-    centroids into ``obsm[spatial_key]`` and a region key into the library
-    key here; the port does not yet, and raises."""
-    if elements_to_coordinate_systems is not None:
-        raise NotImplementedError(
-            "Resolving SpatialData element centroids (`elements_to_coordinate_systems`) is not ported to "
-            "squidpy_torch yet; see ROADMAP.md, queue 1."
-        )
+    library_key: str | None,
+) -> tuple[Any, str | None]:
+    """The table to build on and the library key. Given
+    ``elements_to_coordinate_systems`` and a SpatialData-like ``data``, the
+    elements' centroids become ``obsm[spatial_key]``, and a region key with
+    more than one region becomes the library key (made categorical)."""
     adata = extract_adata_if_sdata(data, table_key=table_key)
+    if elements_to_coordinate_systems is not None and adata is not data:
+        region_key = _attach_element_centroids(data, adata, elements_to_coordinate_systems, spatial_key)
+        if library_key is None and region_key is not None:
+            col = adata.obs[region_key]
+            values = np.asarray(col)
+            if len(_first_unique(values[values == values])) > 1:  # nunique: NaN left out
+                if not hasattr(getattr(col, "cat", None), "codes"):
+                    import pandas as pd
+
+                    adata.obs[region_key] = pd.Categorical(col)
+                library_key = region_key
     _assert_spatial_basis(adata, spatial_key)
-    return adata
+    return adata, library_key
 
 
 def _run_spatial_neighbors(
@@ -202,9 +319,9 @@ def spatial_neighbors(
         FutureWarning,
         stacklevel=2,
     )
-    adata = _prepare_spatial_neighbors_input(
+    adata, library_key = _prepare_spatial_neighbors_input(
         adata, spatial_key=spatial_key, elements_to_coordinate_systems=elements_to_coordinate_systems,
-        table_key=table_key,
+        table_key=table_key, library_key=library_key,
     )
     builder = _resolve_graph_builder(
         coord_type=coord_type,
@@ -236,9 +353,9 @@ def spatial_neighbors_from_builder(
     n_jobs: int = 1,
 ) -> SpatialNeighborsResult | None:
     """Create a graph from spatial coordinates using an explicit builder instance."""
-    adata = _prepare_spatial_neighbors_input(
+    adata, library_key = _prepare_spatial_neighbors_input(
         data, spatial_key=spatial_key, elements_to_coordinate_systems=elements_to_coordinate_systems,
-        table_key=table_key,
+        table_key=table_key, library_key=library_key,
     )
     return _run_spatial_neighbors(
         adata, builder, spatial_key=spatial_key, library_key=library_key,

@@ -161,7 +161,7 @@ def _calculate_features_batched(
     n, _, _, n_ch = batch.shape
     dev = get_device()
     on_device = torch.from_numpy(batch).to(dev)
-    flat: torch.Tensor | None = None  # (n, h * w, c) float32, made once for summary and histogram
+    flat: torch.Tensor | None = None  # (n, h * w, c) float32, made once for the summary (and a non-uint8 histogram)
 
     def as_float() -> torch.Tensor:
         nonlocal flat
@@ -188,7 +188,8 @@ def _calculate_features_batched(
         elif feature == ImageFeature.COLOR_HIST:
             bins = int(fkwargs.pop("bins", 10))
             v_range = fkwargs.pop("v_range", None)
-            hist = to_host(crop_histogram(as_float(), bins, v_range, rule=0))
+            crops_in = on_device.reshape(n, -1, n_ch) if batch.dtype == np.uint8 else as_float()  # uint8: K20's byte entry
+            hist = to_host(crop_histogram(crops_in, bins, v_range, rule=0))
             for c in channels:
                 for b in range(bins):
                     cols[f"{feature_name}_ch-{c}_bin-{b}"] = hist[:, c, b].astype(int)

@@ -18,8 +18,10 @@ tensor goes to the kernel, never to the plain version.
   (``quantile_table``: the batched kernel's rule, or ``jnp.quantile``'s),
   and the mean and std from double sums. Routes: ``_k19_layout``.
 - K20 (``csrc/crop_histogram.cu``): the batched kernel's bin rule over a
-  fixed or a per-crop range, or ``jnp.histogram``'s edges and search.
-  Routes: ``_k20_layout``.
+  fixed or a per-crop range, or ``jnp.histogram``'s edges and search, by
+  two entries: uint8 crops as n_ch x 256 value counts folded into bins
+  (``_k20_value_bins`` is the fold's plain twin), float32 crops value by
+  value. Entry and routes: ``_k20_layout``.
 
 ``regionprops``' segment reductions are plain torch ``index_add_`` /
 ``scatter_reduce`` in float64 on the device; ``graycoprops``,
@@ -27,6 +29,9 @@ tensor goes to the kernel, never to the plain version.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,8 +60,13 @@ K18_MOMENTS = 6  # K18's global route: sum i, sum j, sum i^2, sum j^2, sum ij, s
 SMEM_KEYS = 32_768  # K19's sort route sorts a channel of at most this many values in shared memory
 SELECT_RANKS = 32  # K19's select resolves at most this many distinct ranks; more take the sort route
 K19_STATE_BYTES = 656  # csrc/crop_summary.cu `Select`
-K20_SMEM = 160 * 1024  # K20's shared histogram and edges, bytes; past it the histogram counts in global memory
-K20_SHARED_EDGES = 1024  # K20's rule 1 keeps at most this many edges in shared memory
+K20_SMEM = 160 * 1024  # K20's float32 entry: shared histogram and edges, bytes; past it the histogram counts in global memory
+K20_SHARED_EDGES = 1024  # K20's float32 entry, rule 1: at most this many edges in shared memory
+K20_CHANNEL_WORDS = 267  # K20's uint8 entry: a channel's shared words, 256 counters and 11 of skew (`kChannelWords`)
+K20_FOLD_WORDS = 258  # K20's uint8 entry: the fold's shared words, a bin for each byte value, lo and hi (`kFoldWords`)
+K20_HIST_SMEM = 48 * 1024  # K20's uint8 entry: the fold's shared histogram, bytes; past it atomics into the output
+K20_MIN_SPLIT = 16 * 1024  # K20's uint8 entry: the fewest bytes a block of a split crop counts
+K20_CHUNK_MAX = 2**31 - 16  # K20's uint8 entry: the most bytes a block counts (its 32-bit counters)
 LINSPACE_UNROLLED_BINS = 33  # XLA:CPU unrolls jnp.linspace's loop up to here: e_1 then fuses lo (1 - c)
 SCRATCH_BLOCKS = 264  # grid of K19's global sort route: two blocks an SM of an H100
 _TREE = 256  # least terms of the homogeneity's pairwise sum
@@ -648,6 +658,52 @@ def summary_features_batch(crops: np.ndarray, quantiles: tuple[float, ...]) -> d
 # --------------------------------------------------------------------- K20
 
 
+class K20Layout(NamedTuple):
+    """K20's launch: ``entry`` "uint8" (value counts, then a fold of the 256
+    values) or "float32"; uint8: ``splits`` blocks a crop of ``chunk``
+    bytes, ``fused`` (one block counts and folds a crop; else a global
+    table of value counts and a fold kernel); float32: ``edges_shared``
+    (rule 1); both: ``hist_shared`` (a shared histogram written once; else
+    atomics into the zeroed output)."""
+
+    entry: str
+    splits: int
+    chunk: int
+    fused: bool
+    hist_shared: bool
+    edges_shared: bool
+
+
+@functools.lru_cache(maxsize=256)
+def _k20_layout(n: int, p: int, n_c: int, bins: int, rule: int, uint8: bool, smem: int, sms: int) -> K20Layout:
+    """K20's entry and routes for ``n`` crops of ``p`` pixels x ``n_c``
+    channels (``uint8``: bytes, else any dtype as float32) on a card of
+    ``smem`` shared bytes a block and ``sms`` SMs. uint8 crops take the
+    uint8 entry while a block's n_c x 256 counters fit shared memory
+    (``K20_CHANNEL_WORDS`` a channel), folded in the same block while the
+    fold's words and histogram fit beside them; a crop splits over blocks
+    past ``K20_CHUNK_MAX`` bytes, or where fewer crops than SMs would leave
+    the card idle (two blocks an SM; a split counts ``K20_MIN_SPLIT``
+    bytes or more). Every other dtype takes the float32 entry: the shared
+    histogram and edges while they fit ``K20_SMEM`` and
+    ``K20_SHARED_EDGES``. Cached: a one-crop call is host-bound."""
+    size = p * n_c
+    counters = 4 * n_c * K20_CHANNEL_WORDS
+    if uint8 and counters <= smem:
+        hist_shared = 4 * n_c * bins <= K20_HIST_SMEM
+        fits = counters + 4 * (K20_FOLD_WORDS + (n_c * bins if hist_shared else 0)) <= smem
+        splits = -(-size // K20_CHUNK_MAX)
+        if n < sms:
+            splits = max(splits, min(-(-2 * sms // max(n, 1)), -(-size // K20_MIN_SPLIT)))
+        splits = max(splits, 1)
+        chunk = (-(-size // splits) + 15) // 16 * 16 or 16
+        return K20Layout("uint8", splits, chunk, fits and splits == 1, hist_shared, False)
+    hb = 4 * n_c * bins
+    edges_shared = rule == 1 and bins + 1 <= K20_SHARED_EDGES
+    eb = 4 * (bins + 1) if edges_shared else 0
+    return K20Layout("float32", 1, 0, False, hb + eb <= K20_SMEM, edges_shared)
+
+
 def histogram_edges(lo: torch.Tensor, hi: torch.Tensor, bins: int) -> torch.Tensor:
     """``jnp.histogram``'s edges (n, bins + 1) float32 for ranges ``lo``,
     ``hi`` (n,) float32, as XLA:CPU compiles ``jnp.linspace``: c = 1 / bins,
@@ -669,7 +725,10 @@ def histogram_edges(lo: torch.Tensor, hi: torch.Tensor, bins: int) -> torch.Tens
 
 def _histogram_plain(x: torch.Tensor, bins: int, rule: int, lo: torch.Tensor, hi: torch.Tensor,
                      per_crop_range: bool) -> torch.Tensor:
-    """K20's plain version on ``x`` (n, p, C) float32: (n, C, bins) int64."""
+    """K20's plain version on ``x`` (n, p, C) float32: (n, C, bins) int64.
+    It is the plain version of both entries: uint8 crops go through it as
+    float32, which holds every byte exactly."""
+    x = x.to(torch.float32)
     n, _, n_c = x.shape
     if rule == 0:
         if per_crop_range:
@@ -690,36 +749,76 @@ def _histogram_plain(x: torch.Tensor, bins: int, rule: int, lo: torch.Tensor, hi
     return torch.bincount(flat, minlength=n * n_c * bins).view(n, n_c, bins)
 
 
-def _k20_layout(n_c: int, bins: int, rule: int) -> tuple[bool, bool]:
-    """K20's (histogram in shared memory, edges in shared memory): the
-    histogram counts in shared memory while it and the edges fit
-    ``K20_SMEM``; rule 1 keeps its edges there up to ``K20_SHARED_EDGES``."""
-    edges_shared = rule == 1 and bins + 1 <= K20_SHARED_EDGES
-    hist_shared = 4 * n_c * bins + (4 * (bins + 1) if edges_shared else 0) <= K20_SMEM
-    return hist_shared, edges_shared
+def _k20_value_bins(lo: float, hi: float, bins: int, rule: int) -> torch.Tensor:
+    """The plain twin of the uint8 entry's fold: the bin of each byte value
+    0..255 (int64, -1 where dropped) over the range ``lo``, ``hi`` (float32;
+    rule 0 with a per-crop range passes the lowest and highest value the
+    crop holds, or inf and -inf for none), as the kernel computes it. Rule
+    0 rounds each step once in float32; rule 1 counts each of
+    ``histogram_edges``' edges at the first byte value at or above it and
+    takes the prefix sum, #edges <= v, with the top edge into the last bin."""
+    v = torch.arange(256, dtype=torch.float32)
+    lo_t, hi_t = torch.tensor([lo], dtype=torch.float32), torch.tensor([hi], dtype=torch.float32)
+    if rule == 0:
+        span = hi_t - lo_t if bool(hi_t > lo_t) else torch.ones(1)
+        keep = (v >= lo_t) & (v <= hi_t)
+        scaled = torch.where(keep, (v - lo_t) / span * np.float32(bins), torch.zeros_like(v))
+        return torch.where(keep, scaled.to(torch.int32).clamp(0, bins - 1).to(torch.int64), -1)
+    edges = histogram_edges(lo_t, hi_t, bins)[0]
+    counted = edges <= 255
+    first = torch.where(edges <= 0, torch.zeros_like(edges), torch.ceil(edges))[counted].to(torch.int64)
+    idx = torch.cumsum(torch.bincount(first, minlength=256), 0)
+    idx = torch.where(v == edges[-1], bins, idx)
+    return torch.where((idx >= 1) & (idx <= bins), idx - 1, -1)
+
+
+k20_entry_launches = {"uint8": 0, "float32": 0}  # K20's calls by entry, counted where the wrapper launches
 
 
 def _histogram_k20(x: torch.Tensor, bins: int, rule: int, lo: torch.Tensor, hi: torch.Tensor,
-                   per_crop_range: bool) -> torch.Tensor:
+                   per_crop_range: bool, layout: K20Layout | None = None) -> torch.Tensor:
+    """K20 on ``x`` (n, p, C) uint8 or float32 on the card, by ``layout``
+    (``_k20_layout`` by default): (n, C, bins) int64."""
     n, p, n_c = x.shape
-    _cuda.require(x, "crops", torch.float32)
-    hist_shared, edges_shared = _k20_layout(n_c, bins, rule)
-    counts = (torch.empty if hist_shared else torch.zeros)((n, n_c, bins), dtype=torch.int32, device=x.device)
-    gedges = None
-    if rule == 1 and not edges_shared:
-        gedges = torch.empty((n, bins + 1), dtype=torch.float32, device=x.device)
-    if n:
-        code = _cuda.library().sqt_crop_histogram(
-            x.data_ptr(), n, p, n_c, bins, rule, lo.data_ptr(), hi.data_ptr(), int(per_crop_range),
-            int(not hist_shared), None if gedges is None else gedges.data_ptr(), counts.data_ptr(), _cuda.stream_ptr())
+    if layout is None:
+        layout = _k20_layout(n, p, n_c, bins, rule, x.dtype == torch.uint8, *_device_info(x.device))
+    if layout.entry == "float32" and x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    _cuda.require(x, "crops", torch.uint8 if layout.entry == "uint8" else torch.float32)
+    out = (torch.empty if layout.hist_shared else torch.zeros)((n, n_c, bins), dtype=torch.int32, device=x.device)
+    if not n:
+        return out.to(torch.int64)
+    if not p * n_c:
+        return out.zero_().to(torch.int64)
+    lib = _cuda.library()
+    hist_global = int(not layout.hist_shared)
+    if layout.entry == "uint8":
+        table = None if layout.fused else torch.zeros((n, n_c, 256), dtype=torch.int32, device=x.device)
+        code = lib.sqt_crop_histogram_u8(
+            x.data_ptr(), n, p, n_c, bins, rule, lo.data_ptr(), hi.data_ptr(), int(per_crop_range), layout.splits,
+            layout.chunk, hist_global, None if table is None else table.data_ptr(), out.data_ptr(), _cuda.stream_ptr())
         _cuda.check(code, "crop_histogram")
-        _cuda.launches["crop_histogram"] += 1
-    return counts.to(torch.int64)
+        if table is not None:
+            code = lib.sqt_crop_histogram_fold(table.data_ptr(), n, n_c, bins, rule, lo.data_ptr(), hi.data_ptr(),
+                                               int(per_crop_range), hist_global, out.data_ptr(), _cuda.stream_ptr())
+            _cuda.check(code, "crop_histogram")
+    else:
+        gedges = None
+        if rule == 1 and not layout.edges_shared:
+            gedges = torch.empty((n, bins + 1), dtype=torch.float32, device=x.device)
+        code = lib.sqt_crop_histogram(
+            x.data_ptr(), n, p, n_c, bins, rule, lo.data_ptr(), hi.data_ptr(), int(per_crop_range), hist_global,
+            None if gedges is None else gedges.data_ptr(), out.data_ptr(), _cuda.stream_ptr())
+        _cuda.check(code, "crop_histogram")
+    _cuda.launches["crop_histogram"] += 1
+    k20_entry_launches[layout.entry] += 1
+    return out.to(torch.int64)
 
 
 def crop_histogram(x: torch.Tensor, bins: int, v_range: tuple[float, float] | None, rule: int = 0) -> torch.Tensor:
-    """(n, C, bins) counts of ``x`` (n, p, C) float32 over ``v_range`` or,
-    with None (rule 0 only), each crop's own range."""
+    """(n, C, bins) counts of ``x`` (n, p, C) uint8 or float32 over
+    ``v_range`` or, with None (rule 0 only), each crop's own range. On the
+    card uint8 crops take K20's uint8 entry (``_k20_layout``)."""
     n = x.shape[0]
     if v_range is None:
         lo = hi = torch.zeros(n, dtype=torch.float32, device=x.device)
@@ -731,9 +830,19 @@ def crop_histogram(x: torch.Tensor, bins: int, v_range: tuple[float, float] | No
     return _histogram_plain(x, bins, rule, lo, hi, v_range is None)
 
 
+def _device_crops(crops: np.ndarray) -> torch.Tensor:
+    """(n, h, w, C) crops as (n, h * w, C) on the selected device: uint8 as
+    bytes (K20's uint8 entry), any other dtype as float32 (cast there)."""
+    arr = np.ascontiguousarray(crops)
+    if arr.dtype == np.uint8:
+        t = torch.from_numpy(arr).to(get_device())
+        return t.reshape(t.shape[0], -1, t.shape[-1])
+    return _device_float(arr)
+
+
 def histogram_features(arr: np.ndarray, bins: int, v_range: tuple[float, float]) -> np.ndarray:
     """Fixed-range histogram counts (``jnp.histogram``'s edges and search, K20)."""
-    x = _device_float(np.asarray(arr, dtype=np.float32).reshape(1, -1, 1))
+    x = _device_crops(np.asarray(arr).reshape(1, -1, 1, 1))
     return to_host(crop_histogram(x, bins, (float(v_range[0]), float(v_range[1])), rule=1))[0, 0].astype(np.float32)
 
 
@@ -744,7 +853,7 @@ def histogram_features_batch(
 
     ``v_range=None`` uses each crop's own range (the reference's behavior);
     the top edge is inclusive as in numpy.histogram."""
-    return to_host(crop_histogram(_device_float(crops), bins, v_range, rule=0)).astype(np.float32)
+    return to_host(crop_histogram(_device_crops(crops), bins, v_range, rule=0)).astype(np.float32)
 
 
 # ---------------------------------------------------------- regionprops

@@ -5,7 +5,8 @@ pixel pairs an offset whose moments pass int64 in the centred products, a
 cell past 2^32 counts (sum c^2 past 2^64), more than 1024 quantiles, more than 1023 bins by ``jnp.histogram``'s rule and
 a histogram past shared memory by the batched rule; and on each route of
 each kernel. This file imports no JAX: it is the one to run where there is a
-card. Every comparison is bitwise (the values are integers, so the double
+card. K20's uint8 entry is held to the plain version of the same crops
+as float32 on each of its routes. Every comparison is bitwise (the values are integers, so the double
 sums of the mean and std are exact).
 """
 
@@ -125,20 +126,69 @@ def test_k19_routes_on_card(cuda_card):
     _summary(special, (0.9, 0.5, 0.1), rule=1)
 
 
-def _hist(x, bins, v_range, rule):
-    n = x.shape[0]
+def _hist(x, bins, v_range, rule, entry=None, **layout):
+    n, p, c = x.shape
     lo = torch.full((n,), 0.0 if v_range is None else float(v_range[0]), device="cuda")
     hi = torch.full((n,), 0.0 if v_range is None else float(v_range[1]), device="cuda")
+    chosen = F._k20_layout(n, p, c, bins, rule, x.dtype == torch.uint8, *F._device_info(x.device))
+    if entry is not None:
+        assert chosen.entry == entry, chosen
+    for key, value in layout.items():
+        assert getattr(chosen, key) == value, chosen
     _same(F._histogram_k20(x, bins, rule, lo, hi, v_range is None),
-          F._histogram_plain(x, bins, rule, lo, hi, v_range is None))
+          F._histogram_plain(x.to(torch.float32), bins, rule, lo, hi, v_range is None))
 
 
 @pytest.mark.cuda
 def test_k20_past_shared_memory_on_card(cuda_card):
     x = _tissue(40, 89, 9).reshape(40, -1, 3).to(torch.float32).contiguous()
-    assert F._k20_layout(1, 2000, 1) == (True, False) and F._k20_layout(3, 30_000, 0) == (False, False)
-    _hist(x[:1, :, :1].contiguous(), 2000, (40.0, 250.0), 1)
-    _hist(x[:1, :, :1].contiguous(), 1023, (40.0, 250.0), 1)
-    _hist(x, 30_000, None, 0)
+    _hist(x[:1, :, :1].contiguous(), 2000, (40.0, 250.0), 1, edges_shared=False)
+    _hist(x[:1, :, :1].contiguous(), 1023, (40.0, 250.0), 1, edges_shared=True)
+    _hist(x, 30_000, None, 0, hist_shared=False)
     _hist(x, 30_000, (10.0, 200.0), 0)
     _hist(x, 10, None, 0)
+    big = _tissue(6, 177, 10).reshape(6, -1, 3).to(torch.float32).contiguous()
+    _hist(big, 10, None, 0, "float32")  # 376 KB a crop
+    _hist(x[1:], 10, (60.0, 200.5), 0)  # a crop start off 16 bytes
+    wide = _tissue(4, 160, 13)[:, :120].reshape(4, -1, 3).to(torch.float32).contiguous()
+    assert wide.shape[1] == 19_200
+    _hist(wide, 10, None, 0, "float32")  # 230 KB a crop, each crop's own range
+    _hist(x[:2, :, :1].repeat(1, 1, 3).contiguous(), 13_653, None, 0, hist_shared=True)  # the shared histogram's edge
+
+
+@pytest.mark.cuda
+def test_k20_uint8_entry_on_card(cuda_card):
+    """The uint8 entry on its routes (fused; the value table and the fold
+    kernel, split over blocks or at the channels past the fold's shared
+    words; the float32 entry past one block's counters), bitwise the plain
+    version of the float32 crops."""
+    x = _tissue(600, 89, 11).reshape(600, -1, 3)
+    for v_range, rule, bins in ((None, 0, 10), ((50.0, 200.0), 0, 10), ((50.5, 200.25), 0, 7), ((90.0, 90.0), 0, 5),
+                                (None, 0, 256), (None, 0, 300), (None, 0, 30_000), ((10.0, 250.0), 0, 30_000)):
+        _hist(x, bins, v_range, rule, "uint8")
+    one = x[:1, :, :1].contiguous()
+    for bins, v_range in ((10, (40.0, 250.0)), (2000, (40.0, 250.0)), (2000, (-3.0, 300.0)), (1, (100.0, 100.0)),
+                          (30_000, (0.0, 255.0))):
+        _hist(one, bins, v_range, 1, "uint8")
+    flat = torch.full((50, 89 * 89, 3), 137, dtype=torch.uint8, device="cuda")
+    flat[::7, ::13, 1] = 138  # nearly constant crops
+    _hist(flat, 10, None, 0)
+    _hist(x[1:], 10, None, 0)  # a crop start off 16 bytes
+    slide = torch.from_numpy(np.random.default_rng(12).integers(0, 256, (1, 3000 * 3000, 1), dtype=np.uint8)).cuda()
+    layout = F._k20_layout(1, slide.shape[1], 1, 10, 1, True, *F._device_info(slide.device))
+    assert layout.splits > 1 and not layout.fused
+    _hist(slide, 10, (20.0, 230.0), 1)  # split over blocks, then the fold kernel
+    _hist(slide, 10, None, 0)
+    for c in (1, 2, 4, 7):
+        _hist(torch.from_numpy(np.random.default_rng(c).integers(0, 256, (30, 999, c), dtype=np.uint8)).cuda(), 10,
+              None, 0, "uint8")
+    smem = F._device_info(x.device)[0]
+    fused_most = (smem // 4 - F.K20_FOLD_WORDS) // (F.K20_CHANNEL_WORDS + 10)
+    most = smem // 4 // F.K20_CHANNEL_WORDS
+    rng = np.random.default_rng(5)
+    for c, entry, fused in ((109, "uint8", True), (fused_most, "uint8", True), (fused_most + 1, "uint8", False),
+                            (most, "uint8", False), (most + 1, "float32", False)):
+        crops = torch.from_numpy(rng.integers(0, 256, (140, 99, c), dtype=np.uint8)).cuda()  # more crops than SMs
+        _hist(crops, 10, None, 0, entry, fused=fused)  # at each edge of shared memory
+    many = torch.from_numpy(rng.integers(0, 256, (4, 99, 500), dtype=np.uint8)).cuda()
+    _hist(many, 10, None, 0, "float32")  # no block's 500 x 256 counters fit: the float32 entry

@@ -35,6 +35,7 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
+from test_torch_radius import _view
 
 import squidpy_torch as sqt
 import squidpy_tpu as sq
@@ -571,14 +572,280 @@ def test_k20_binary_search_rule(bins):
     assert [_k20_bin(falling, v) for v in np.float32([0.75, 1.5, 2.0, -1.0])] == [1, 2, 2, -1]
 
 
-def test_k20_layout():
-    """K20's routes: the shared histogram and edges while they fit."""
-    assert tf._k20_layout(3, 10, 0) == (True, False)
-    assert tf._k20_layout(1, 1023, 1) == (True, True)
-    assert tf._k20_layout(1, 1024, 1) == (True, False)  # 1,025 edges: global, searched there
-    assert tf._k20_layout(1, 2000, 1) == (True, False)
-    assert tf._k20_layout(3, 30_000, 0) == (False, False)  # 360 KB of counters: global
-    assert tf._k20_layout(3, 13_653, 0) == (True, False) and tf._k20_layout(3, 13_654, 0) == (False, False)
+SMEM, SMS = 232_448, 132  # an H100's opt-in shared memory a block and its SMs
+
+
+def _u8_launch_ok(layout, size: int) -> bool:
+    """``sqt_crop_histogram_u8``'s checks of its launch (``csrc/crop_histogram.cu``)."""
+    return (layout.chunk % 16 == 0 and layout.chunk <= 2**31 - 1 and (not layout.fused or layout.splits == 1)
+            and layout.splits * layout.chunk >= size)
+
+
+def _u8_smem(layout, n_c: int, bins: int) -> int:
+    """The uint8 entry's shared bytes (``sqt_crop_histogram_u8``)."""
+    words = n_c * tf.K20_CHANNEL_WORDS
+    if layout.fused:
+        words += tf.K20_FOLD_WORDS + (n_c * bins if layout.hist_shared else 0)
+    return 4 * words
+
+
+@pytest.mark.parametrize("entry", ["uint8", "float32"])
+def test_k20_layout(entry):
+    """K20's entry by dtype and its routes: uint8 crops count values (fused
+    at the main path's shapes and while the fold fits beside the counters,
+    split where a block's 32-bit counters could pass their width or the
+    crops are few), the float32 entry past the channels of one block's
+    counters in shared memory; the float32 entry's shared histogram and
+    edges while they fit. The shared words the layout counts are the
+    kernel's own (``csrc/crop_histogram.cu``'s constants)."""
+    lay = tf._k20_layout
+    if entry == "float32":
+        f = lay(4992, 89 * 89, 3, 10, 0, False, SMEM, SMS)
+        assert (f.entry, f.splits, f.fused, f.hist_shared, f.edges_shared) == ("float32", 1, False, True, False)
+        assert lay(4992, 177 * 177, 3, 10, 0, False, SMEM, SMS).hist_shared
+        r1 = lay(1, 7921, 1, 1023, 1, False, SMEM, SMS)
+        assert r1.edges_shared and r1.hist_shared
+        assert not lay(1, 7921, 1, 1024, 1, False, SMEM, SMS).edges_shared  # 1,025 edges: global, searched there
+        assert not lay(3, 7921, 3, 30_000, 0, False, SMEM, SMS).hist_shared  # 360 KB of counters: global
+        assert lay(3, 99, 3, 13_653, 0, False, SMEM, SMS).hist_shared
+        assert not lay(3, 99, 3, 13_654, 0, False, SMEM, SMS).hist_shared
+        for c, bins, rule in ((3, 10, 0), (3, 13_653, 0), (1, 1023, 1), (1, 1024, 1), (40, 1000, 1)):
+            f = lay(7, 99, c, bins, rule, False, SMEM, SMS)
+            words = 36 + (c * bins if f.hist_shared else 0) + (bins + 1 if f.edges_shared else 0)  # `kF32Words` first
+            assert 4 * words <= SMEM
+        return
+    src = (Path(tf.__file__).parent.parent / "csrc" / "crop_histogram.cu").read_text()
+    assert f"constexpr int kChannelWords = {tf.K20_CHANNEL_WORDS};" in src
+    assert f"constexpr int kFoldWords = {tf.K20_FOLD_WORDS};" in src
+    i2 = lay(4992, 89 * 89, 3, 10, 0, True, SMEM, SMS)
+    assert (i2.entry, i2.fused, i2.splits, i2.hist_shared) == ("uint8", True, 1, True)
+    s2 = lay(4992, 177 * 177, 3, 10, 0, True, SMEM, SMS)
+    assert (s2.entry, s2.fused, s2.splits) == ("uint8", True, 1)
+    many = lay(200, 7921, 3, 30_000, 0, True, SMEM, SMS)
+    assert many.entry == "uint8" and many.fused and not many.hist_shared  # 360 KB of bins: atomics into the output
+    slide = lay(1, 12_000 * 12_000, 1, 10, 1, True, SMEM, SMS)
+    assert slide.splits > 1 and not slide.fused  # split over the card, then the fold kernel
+    one = lay(1, 89 * 89, 1, 10, 1, True, SMEM, SMS)
+    assert (one.fused, one.splits) == (True, 1)
+    few = lay(4, 400 * 400, 3, 10, 0, True, SMEM, SMS)
+    assert few.splits == 480_000 // tf.K20_MIN_SPLIT + 1 and not few.fused  # four crops split over the card
+    huge = lay(200, 3_000_000_000, 1, 10, 0, True, SMEM, SMS)
+    assert huge.splits == 2 and huge.chunk <= tf.K20_CHUNK_MAX  # a block's 32-bit counters
+    fused_most = (SMEM // 4 - tf.K20_FOLD_WORDS) // (tf.K20_CHANNEL_WORDS + 10)  # channels folded in the block
+    assert lay(200, 99, fused_most, 10, 0, True, SMEM, SMS).fused
+    past = lay(200, 99, fused_most + 1, 10, 0, True, SMEM, SMS)
+    assert (past.entry, past.fused, past.splits) == ("uint8", False, 1)  # the value table and the fold kernel
+    most = SMEM // 4 // tf.K20_CHANNEL_WORDS  # channels of one block's counters in shared memory
+    assert lay(4, 99, most, 10, 0, True, SMEM, SMS).entry == "uint8"
+    assert lay(4, 99, most + 1, 10, 0, True, SMEM, SMS).entry == "float32"
+    for n, p, c, bins in ((4992, 7921, 3, 10), (4992, 31_329, 3, 10), (200, 7921, 3, 30_000), (1, 144_000_000, 1, 10),
+                          (4, 160_000, 3, 10), (3, 65_536, 1, 2000), (100, 999, 7, 256), (4, 99, most, 10),
+                          (200, 99, fused_most, 10), (200, 99, fused_most + 1, 10), (4, 99, 200, 300), (1, 1, 1, 1),
+                          (7, 16, 1, 1), (200, 3_000_000_000, 1, 10)):
+        layout = lay(n, p, c, bins, 0, True, SMEM, SMS)
+        assert _u8_launch_ok(layout, p * c) and _u8_smem(layout, c, bins) <= SMEM, (n, p, c, bins, layout)
+        if not layout.fused:
+            assert 4 * (tf.K20_FOLD_WORDS + (c * bins if layout.hist_shared else 0)) <= SMEM  # the fold kernel's
+
+
+BYTE_RANGES = [(50.0, 200.0), (50.5, 200.25), (100.0, 100.0), (-3.5, 120.7), (0.0, 255.0), (17.0, 17.25),
+               (200.0, 50.0), (3.0, 250.0)]
+
+
+@pytest.mark.parametrize("v_range", BYTE_RANGES, ids=[f"{a}-{b}" for a, b in BYTE_RANGES])
+@pytest.mark.parametrize("rule,bins", [(0, 1), (0, 7), (0, 10), (0, 256), (0, 300), (0, 30_000), (1, 1), (1, 7), (1, 10),
+                                       (1, 256), (1, 300), (1, 2000)])
+def test_k20_value_bins_every_byte(rule, bins, v_range):
+    """The fold's plain twin on all 256 byte values, bitwise the plain
+    version and JAX (``_histogram_batch_kernel`` over a fixed range, which
+    is the per-crop rule's formula at the crop's own lowest and highest
+    value; ``jnp.histogram``): each value a crop of one pixel."""
+    lo, hi = (float(np.float32(v)) for v in v_range)
+    got = tf._k20_value_bins(lo, hi, bins, rule).numpy()
+    vals = np.arange(256, dtype=np.float32)
+    n = torch.full((256,), lo), torch.full((256,), hi)
+    plain = tf._histogram_plain(torch.from_numpy(vals).view(256, 1, 1), bins, rule, *n, False)[:, 0].numpy()
+    if rule == 0:
+        jax_counts = np.asarray(jf._histogram_batch_kernel(jnp.asarray(vals.reshape(256, 1, 1, 1)), bins,
+                                                           jnp.float32(lo), jnp.float32(hi), False))[:, 0]
+    else:
+        import jax
+
+        jax_counts = np.asarray(jax.vmap(lambda a: jnp.histogram(a, bins=bins, range=(lo, hi))[0])(
+            jnp.asarray(vals[:, None])))
+    # a reversed range gives jnp.histogram decreasing edges, which its
+    # searchsorted treats as sorted (numpy refuses such a range); the port
+    # counts #edges <= v there, as its plain version always has
+    for counts in (plain,) if rule == 1 and lo > hi else (plain, jax_counts):
+        assert set(np.unique(counts.sum(1))) <= {0, 1}
+        want = np.where(counts.sum(1) > 0, counts.argmax(1), -1)
+        assert np.array_equal(got, want)
+
+
+def _u8_count_then_fold(crops: np.ndarray, bins: int, v_range, rule: int) -> np.ndarray:
+    """The uint8 entry in numpy: n_ch x 256 value counts a crop, the range
+    (per crop: the lowest and highest value counted in any channel), each
+    value's bin by ``_k20_value_bins``, its count added there."""
+    n, c = crops.shape[0], crops.shape[-1]
+    flat = crops.reshape(n, -1, c)
+    out = np.zeros((n, c, bins), np.int64)
+    for i in range(n):
+        counts = np.stack([np.bincount(flat[i, :, ch], minlength=256) for ch in range(c)])
+        if v_range is None:
+            present = np.nonzero(counts.sum(0))[0]
+            lo, hi = (float(present[0]), float(present[-1])) if len(present) else (np.inf, -np.inf)
+        else:
+            lo, hi = (float(np.float32(v)) for v in v_range)
+        vb = tf._k20_value_bins(lo, hi, bins, rule).numpy()
+        for ch in range(c):
+            np.add.at(out[i, ch], vb[vb >= 0], counts[ch][vb >= 0])
+    return out
+
+
+@pytest.mark.parametrize("kind", ["random", "nearly constant", "narrow"])
+@pytest.mark.parametrize("v_range", [None, (50.0, 200.0), (50.5, 200.25), (137.0, 137.0), (-10.0, 60.0)])
+@pytest.mark.parametrize("bins", [10, 300])
+def test_k20_uint8_count_then_fold_against_jax(kind, v_range, bins):
+    rng = np.random.default_rng(bins)
+    if kind == "random":
+        crops = rng.integers(0, 256, (9, 13, 11, 3)).astype(np.uint8)
+    elif kind == "nearly constant":
+        crops = np.full((9, 13, 11, 3), 137, np.uint8)
+        crops[::2, ::5, ::3, 1] = 138
+        crops[4] = 200  # one crop of one value: span 1
+    else:
+        crops = np.clip(rng.normal(240, 4, (9, 13, 11, 3)), 0, 255).astype(np.uint8)
+    want = jf.histogram_features_batch(crops, bins, v_range)
+    assert np.array_equal(_u8_count_then_fold(crops, bins, v_range, 0), want)
+    assert np.array_equal(tf.histogram_features_batch(crops, bins, v_range), want)
+
+
+@pytest.mark.parametrize("bins", [3, 10, 2000])
+def test_k20_uint8_count_then_fold_per_crop_jnp_histogram(bins):
+    rng = np.random.default_rng(bins)
+    for t in range(6):
+        arr = rng.integers(0, 256, (19, 17)).astype(np.uint8)
+        for vr in ((float(arr.min()), float(arr.max())), (20.0, 100.0), (3.0, 3.0), (50.5, 200.25)):
+            want = jf.histogram_features(arr, bins, vr)
+            assert np.array_equal(_u8_count_then_fold(arr.reshape(1, -1, 1), bins, vr, 1)[0, 0], want), (t, vr)
+            assert np.array_equal(tf.histogram_features(arr, bins, vr), want), (t, vr)
+
+
+class _EmulatedK20:
+    """K20's C interface in numpy, reading and writing CPU tensors through
+    the pointers the wrapper passes: the uint8 entry's blocks each count
+    their own bytes of a crop (by position, as the kernel's chunks cut it)
+    and fold them (fused) or add them into the value table; the fold kernel;
+    the float32 entry through the plain version. It checks each launch as
+    the C side does."""
+
+    def __init__(self) -> None:
+        self.calls: list[str] = []
+
+    def sqt_crop_histogram_u8(self, x, n, p, n_ch, bins, rule, lo, hi, per_crop_range, splits, chunk, hist_global,
+                              counts, out, stream):
+        self.calls.append("u8 fused" if counts is None else "u8 split")
+        size = p * n_ch
+        layout = tf.K20Layout("uint8", splits, chunk, counts is None, not hist_global, False)
+        if not _u8_launch_ok(layout, size):
+            return 1
+        data = _view(x, np.uint8, n * size).reshape(n, size)
+        los, his = _view(lo, np.float32, n), _view(hi, np.float32, n)
+        res = _view(out, np.int32, n * n_ch * bins).reshape(n, n_ch, bins)
+        table = None if counts is None else _view(counts, np.int32, n * n_ch * 256).reshape(n, n_ch * 256)
+        for i in range(n):
+            for s in range(splits):
+                pos = np.arange(s * chunk, min((s + 1) * chunk, size))
+                block = np.zeros(n_ch * 256, np.int64)
+                np.add.at(block, (pos % n_ch) * 256 + data[i, pos], 1)
+                if table is not None:
+                    table[i, : n_ch * 256] += block.astype(np.int32)
+                else:
+                    self._fold(block.reshape(n_ch, 256), bins, rule, los[i], his[i], per_crop_range, hist_global,
+                               res[i])
+        return 0
+
+    def sqt_crop_histogram_fold(self, counts, n, n_ch, bins, rule, lo, hi, per_crop_range, hist_global, out, stream):
+        self.calls.append("fold")
+        table = _view(counts, np.int32, n * n_ch * 256).reshape(n, n_ch, 256)
+        los, his = _view(lo, np.float32, n), _view(hi, np.float32, n)
+        res = _view(out, np.int32, n * n_ch * bins).reshape(n, n_ch, bins)
+        for i in range(n):
+            self._fold(table[i], bins, rule, los[i], his[i], per_crop_range, hist_global, res[i])
+        return 0
+
+    @staticmethod
+    def _fold(tot, bins, rule, lo, hi, per_crop_range, hist_global, res):
+        if rule == 0 and per_crop_range:
+            present = np.nonzero(tot.sum(0))[0]
+            lo, hi = (float(present[0]), float(present[-1])) if len(present) else (np.inf, -np.inf)
+        vb = tf._k20_value_bins(float(lo), float(hi), bins, rule).numpy()
+        if not hist_global:
+            res[:] = 0  # the shared histogram, written whole
+        for ch in range(tot.shape[0]):
+            np.add.at(res[ch], vb[vb >= 0], tot[ch][vb >= 0].astype(np.int32))
+
+    def sqt_crop_histogram(self, x, n, p, n_ch, bins, rule, lo, hi, per_crop_range, hist_global, gedges, counts,
+                           stream):
+        self.calls.append("float32")
+        if rule == 1 and gedges is None and bins + 1 > 1024:
+            return 1
+        xs = torch.from_numpy(_view(x, np.float32, n * p * n_ch).reshape(n, p, n_ch).copy())
+        los, his = (torch.from_numpy(_view(v, np.float32, n).copy()) for v in (lo, hi))
+        got = tf._histogram_plain(xs, bins, rule, los, his, bool(per_crop_range)).to(torch.int32).numpy()
+        res = _view(counts, np.int32, n * n_ch * bins)
+        res[:] = got.ravel() + (res if hist_global else 0)  # a shared histogram is written whole
+        return 0
+
+
+@pytest.fixture
+def emulated_k20(monkeypatch):
+    from squidpy_torch import _cuda
+
+    emu = _EmulatedK20()
+    monkeypatch.setattr(_cuda, "launches", dict.fromkeys(_cuda.KERNELS, 0))  # counts of these calls stay here
+    monkeypatch.setattr(tf, "k20_entry_launches", dict.fromkeys(tf.k20_entry_launches, 0))
+    monkeypatch.setattr(_cuda, "library", lambda: emu)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tf, "_device_info", lambda dev: (SMEM, SMS))
+    return emu
+
+
+@pytest.mark.parametrize("case", ["i2", "30000 bins", "fixed range", "split crop", "few crops", "rule 1 one crop",
+                                  "2000 edges", "209 channels", "500 channels", "float32", "empty crops"])
+def test_k20_wrapper_on_emulated_entries(case, emulated_k20):
+    """``_histogram_k20`` around a numpy emulation of both entries' C
+    interface, on each route, bitwise the plain version; the launches
+    counted once a call."""
+    from squidpy_torch import _cuda
+
+    rng = np.random.default_rng(7)
+    shapes = {"i2": (40, 89 * 89, 3, 10, None, 0), "30000 bins": (8, 300, 3, 30_000, None, 0),
+              "fixed range": (30, 500, 3, 7, (50.5, 200.25), 0), "split crop": (1, 200_000, 1, 10, (10.0, 240.0), 1),
+              "few crops": (3, 40_000, 3, 10, None, 0), "rule 1 one crop": (1, 7921, 1, 10, (40.0, 250.0), 1),
+              "2000 edges": (1, 999, 1, 2000, (-3.0, 300.0), 1), "209 channels": (2, 30, 209, 10, None, 0),
+              "500 channels": (2, 30, 500, 10, None, 0),
+              "float32": (20, 999, 3, 10, None, 0), "empty crops": (0, 99, 3, 10, None, 0)}
+    n, p, c, bins, v_range, rule = shapes[case]
+    x = torch.from_numpy(rng.integers(0, 256, (n, p, c)).astype(np.uint8))
+    if case == "float32":
+        x = x.to(torch.float32) + 0.25
+    lo = torch.full((n,), 0.0 if v_range is None else float(v_range[0]))
+    hi = torch.full((n,), 0.0 if v_range is None else float(v_range[1]))
+    got = tf._histogram_k20(x, bins, rule, lo, hi, v_range is None)
+    want = tf._histogram_plain(x.to(torch.float32), bins, rule, lo, hi, v_range is None)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    layout = tf._k20_layout(n, p, c, bins, rule, x.dtype == torch.uint8, SMEM, SMS)
+    expected = {"uint8": ["u8 fused"] if layout.fused else ["u8 split", "fold"], "float32": ["float32"]}[layout.entry]
+    assert emulated_k20.calls == ([] if not n else expected)
+    assert _cuda.launches["crop_histogram"] == (1 if n else 0)
+    if case == "split crop":
+        assert layout.splits > 1
+    if case == "209 channels":  # the counters fit, the fold beside them does not: the value table
+        assert (layout.entry, layout.fused, layout.splits) == ("uint8", False, 1)
+    if case == "500 channels":
+        assert layout.entry == "float32"
 
 
 # ---------------------------------------------------------- the slice
@@ -620,6 +887,27 @@ def test_calculate_image_features_batched(kwargs, dtype):
             is None
         frames.append(adata.obsm["img_features"])
     _assert_frames_close(*frames)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"features_kwargs": {"histogram": {"bins": 7, "v_range": (50.5, 200.25)}}}],
+                         ids=["own range", "fixed range"])
+def test_calculate_image_features_uint8_and_float32_alike(kwargs):
+    """A uint8 image (K20's byte entry on the card) and the same image as
+    float32 (its float entry): each package's frames equal JAX's, and the
+    histogram columns of the two dtypes equal each other."""
+    frames = {}
+    for dtype in (np.uint8, np.float32):
+        for pkg in (sqt, sq):
+            adata, img = _section(pkg, seed=5)
+            if dtype == np.float32:
+                img = pkg.im.ImageContainer(img["image"].astype(np.float32), layer="image")
+            frames[dtype, pkg] = pkg.im.calculate_image_features(adata, img, features=["summary", "histogram"],
+                                                                 copy=True, **kwargs)
+        _assert_frames_close(frames[dtype, sqt], frames[dtype, sq])
+    hist = [c for c in frames[np.uint8, sqt].columns if c.startswith("histogram")]
+    assert len(hist) == 3 * kwargs.get("features_kwargs", {}).get("histogram", {}).get("bins", 10)
+    assert np.array_equal(frames[np.uint8, sqt][hist].to_numpy(np.float64),
+                          frames[np.float32, sqt][hist].to_numpy(np.float64))
 
 
 def test_calculate_image_features_per_crop_with_segmentation():

@@ -331,15 +331,195 @@ def test_facade_rejects_percentile_on_a_grid():
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("fn", ["spatial_neighbors", "spatial_neighbors_knn", "spatial_neighbors_radius",
-                                "spatial_neighbors_delaunay", "spatial_neighbors_grid"])
-def test_element_centroids_are_not_ported(fn):
-    at = _adata(50, 0)
-    kw = {"radius": RADIUS} if fn == "spatial_neighbors_radius" else {}
+# -- element centroids (elements_to_coordinate_systems) --------------------------
+
+ENTRY_POINTS = ["spatial_neighbors", "spatial_neighbors_knn", "spatial_neighbors_radius", "spatial_neighbors_delaunay",
+                "spatial_neighbors_grid"]
+CENTROID_RADIUS = 15.0  # the first ring of the jittered lattice (~10 apart), not the second (~17.3)
+
+
+def _lattice(n: int, rng) -> np.ndarray:
+    """A hexagonal lattice of spacing 10 with a little jitter."""
+    side = int(np.ceil(np.sqrt(n)))
+    jj, ii = np.divmod(np.arange(side * side), side)
+    pts = np.c_[ii + 0.5 * (jj % 2), jj * np.sqrt(3) / 2][:n] * 10.0
+    return pts + rng.uniform(-0.8, 0.8, pts.shape)
+
+
+def _sdata(pkg, table, shapes=None, labels=None):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(tables={"table": table}, shapes=shapes or {}, labels=labels or {}, points={})
+
+
+def _two_region_input(pkg, seed: int = 0):
+    """Region ``a``: circles (an ``x``/``y`` frame whose index is the
+    instance id); region ``b``: a labels image (background 0, ids with
+    gaps, 3 x 3 squares). The table lists both regions interleaved, each in
+    a shuffled instance order."""
+    rng = np.random.default_rng(seed)
+    na, nb = 40, 36
+    pts_a = _lattice(na, rng)
+    ids_a = rng.permutation(np.arange(100, 100 + na))
+    circles = pd.DataFrame({"x": pts_a[:, 0], "y": pts_a[:, 1], "radius": np.full(na, 2.0)}, index=ids_a)
+    img = np.zeros((120, 120), dtype=np.int32)
+    ids_b = np.sort(rng.choice(np.arange(1, 500), nb, replace=False))
+    for k, (y, x) in zip(ids_b, np.round(_lattice(nb, rng)[:, ::-1] + 15).astype(int)):
+        img[y - 1 : y + 2, x - 1 : x + 2] = k
+    inst = np.r_[rng.permutation(ids_a), rng.permutation(ids_b)]
+    region = np.array(["a"] * na + ["b"] * nb)
+    order = rng.permutation(na + nb)
+    table = pkg.AnnData(X=np.zeros((na + nb, 2)),
+                        obs=pd.DataFrame({"region": region[order], "instance_id": inst[order]},
+                                         index=[f"cell{i}" for i in range(na + nb)]))
+    table.uns["spatialdata_attrs"] = {"region": ["a", "b"], "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, shapes={"a": circles}, labels={"b": img}), table
+
+
+def _spy_library_key(monkeypatch, module) -> list:
+    """Record the library key each call hands to ``_run_spatial_neighbors``."""
+    seen: list = []
+    run = module._run_spatial_neighbors
+
+    def spy(adata, builder, **kw):
+        seen.append(kw.get("library_key"))
+        return run(adata, builder, **kw)
+
+    monkeypatch.setattr(module, "_run_spatial_neighbors", spy)
+    return seen
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS)
+def test_element_centroids_match_jax(fn, monkeypatch):
+    """Every entry point resolves circles and labels centroids, in the
+    table's instance order, and the region key as the library key: the
+    coordinates, the key and the graph equal JAX's (bitwise, but for the
+    documented exceptions: the kNN modes' distances to rtol 1e-6, a radius
+    graph's distances each the root of its own rounding of d2)."""
+    from squidpy_torch.gr import _build as tbuild
+    from squidpy_tpu.gr import _build as jbuild
+
+    (st, tt), (sj, tj) = _two_region_input(sqt), _two_region_input(sq)
+    keys = _spy_library_key(monkeypatch, tbuild), _spy_library_key(monkeypatch, jbuild)
+    kw = {"radius": CENTROID_RADIUS} if fn == "spatial_neighbors_radius" else {}
+    systems = {"a": "global", "b": "global"}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        with pytest.raises(NotImplementedError, match="elements_to_coordinate_systems"):
-            getattr(sqt.gr, fn)(at, elements_to_coordinate_systems={"cells": "global"}, **kw)
+        getattr(sqt.gr, fn)(st, elements_to_coordinate_systems=systems, **kw)
+        getattr(sq.gr, fn)(sj, elements_to_coordinate_systems=systems, **kw)
+    got, want = np.asarray(tt.obsm["spatial"]), np.asarray(tj.obsm["spatial"])
+    assert got.dtype == want.dtype == np.float64 and np.array_equal(got, want)
+    assert keys[0] == keys[1] == ["region"]
+    assert list(tt.obs["region"].cat.categories) == list(tj.obs["region"].cat.categories) == ["a", "b"]
+    radius = fn == "spatial_neighbors_radius"
+    if radius:
+        _assert_no_knife_edge(got, (CENTROID_RADIUS,))
+    _assert_same_graph(tt, tj, radius=radius, knn=fn in ("spatial_neighbors", "spatial_neighbors_knn"))
+    adj = tt.obsp["spatial_connectivities"].toarray()
+    in_a = np.asarray(tt.obs["region"]) == "a"
+    assert adj[np.ix_(in_a, ~in_a)].sum() == 0 and adj[in_a][:, in_a].sum() > 0
+
+
+def _circles_case(pkg):
+    rng = np.random.default_rng(0)
+    n = 60
+    centers = rng.uniform(0, 100, size=(n, 2))
+    shapes = pd.DataFrame({"x": centers[:, 0], "y": centers[:, 1], "radius": np.full(n, 2.0)}, index=np.arange(n))
+    table = pkg.AnnData(X=np.zeros((n, 3)), obs=pd.DataFrame({"region": ["cells"] * n, "instance_id": np.arange(n)}))
+    table.uns["spatialdata_attrs"] = {"region": "cells", "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, shapes={"cells": shapes}), table, {"cells": "global"}, 4, centers
+
+
+def _labels_case(pkg):
+    img = np.zeros((40, 40), dtype=np.int32)
+    img[2:6, 2:6] = 1  # centroid (3.5, 3.5)
+    img[10:20, 30:40] = 2  # centroid (34.5, 14.5) in (x, y)
+    img[30:34, 10:18] = 3  # centroid (13.5, 31.5)
+    table = pkg.AnnData(X=np.zeros((3, 2)), obs=pd.DataFrame({"region": ["seg"] * 3, "instance_id": [1, 2, 3]}))
+    table.uns["spatialdata_attrs"] = {"region": "seg", "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, labels={"seg": img}), table, {"seg": "global"}, 2, \
+        np.array([[3.5, 3.5], [34.5, 14.5], [13.5, 31.5]])
+
+
+def _order_case(pkg):
+    centers = np.array([[0.0, 0.0], [10.0, 0.0], [0.0, 10.0], [10.0, 10.0]])
+    shapes = pd.DataFrame({"x": centers[:, 0], "y": centers[:, 1]}, index=[0, 1, 2, 3])
+    order = [2, 0, 3, 1]
+    table = pkg.AnnData(X=np.zeros((4, 1)), obs=pd.DataFrame({"region": ["s"] * 4, "instance_id": order}))
+    table.uns["spatialdata_attrs"] = {"region": "s", "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, shapes={"s": shapes}), table, {"s": "global"}, 2, centers[order]
+
+
+def _regions_case(pkg):
+    rng = np.random.default_rng(1)
+    a = pd.DataFrame({"x": rng.uniform(0, 10, 30), "y": rng.uniform(0, 10, 30)})
+    b = pd.DataFrame({"x": rng.uniform(100, 110, 30), "y": rng.uniform(0, 10, 30)})
+    table = pkg.AnnData(X=np.zeros((60, 1)), obs=pd.DataFrame({"region": ["a"] * 30 + ["b"] * 30,
+                                                               "instance_id": list(range(30)) * 2}))
+    table.uns["spatialdata_attrs"] = {"region": ["a", "b"], "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, shapes={"a": a, "b": b}), table, {"a": "global", "b": "global"}, 3, \
+        np.r_[np.c_[a["x"], a["y"]], np.c_[b["x"], b["y"]]]
+
+
+@pytest.mark.parametrize("case", [_circles_case, _labels_case, _order_case, _regions_case],
+                         ids=["circles", "labels image", "instance order", "two regions"])
+def test_element_centroid_scenarios_match_jax(case):
+    """The JAX package's element-centroid scenarios, in both packages: the
+    centroids it expects, and the same coordinates and kNN graph."""
+    (st, tt, systems, k, expected), (sj, tj, _, _, _) = case(sqt), case(sq)
+    sqt.gr.spatial_neighbors_knn(st, n_neighs=k, elements_to_coordinate_systems=systems)
+    sq.gr.spatial_neighbors_knn(sj, n_neighs=k, elements_to_coordinate_systems=systems)
+    np.testing.assert_allclose(tt.obsm["spatial"], expected)
+    assert np.array_equal(tt.obsm["spatial"], tj.obsm["spatial"])
+    _assert_same_graph(tt, tj, knn=True)
+    if case is _regions_case:  # the region key becomes the library key: no edge across regions
+        adj = tt.obsp["spatial_connectivities"].toarray()
+        assert adj[:30, 30:].sum() == 0 and adj[30:, :30].sum() == 0
+
+
+def _missing_system(pkg):
+    shapes = pd.DataFrame({"x": [0.0, 1.0], "y": [0.0, 1.0]})
+    table = pkg.AnnData(X=np.zeros((2, 1)), obs=pd.DataFrame({"region": ["s", "s"], "instance_id": [0, 1]}))
+    table.uns["spatialdata_attrs"] = {"region": "s", "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, shapes={"s": shapes}), {"other": "global"}
+
+
+def _missing_centroid(pkg):
+    shapes = pd.DataFrame({"x": [0.0, 1.0, 2.0], "y": [0.0, 1.0, 0.5]}, index=[0, 1, 2])
+    table = pkg.AnnData(X=np.zeros((3, 1)), obs=pd.DataFrame({"region": ["s"] * 3, "instance_id": [0, 7, 2]}))
+    table.uns["spatialdata_attrs"] = {"region": "s", "region_key": "region", "instance_key": "instance_id"}
+    return _sdata(pkg, table, shapes={"s": shapes}), {"s": "global"}
+
+
+@pytest.mark.parametrize("case,match", [(_missing_system, "coordinate system"), (_missing_centroid, "no centroid")],
+                         ids=["missing coordinate system", "instance without a centroid"])
+def test_element_centroid_errors_match_jax(case, match):
+    errors = []
+    for pkg in (sqt, sq):
+        sdata, systems = case(pkg)
+        with pytest.raises(ValueError, match=match) as err:
+            pkg.gr.spatial_neighbors_knn(sdata, n_neighs=1, elements_to_coordinate_systems=systems)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+
+
+def test_compute_cell_info_matches_jax():
+    """The port's copy of ``compute_cell_info`` on a random labels image
+    with gaps in its ids: the same labels, centroids and boxes, bitwise."""
+    from squidpy_torch.experimental.im import compute_cell_info as tinfo
+    from squidpy_tpu.experimental.im import compute_cell_info as jinfo
+
+    rng = np.random.default_rng(3)
+    ids = rng.choice(np.arange(1, 10_000), 60, replace=False)
+    img = np.zeros((200, 150), dtype=np.int64)
+    for k in ids:
+        y, x = rng.integers(0, 190), rng.integers(0, 140)
+        img[y : y + rng.integers(1, 10), x : x + rng.integers(1, 10)] = k
+    got, want = tinfo(img), jinfo(img[None])  # JAX squeezes a leading axis; the copy does the same
+    assert sorted(got) == sorted(want) == sorted(int(k) for k in np.unique(img) if k)
+    for k in want:
+        assert got[k].__dict__ == want[k].__dict__
+    assert tinfo(img[None]) == got and tinfo(np.zeros((5, 5), np.int32)) == {}
 
 
 # -- mask_graph --------------------------------------------------------------------
